@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, one line of output each (or a few):
+
+1. device — torch/CUDA versions, ``nvidia-smi`` name and power limit;
+2. build  — compiles every kernel from ``consensus_entropy_tpu_torch/csrc``;
+3. kernel against its plain PyTorch version on the card, small adversarial
+   cases (ragged tiles, ties across tiles, masked tiles, fewer valid rows
+   than k, a member far below the committee max, other class/frame/member
+   counts), with and without the fused top-k, plus a float64 numpy oracle;
+4. the same at full width: M=16 members, N=100,000 songs, K=4 frames,
+   F=260 features, C=4 classes, k=10, ~3% of rows masked;
+5. the slice: ``LinearPoolScorer(impl="kernel")`` for 10 AL iterations of
+   q=10 against ``impl="plain"``, counting kernel launches;
+6. times (CUDA events, median of 50 launches) beside the card's bound.
+
+Every check raises, so any failure exits non-zero and prints no result.
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer  # noqa: E402
+from consensus_entropy_tpu_torch.convert import linear_members_from_jax  # noqa: E402
+from consensus_entropy_tpu_torch.kernels import build, linear_mc  # noqa: E402
+from consensus_entropy_tpu_torch.ops.topk import masked_top_k  # noqa: E402
+
+# The repo's entropy gate (tests/test_pallas_scoring.py): float32 sums taken
+# in another order by the kernel than by the plain version's cuBLAS GEMM.
+RTOL, ATOL = 1e-5, 1e-6
+# BASELINE.json configs[4] / bench.py's defaults for the linear committee.
+M, N, K, F, C, Q, ITERS, SEED = 16, 100_000, 4, 260, 4, 10, 10, 1987
+MASKED_SHARE = 0.03
+# H100 SXM data sheet at 700 W: HBM rate and float32 rate off the tensor
+# cores (the kernel uses no TF32).
+PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+REPS = 50
+
+
+def make_inputs(m, n, k_frames, n_feat, n_class, seed):
+    """bench.py::make_inputs: standard-normal frames, softmax-linear members."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, k_frames, n_feat), np.float32)
+    w = (rng.standard_normal((m, n_feat, n_class), np.float32)
+         / np.float32(np.sqrt(n_feat)))
+    b = rng.standard_normal((m, n_class), np.float32) * np.float32(0.1)
+    return x, w, b
+
+
+def oracle_entropy(x, w, b):
+    """float64 reference chain: per-frame softmax, frame mean, member mean,
+    entropy (amg_test.py:428-447 for linear members)."""
+    n, k_frames, n_feat = x.shape
+    frames = x.reshape(n * k_frames, n_feat).astype(np.float64)
+    per_member = []
+    for m in range(w.shape[0]):
+        logits = frames @ w[m] + b[m]
+        logits -= logits.max(axis=1, keepdims=True)
+        p = np.exp(logits)
+        p /= p.sum(axis=1, keepdims=True)
+        per_member.append(p.reshape(n, k_frames, -1).mean(axis=1))
+    p = np.mean(per_member, axis=0)
+    p /= p.sum(axis=1, keepdims=True)
+    return -np.sum(np.where(p > 0, p * np.log(np.where(p > 0, p, 1)), 0),
+                   axis=1)
+
+
+def check_entropy(got, ref, what):
+    """Same -inf rows, finite elsewhere, within the gate; returns the max
+    absolute error over the finite rows."""
+    g, r = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    if g.shape != r.shape:
+        raise AssertionError(f"{what}: shape {g.shape} != {r.shape}")
+    if not np.array_equal(np.isneginf(g), np.isneginf(r)):
+        raise AssertionError(f"{what}: -inf rows differ")
+    live = ~np.isneginf(r)
+    if not np.all(np.isfinite(g[live])):
+        raise AssertionError(f"{what}: non-finite entropy on a valid row")
+    np.testing.assert_allclose(g[live], r[live], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    return float(np.max(np.abs(g[live] - r[live]), initial=0.0))
+
+
+def check_selection(got, ref, ent_got, ent_ref, what):
+    """Top-k slots agree where values > -inf.  Returns how many slots name
+    another song; each such slot must be a near-tie: both sides' values
+    agree within the gate, and each pick scores the same on the other
+    side's entropies."""
+    v, i = (t.cpu().numpy() for t in got)
+    rv, ri = (t.cpu().numpy() for t in ref)
+    live = rv > -np.inf
+    if not np.array_equal(v > -np.inf, live):
+        raise AssertionError(f"{what}: valid slots differ")
+    np.testing.assert_allclose(v[live], rv[live], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    differ = live & (i != ri)
+    if differ.any():
+        eg, er = ent_got.cpu().numpy(), ent_ref.cpu().numpy()
+        np.testing.assert_allclose(er[i[differ]], rv[differ], rtol=RTOL,
+                                   atol=ATOL, err_msg=what + " (near-tie)")
+        np.testing.assert_allclose(eg[ri[differ]], v[differ], rtol=RTOL,
+                                   atol=ATOL, err_msg=what + " (near-tie)")
+    return int(differ.sum())
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.device_count()} device(s)")
+    print(card)
+    return card
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    wall = time.perf_counter() - t0
+    print(f"[build] {', '.join(logs)} built in {wall:.3f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _case(name, m, n, k_frames, n_feat, n_class, k, seed, mask=None,
+          dup=None, weights=None):
+    """One small case; ``dup`` copies the highest-entropy row to those
+    positions, and the case then expects every valid copy first, in index
+    order (exact ties across tiles, lowest index wins)."""
+    x, w, b = make_inputs(m, n, k_frames, n_feat, n_class, seed)
+    if weights is not None:
+        x, w, b = weights
+    mask = np.ones(n, bool) if mask is None else mask
+    expect_top = None
+    if dup is not None:
+        best = int(np.argmax(oracle_entropy(x, w, b)))
+        x[dup] = x[best]
+        expect_top = sorted(p for p in set(dup) | {best} if mask[p])
+    return name, x, w, b, mask, k, expect_top
+
+
+def small_cases():
+    rng = np.random.default_rng(SEED)
+    masked_tile = np.ones(1200, bool)
+    masked_tile[256:384] = False                  # a whole 128-song tile
+    sparse = np.zeros(300, bool)
+    sparse[[2, 5, 9, 290]] = True                 # fewer valid rows than k
+    x_far = np.zeros((16, 1, 8), np.float32)
+    x_far[:, 0, 0] = 1.0
+    w_far = np.zeros((2, 8, 4), np.float32)
+    w_far[0, 0] = [0.0, 0.0, 0.0, 80.0]           # huge logits
+    w_far[1, 0] = [0.0, 0.0, 0.0, 5.0]            # far below them
+    return [
+        _case("uneven", 3, 50, 2, 12, 4, 8, 1),
+        _case("ties+masked tile", 3, 1200, 2, 12, 4, 6, 2, mask=masked_tile,
+              dup=[5, 130, 500, 1000, 1199]),
+        _case("fewer valid than k", 2, 300, 1, 12, 4, 5, 3, mask=sparse),
+        _case("member far below max", 2, 16, 1, 8, 4, 3, 4,
+              weights=(x_far, w_far, np.zeros((2, 4), np.float32))),
+        _case("C=3", 5, 700, 3, 37, 3, 10, 5, mask=rng.random(700) > 0.2),
+        _case("C=8 K=5 F=70", 4, 260, 5, 70, 8, 10, 6),
+        _case("M=64", 64, 500, 2, 20, 4, 10, 7),
+        _case("M=1", 1, 300, 3, 16, 4, 10, 8),
+        _case("k=128", 3, 200, 1, 12, 4, 128, 9),
+        _case("bench widths", 16, 2000, 4, 260, 4, 10, 10,
+              mask=rng.random(2000) > MASKED_SHARE),
+    ]
+
+
+def phase_small():
+    worst = 0.0
+    cases = small_cases()
+    for name, x, w, b, mask, k, expect_top in cases:
+        m = w.shape[0]
+        xt = torch.from_numpy(x).cuda()
+        w_p, b_p = linear_members_from_jax(w, b, "cuda")
+        mt = torch.from_numpy(mask).cuda()
+        plain = linear_mc.plain_masked_entropy(xt, w_p, b_p, mt, m)
+        ref = masked_top_k(plain, mt, k)
+        for fuse in (False, True):
+            ent, v, i = linear_mc.linear_score_mc(
+                xt, w_p, b_p, mt, n_members=m, k=k, fuse_topk=fuse)
+            torch.cuda.synchronize()
+            what = f"{name}, fuse_topk={fuse}"
+            worst = max(worst, check_entropy(ent, plain, what))
+            if check_selection((v, i), ref, ent, plain, what):
+                raise AssertionError(f"{what}: indices differ")
+            top = i[:len(expect_top or [])].tolist()
+            if expect_top is not None and top != expect_top:
+                raise AssertionError(f"{what}: tie order {top}")
+        if name == "uneven":
+            np.testing.assert_allclose(ent.cpu().numpy(),
+                                       oracle_entropy(x, w, b), rtol=RTOL,
+                                       atol=ATOL, err_msg="float64 oracle")
+    print(f"[small] {len(cases)} cases x fuse_topk {{False, True}}: "
+          f"kernel == plain, indices equal, max |err| {worst:.3e}")
+
+
+def phase_full(x, w, b, mask):
+    xt = torch.from_numpy(x).cuda()
+    w_p, b_p = linear_members_from_jax(w, b, "cuda")
+    mt = torch.from_numpy(mask).cuda()
+    plain = linear_mc.plain_masked_entropy(xt, w_p, b_p, mt, M)
+    ref = masked_top_k(plain, mt, Q)
+    worst, differ = 0.0, {}
+    for fuse in (False, True):
+        ent, v, i = linear_mc.linear_score_mc(xt, w_p, b_p, mt, n_members=M,
+                                              k=Q, fuse_topk=fuse)
+        torch.cuda.synchronize()
+        if ent.shape != (N,) or v.shape != (Q,) or i.shape != (Q,):
+            raise AssertionError("full width: output shapes")
+        what = f"full width, fuse_topk={fuse}"
+        worst = max(worst, check_entropy(ent, plain, what))
+        differ[fuse] = check_selection((v, i), ref, ent, plain, what)
+    print(f"[full] M={M} N={N} K={K} F={F} C={C} k={Q}, "
+          f"{int((~mask).sum())} rows masked: max |err| {worst:.3e}, "
+          f"near-tie slots naming another song {differ}")
+    return xt, w_p, b_p, mt, worst
+
+
+def phase_slice(x, w, b):
+    kern = LinearPoolScorer(x, w, b, impl="kernel")
+    plain = LinearPoolScorer(x, w, b, impl="plain")
+    torch.cuda.synchronize()
+    linear_mc.launches = 0
+    t0 = time.perf_counter()
+    got = [kern.step(Q) for _ in range(ITERS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = linear_mc.launches
+    ref = [plain.step(Q) for _ in range(ITERS)]
+    torch.cuda.synchronize()
+    # The weights are fixed, so each side selects its own entropies in
+    # descending order; once a near-tie splits, the masks differ, so a pick
+    # is checked against the other side's first (unmasked) entropies.
+    differ = 0
+    for it, (g, r) in enumerate(zip(got, ref)):
+        differ += check_selection((g.values, g.indices),
+                                  (r.values, r.indices), got[0].entropy,
+                                  ref[0].entropy, f"slice iteration {it}")
+        if not bool((g.values > -np.inf).all()):
+            raise AssertionError(f"slice iteration {it}: a -inf selection")
+    for name, steps in (("kernel", got), ("plain", ref)):
+        ids = torch.cat([s.indices for s in steps]).unique()
+        if ids.numel() != ITERS * Q:
+            raise AssertionError(f"slice: {name} selected a song twice")
+    left = int(kern.pool_mask.sum()), int(plain.pool_mask.sum())
+    if left != (N - ITERS * Q,) * 2:
+        raise AssertionError(f"slice: masks count {left}")
+    if launches != ITERS:
+        raise AssertionError(f"slice: {launches} kernel launches for "
+                             f"{ITERS} iterations")
+    print(f"[slice] {ITERS} iterations x q={Q}: selections agree "
+          f"({differ} near-tie slots name another song), masks count "
+          f"{left[0]}, kernel launches {launches}, "
+          f"{wall / ITERS * 1e3:.3f} ms per iteration (host clock)")
+    return launches, kern
+
+
+def time_ms(fn):
+    """Median of REPS launches, each bracketed by CUDA events."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def phase_times(xt, w_p, b_p, mt, scorer, card):
+    mc = M * C
+    n_tiles = -(-N // linear_mc.TILE_SONGS)
+    x2d = xt.view(N * K, F)
+    kernel0 = time_ms(lambda: linear_mc._launch(xt, w_p, b_p, mt, M, 0))
+    kernel_k = time_ms(lambda: linear_mc._launch(xt, w_p, b_p, mt, M, Q))
+    wrapper = time_ms(lambda: linear_mc.linear_score_mc(
+        xt, w_p, b_p, mt, n_members=M, k=Q, fuse_topk=True))
+    plain = time_ms(lambda: masked_top_k(
+        linear_mc.plain_masked_entropy(xt, w_p, b_p, mt, M), mt, Q))
+    library = time_ms(lambda: torch.matmul(x2d, w_p))
+    flat_v = linear_mc._launch(xt, w_p, b_p, mt, M, Q)[1].reshape(-1)
+    merge = time_ms(lambda: masked_top_k(
+        flat_v, torch.ones_like(flat_v, dtype=torch.bool), Q))
+    # One AL iteration of the slice as the user runs it (the mask keeps
+    # shrinking: 55 more steps of q songs).
+    step = time_ms(lambda: scorer.step(Q))
+    # Each input read once, each output written once.
+    n_bytes = (4 * (N * K * F + F * mc + mc) + N + 4 * N
+               + n_tiles * Q * (4 + 8))
+    # 2 per multiply-add of the logits, and the per-logit softmax work (bias,
+    # mean, shift, clamp, exp, sum, divide, accumulate) counted as 8.
+    n_flop = 2 * N * K * F * mc + 8 * N * K * mc
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    flop_ms = n_flop / PEAK_F32_FLOP_S * 1e3
+    bound_ms = max(bytes_ms, flop_ms)
+    bound_by = "bytes" if bytes_ms >= flop_ms else "operations"
+    print(f"[times] {card}: kernel n_cand=0 {kernel0:.4f} ms, n_cand={Q} "
+          f"{kernel_k:.4f} ms, wrapper with merge {wrapper:.4f} ms, plain "
+          f"(entropy + top-k) {plain:.4f} ms, library torch.matmul "
+          f"(N*K, F) @ (F, M*C) alone {library:.4f} ms")
+    print(f"[times] slice step (kernel, merge of {n_tiles * Q} candidates, "
+          f"mask update) {step:.4f} ms, merge alone {merge:.4f} ms")
+    print(f"[times] per launch {n_bytes} B ({bytes_ms:.4f} ms at 3.35 TB/s), "
+          f"{n_flop} FLOP ({flop_ms:.4f} ms at 67 TFLOP/s f32): bound "
+          f"{bound_ms:.4f} ms by {bound_by}; kernel at "
+          f"{bound_ms / kernel_k:.1%} of it")
+    return {"ms": kernel_k, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library}
+
+
+def main():
+    card = phase_device()
+    phase_build()
+    phase_small()
+    x, w, b = make_inputs(M, N, K, F, C, SEED)
+    mask = np.random.default_rng(SEED + 1).random(N) >= MASKED_SHARE
+    xt, w_p, b_p, mt, max_err = phase_full(x, w, b, mask)
+    launches, scorer = phase_slice(x, w, b)
+    times = phase_times(xt, w_p, b_p, mt, scorer, card)
+    print(json.dumps({"kernels": [{
+        "name": "linear_mc", "route": "cuda",
+        "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
+        "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
+        "launches": launches, "max_abs_err": max_err, **times}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""The port stands alone: it imports no JAX and nothing of the JAX package,
+and it never falls back to the CPU on its own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from consensus_entropy_tpu_torch import resolve_device
+from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "consensus_entropy_tpu_torch")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "consensus_entropy_tpu"):
+    sys.modules[name] = None          # any import of them now fails
+import consensus_entropy_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "flax", "consensus_entropy_tpu")))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 10   # the walk found the modules
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_package_import_in_port_or_chip_smoke():
+    sources = list(_port_sources())
+    assert len(sources) >= 12
+    for path in sources:
+        for name in _imported_roots(path):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax",
+                                "consensus_entropy_tpu"), (path, name)
+
+
+def test_default_device_is_the_card_and_never_falls_back():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        LinearPoolScorer([[[0.0]]], [[[0.0]]], [[0.0]])
+    assert resolve_device("cpu") == torch.device("cpu")
