@@ -6,7 +6,9 @@
 Phases, one line of output each (or a few):
 
 1. device — torch/CUDA versions, ``nvidia-smi`` name and power limit;
-2. build  — compiles every kernel from ``consensus_entropy_tpu_torch/csrc``;
+2. build  — compiles every kernel from ``consensus_entropy_tpu_torch/csrc``
+   and counts the tensor-core instructions (``HGMMA``/``HMMA``) in each
+   library's SASS;
 3. kernel against its plain PyTorch version on the card, small adversarial
    cases (ragged tiles, ties across tiles, masked tiles, fewer valid rows
    than k, a member far below the committee max, other class/frame/member
@@ -15,7 +17,9 @@ Phases, one line of output each (or a few):
    F=260 features, C=4 classes, k=10, ~3% of rows masked;
 5. the slice: ``LinearPoolScorer(impl="kernel")`` for 10 AL iterations of
    q=10 against ``impl="plain"``, counting kernel launches;
-6. times (CUDA events, median of 50 launches) beside the card's bound.
+6. times (CUDA events, median of 50 launches; the slice step and its parts
+   over 400) beside two bounds: float32 off the tensor cores, and the
+   kernel's own design (3xTF32 on the tensor cores, bound by bytes).
 
 Every check raises, so any failure exits non-zero and prints no result.
 The line before the last is the kernel table as JSON; the last line is
@@ -24,6 +28,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -37,7 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer  # noqa: E402
 from consensus_entropy_tpu_torch.convert import linear_members_from_jax  # noqa: E402
 from consensus_entropy_tpu_torch.kernels import build, linear_mc  # noqa: E402
-from consensus_entropy_tpu_torch.ops.topk import masked_top_k  # noqa: E402
+from consensus_entropy_tpu_torch.ops.topk import masked_top_k, reveal_mask_update  # noqa: E402
 
 # The repo's entropy gate (tests/test_pallas_scoring.py): float32 sums taken
 # in another order by the kernel than by the plain version's cuBLAS GEMM.
@@ -45,10 +50,13 @@ RTOL, ATOL = 1e-5, 1e-6
 # BASELINE.json configs[4] / bench.py's defaults for the linear committee.
 M, N, K, F, C, Q, ITERS, SEED = 16, 100_000, 4, 260, 4, 10, 10, 1987
 MASKED_SHARE = 0.03
-# H100 SXM data sheet at 700 W: HBM rate and float32 rate off the tensor
-# cores (the kernel uses no TF32).
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+# H100 SXM data sheet at 700 W: HBM rate, float32 rate off the tensor
+# cores, and the dense TF32 tensor-core rate the kernel's 3xTF32 runs at.
+PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_TF32_FLOP_S = 3.35e12, 67e12, 495e12
 REPS = 50
+# The slice step and its host-side parts move more between runs than the
+# kernel: more repetitions.
+STEP_REPS = 400
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -133,15 +141,40 @@ def phase_device():
     return card
 
 
+def tensor_core_instructions(name):
+    """Lines of ``cuobjdump -sass`` on the built library that hold HGMMA
+    (wgmma) or HMMA (mma.sync) instructions."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path(name)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return {op: sum(f" {op}." in line or f" {op} " in line
+                    for line in sass.splitlines())
+            for op in ("HGMMA", "HMMA")}
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
     wall = time.perf_counter() - t0
     print(f"[build] {', '.join(logs)} built in {wall:.3f} s")
     for name, log in logs.items():
+        # ptxas -v: per instantiation (wgmma width N), registers and spills.
+        for block in log.split("Compiling entry function")[1:]:
+            width = re.search(r"ILi(\d+)E", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            print(f"[build] {name} N={width and width.group(1)}: "
+                  f"{regs and regs.group(1)} registers, "
+                  f"{spill and spill.group(1)} B of spill stores")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "arning" in line or "C75" in line:
+                print(f"[build] {name}: {line.strip()[:160]}")
+    tc = tensor_core_instructions("linear_mc")
+    print(f"[build] linear_mc SASS: {tc['HGMMA']} HGMMA, {tc['HMMA']} HMMA "
+          f"instructions")
+    if not tc["HGMMA"] + tc["HMMA"]:
+        raise AssertionError("linear_mc: no tensor-core instruction in SASS")
 
 
 def _case(name, m, n, k_frames, n_feat, n_class, k, seed, mask=None,
@@ -279,13 +312,13 @@ def phase_slice(x, w, b):
     return launches, kern
 
 
-def time_ms(fn):
-    """Median of REPS launches, each bracketed by CUDA events."""
+def time_ms(fn, reps=REPS):
+    """Median of ``reps`` calls, each bracketed by CUDA events."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -296,8 +329,32 @@ def time_ms(fn):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def phase_times(xt, w_p, b_p, mt, scorer, card):
+def bounds_ms():
+    """The least time one launch could take at the slice's shapes, two ways:
+    the float32 design (the product on the CUDA cores) and this kernel's
+    (3xTF32 on the tensor cores), each the larger of bytes and operations.
+    Each input is read once and each output written once."""
     mc = M * C
+    n_tiles = -(-N // linear_mc.TILE_SONGS)
+    n_bytes = (4 * (N * K * F + F * mc + mc) + N + 4 * N
+               + n_tiles * Q * (4 + 8))
+    gemm_flop = 2 * N * K * F * mc
+    # The per-logit softmax work (bias, mean, shift, clamp, exp, sum,
+    # divide, accumulate) counted as 8 operations, on the CUDA cores.
+    softmax_flop = 8 * N * K * mc
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    f32_ms = (gemm_flop + softmax_flop) / PEAK_F32_FLOP_S * 1e3
+    tf32_ms = (3 * gemm_flop / PEAK_TF32_FLOP_S
+               + softmax_flop / PEAK_F32_FLOP_S) * 1e3
+    return {"bytes": n_bytes, "bytes_ms": bytes_ms,
+            "f32_flop": gemm_flop + softmax_flop, "f32_ms": f32_ms,
+            "tf32_flop": 3 * gemm_flop + softmax_flop, "tf32_ms": tf32_ms,
+            "bound_f32_ms": max(bytes_ms, f32_ms),
+            "bound_ms": max(bytes_ms, tf32_ms),
+            "bound_by": "bytes" if bytes_ms >= tf32_ms else "operations"}
+
+
+def phase_times(xt, w_p, b_p, mt, scorer, card):
     n_tiles = -(-N // linear_mc.TILE_SONGS)
     x2d = xt.view(N * K, F)
     kernel0 = time_ms(lambda: linear_mc._launch(xt, w_p, b_p, mt, M, 0))
@@ -309,32 +366,38 @@ def phase_times(xt, w_p, b_p, mt, scorer, card):
     library = time_ms(lambda: torch.matmul(x2d, w_p))
     flat_v = linear_mc._launch(xt, w_p, b_p, mt, M, Q)[1].reshape(-1)
     merge = time_ms(lambda: masked_top_k(
-        flat_v, torch.ones_like(flat_v, dtype=torch.bool), Q))
+        flat_v, torch.ones_like(flat_v, dtype=torch.bool), Q),
+        STEP_REPS)
+    _, values, indices = linear_mc.linear_score_mc(
+        xt, w_p, b_p, mt, n_members=M, k=Q, fuse_topk=True)
+    spare = mt.clone()
+    update = time_ms(lambda: reveal_mask_update(spare, values, indices),
+                     STEP_REPS)
     # One AL iteration of the slice as the user runs it (the mask keeps
-    # shrinking: 55 more steps of q songs).
-    step = time_ms(lambda: scorer.step(Q))
-    # Each input read once, each output written once.
-    n_bytes = (4 * (N * K * F + F * mc + mc) + N + 4 * N
-               + n_tiles * Q * (4 + 8))
-    # 2 per multiply-add of the logits, and the per-logit softmax work (bias,
-    # mean, shift, clamp, exp, sum, divide, accumulate) counted as 8.
-    n_flop = 2 * N * K * F * mc + 8 * N * K * mc
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    flop_ms = n_flop / PEAK_F32_FLOP_S * 1e3
-    bound_ms = max(bytes_ms, flop_ms)
-    bound_by = "bytes" if bytes_ms >= flop_ms else "operations"
+    # shrinking: STEP_REPS + 5 more steps of q songs).
+    step = time_ms(lambda: scorer.step(Q), STEP_REPS)
+    bd = bounds_ms()
     print(f"[times] {card}: kernel n_cand=0 {kernel0:.4f} ms, n_cand={Q} "
           f"{kernel_k:.4f} ms, wrapper with merge {wrapper:.4f} ms, plain "
           f"(entropy + top-k) {plain:.4f} ms, library torch.matmul "
           f"(N*K, F) @ (F, M*C) alone {library:.4f} ms")
     print(f"[times] slice step (kernel, merge of {n_tiles * Q} candidates, "
-          f"mask update) {step:.4f} ms, merge alone {merge:.4f} ms")
-    print(f"[times] per launch {n_bytes} B ({bytes_ms:.4f} ms at 3.35 TB/s), "
-          f"{n_flop} FLOP ({flop_ms:.4f} ms at 67 TFLOP/s f32): bound "
-          f"{bound_ms:.4f} ms by {bound_by}; kernel at "
-          f"{bound_ms / kernel_k:.1%} of it")
-    return {"ms": kernel_k, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library}
+          f"mask update) {step:.4f} ms over {STEP_REPS}; step - kernel "
+          f"{step - kernel_k:.4f} ms; timed alone, each with its own launch "
+          f"and sync: merge {merge:.4f} ms, mask update {update:.4f} ms")
+    print(f"[times] per launch {bd['bytes']} B ({bd['bytes_ms']:.4f} ms at "
+          f"3.35 TB/s); float32 design {bd['f32_flop']} FLOP "
+          f"({bd['f32_ms']:.4f} ms at 67 TFLOP/s): bound "
+          f"{bd['bound_f32_ms']:.4f} ms, kernel at "
+          f"{bd['bound_f32_ms'] / kernel_k:.1%} of it")
+    print(f"[times] 3xTF32 design: {bd['tf32_flop']} FLOP ({bd['tf32_ms']:.4f}"
+          f" ms: 3 products at 495 TFLOP/s, softmax at 67 TFLOP/s): bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; kernel at "
+          f"{bd['bound_ms'] / kernel_k:.1%} of it")
+    return {"ms": kernel_k, "ms_n_cand_0": kernel0, "plain_ms": plain,
+            "bound_ms": bd["bound_ms"], "bound_f32_ms": bd["bound_f32_ms"],
+            "bound_by": bd["bound_by"], "library_ms": library,
+            "step_ms": step, "merge_ms": merge, "mask_update_ms": update}
 
 
 def main():
@@ -347,7 +410,7 @@ def main():
     launches, scorer = phase_slice(x, w, b)
     times = phase_times(xt, w_p, b_p, mt, scorer, card)
     print(json.dumps({"kernels": [{
-        "name": "linear_mc", "route": "cuda",
+        "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
         "launches": launches, "max_abs_err": max_err, **times}]}))

@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels from ``csrc/*.cu`` at first use.
 
 Each source compiles with ``nvcc`` into a C-ABI shared library under
-``consensus_entropy_tpu_torch/_build/``, named after a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  There is no prebuilt binary: without ``nvcc`` the build raises.
+``consensus_entropy_tpu_torch/_build/``, named after a hash of every file
+under ``csrc/`` (``*.cu``, ``*.cuh``, ``*.h``) and the flags, so an edited
+source or header is rebuilt and an unchanged tree is reused.  There is no prebuilt binary: without ``nvcc`` the build raises.
 
     python -m consensus_entropy_tpu_torch.kernels.build   # build them all
 """
@@ -41,9 +41,14 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> str:
-    """Where the library for the current source of ``name`` lives."""
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for the current sources of ``name`` lives: the
+    hash covers ``name``, every source and header under ``csrc/`` (a header
+    may be included by any kernel) and the flags."""
+    digest = hashlib.sha256(" ".join((name, *NVCC_FLAGS)).encode())
+    for fname in sorted(os.listdir(SRC_DIR)):
+        if fname.endswith((".cu", ".cuh", ".h")):
+            with open(os.path.join(SRC_DIR, fname), "rb") as f:
+                digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -33,6 +33,29 @@ MAX_FUSED_K = 128
 #: Launches of the CUDA kernel; set it to 0 to count a run.
 launches = 0
 
+#: What the kernel takes (``csrc/linear_mc.cu``): a song's frames fit one
+#: 64-row tensor-core block, the member columns one ``wgmma`` (N <= 256),
+#: and the weights, split into TF32 hi and lo, fit shared memory with the
+#: feature ring and the logit scratch.
+MAX_FRAMES = 64
+MAX_MEMBER_COLUMNS = 256
+MAX_CLASSES = 8
+SMEM_LIMIT = 232_448            # bytes a block may opt in to on sm_90
+
+
+def smem_bytes(n_feat: int, mc: int) -> int:
+    """Shared memory a block of the kernel needs, as ``smem_bytes`` in
+    ``csrc/linear_mc.cu`` counts it: alignment slack, a ring of 6 boxes of
+    64 x 32 floats, W hi and lo ``(N_pad, F_pad)`` with F padded to whole
+    32-feature boxes, 2 x 64 x 36 logit floats, the bias, two tiles of
+    entropies and the ring barriers."""
+    n_pad = 8
+    while n_pad < mc:
+        n_pad *= 2
+    f_pad = -(-n_feat // 32) * 32
+    return (1024 + 6 * 64 * 32 * 4 + 2 * n_pad * f_pad * 4
+            + 2 * 64 * 36 * 4 + n_pad * 4 + 2 * TILE_SONGS * 4 + 2 * 6 * 8)
+
 
 def pack_weights(w: torch.Tensor, b: torch.Tensor):
     """Per-member ``(M, F, C)`` / ``(M, C)`` -> column-packed ``(F, M*C)`` /
@@ -71,6 +94,17 @@ def validate(x, w_packed, b_packed, mask, n_members: int) -> None:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
                          f"{tuple(w_packed.shape)}, b {tuple(b_packed.shape)}, "
                          f"M={n_members}")
+    k_frames, n_class = x.shape[1], mc // n_members
+    if (k_frames > MAX_FRAMES or mc > MAX_MEMBER_COLUMNS
+            or n_class > MAX_CLASSES):
+        raise ValueError(f"the kernel takes K <= {MAX_FRAMES} frames, "
+                         f"M*C <= {MAX_MEMBER_COLUMNS} and C <= "
+                         f"{MAX_CLASSES}; got K={k_frames}, M*C={mc}, "
+                         f"C={n_class}")
+    if smem_bytes(n_feat, mc) > SMEM_LIMIT:
+        raise ValueError(f"W of F={n_feat} x M*C={mc} does not fit shared "
+                         f"memory as TF32 hi and lo: the kernel needs "
+                         f"{smem_bytes(n_feat, mc)} B of {SMEM_LIMIT}")
     if tuple(mask.shape) != (n,) or mask.dtype != torch.bool:
         raise ValueError(f"mask must be bool ({n},); got {mask.dtype} "
                          f"{tuple(mask.shape)}")
@@ -92,8 +126,6 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 7
         + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.linear_mc_launch.restype = ctypes.c_int
-    lib.linear_mc_max_classes.argtypes = []
-    lib.linear_mc_max_classes.restype = ctypes.c_int
     lib.linear_mc_error_string.argtypes = [ctypes.c_int]
     lib.linear_mc_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,10 +142,6 @@ def _launch(x, w_packed, b_packed, mask, n_members: int, n_cand: int):
     n, k_frames, n_feat = x.shape
     n_class = w_packed.shape[1] // n_members
     lib = _library()
-    if n_class > lib.linear_mc_max_classes():
-        raise ValueError(f"the kernel takes at most "
-                         f"{lib.linear_mc_max_classes()} classes, got "
-                         f"{n_class}")
     n_tiles = -(-n // TILE_SONGS)
     ent = torch.empty(n, dtype=torch.float32, device=x.device)
     cand_v = torch.empty((n_tiles, n_cand), dtype=torch.float32,

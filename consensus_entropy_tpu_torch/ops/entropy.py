@@ -2,8 +2,8 @@
 
 Counterpart of ``consensus_entropy_tpu/ops/entropy.py``: normalise each row
 to sum to 1, then return ``-sum(p * log(p))`` in nats with ``0 * log 0 = 0``.
-A row that sums to zero gives NaN, as scipy does and as the JAX docstring
-states (the JAX function itself returns 0 there).
+A row that sums to zero gives 0, as the JAX function does (its 0/0 NaN fails
+``p > 0``), and as the CUDA kernel does; scipy gives NaN there.
 """
 
 from __future__ import annotations
@@ -13,8 +13,10 @@ import torch
 
 def shannon_entropy(pk: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Entropy of (unnormalised) non-negative distributions along ``dim``."""
-    # entr(p) = -p log p, entr(0) = 0, and a 0/0 row stays NaN.
-    return torch.special.entr(pk / pk.sum(dim=dim, keepdim=True)).sum(dim=dim)
+    p = pk / pk.sum(dim=dim, keepdim=True)
+    live = p > 0        # False for 0 and for the NaN of a zero-sum row
+    plogp = torch.where(live, p * torch.log(torch.where(live, p, 1.0)), 0.0)
+    return -plogp.sum(dim=dim)
 
 
 def masked_entropy(pk: torch.Tensor, valid_mask: torch.Tensor,

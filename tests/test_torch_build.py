@@ -27,6 +27,21 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch):
     assert os.path.basename(first).startswith("k-")
 
 
+def test_library_name_follows_a_header(tmp_path, monkeypatch):
+    # An edited header must not reuse a library built from the old one.
+    monkeypatch.setattr(build, "SRC_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    header = tmp_path / "k.cuh"
+    header.write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    header.write_text("// two\n")
+    assert build.library_path("k") != first
+    (tmp_path / "other.h").write_text("// three\n")
+    assert build.library_path("k") not in (first, build.library_path("other"))
+
+
 def test_a_build_that_cannot_run_raises(tmp_path, monkeypatch):
     # Without nvcc the build raises; with one, this source fails to compile
     # and the build raises with the compiler's log.  Either way no library.

@@ -223,11 +223,19 @@ def _bad_inputs(case):
         x = torch.zeros(8, 5, 2).transpose(1, 2)
     elif case == "rank":
         x = x.reshape(16, 5)
+    elif case == "frames":            # a song must fit one 64-row block
+        x = torch.zeros(8, linear_mc.MAX_FRAMES + 1, 5)
+    elif case == "columns":           # M*C must fit one wgmma (N <= 256)
+        w, b, n_members = torch.zeros(5, 260), torch.zeros(260), 65
+    elif case == "weights_too_big":   # W hi and lo over 227 KB of smem
+        x, w, b = torch.zeros(8, 2, 400), torch.zeros(400, 64), torch.zeros(64)
+        n_members = 16
     return x, w, b, mask, n_members
 
 
 @pytest.mark.parametrize("case", ["features", "bias", "members", "mask_shape",
-                                  "mask_dtype", "dtype", "contiguity", "rank"])
+                                  "mask_dtype", "dtype", "contiguity", "rank",
+                                  "frames", "columns", "weights_too_big"])
 def test_shape_validation(case):
     x, w, b, mask, n_members = _bad_inputs(case)
     with pytest.raises(ValueError):
@@ -246,6 +254,13 @@ def test_jax_rejects_what_the_port_rejects(rng):
         linear_mc.linear_score_mc(
             torch.from_numpy(x[..., :-1].copy()), port_w, port_b,
             torch.ones(50, dtype=torch.bool), n_members=3, k=2)
+
+
+def test_slice_shapes_fit_the_kernel():
+    # configs[4]: M=16, C=4, F=260 needs 217,440 B of the 232,448 B limit.
+    assert linear_mc.smem_bytes(260, 64) == 217_440 <= linear_mc.SMEM_LIMIT
+    assert linear_mc.smem_bytes(20, 256) <= linear_mc.SMEM_LIMIT
+    assert linear_mc.smem_bytes(400, 64) > linear_mc.SMEM_LIMIT
 
 
 def test_fused_k_limit():

@@ -42,13 +42,13 @@ def test_shannon_entropy_matches_jax(rng):
     p[4] = [0, 0, 1, 0]       # 0 log 0 = 0
     ref = np.asarray(jax_entropy.shannon_entropy(p))
     got = entropy.shannon_entropy(torch.from_numpy(p)).numpy()
-    np.testing.assert_allclose(got, scipy_entropy(p, axis=1), rtol=RTOL,
-                               atol=ATOL, equal_nan=True)
-    # A zero row is NaN, as scipy and the JAX docstring say; the JAX
-    # function returns 0 there, so it is held on the other rows.
-    assert np.isnan(got[3]) and got[4] == 0.0 and ref[3] == 0.0
+    # A zero row is 0, as the JAX function (and the CUDA kernel) give it;
+    # scipy gives NaN there and is held on the other rows.
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert got[3] == 0.0 == ref[3] and got[4] == 0.0
     live = np.arange(40) != 3
-    np.testing.assert_allclose(got[live], ref[live], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got[live], scipy_entropy(p, axis=1)[live],
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_shannon_entropy_along_dim_matches_jax(rng):
