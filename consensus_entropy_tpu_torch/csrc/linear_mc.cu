@@ -48,9 +48,6 @@
 //   tile's entropies; taken slots become NaN, which never compares greater
 //   or equal, so each pass picks a new row.  Tiles write in tile order, so
 //   a stable merge keeps "lowest global index wins".
-// What the card showed (PERF.md, clock64 phases): the main loops of the
-// two warpgroups, which take turns on the ring, fill most of the run; the
-// epilogue hides under the other warpgroup's main loop.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -60,21 +57,6 @@
 #include <cstdint>
 
 #include "wgmma_tf32.cuh"
-
-// Built with -DLINEAR_MC_PROFILE (kernels/profile_linear_mc.py), the
-// consumers count clock64 cycles per block and warpgroup in five slots:
-// waits for their turn on the ring, main loops, epilogues, tile ends
-// (barrier and ranking), and the whole run.  Off by default: no cost.
-#ifdef LINEAR_MC_PROFILE
-__device__ long long linear_mc_cycles[1024][2][5];
-#define PROFILE_MARK(var) const long long var = clock64()
-#define PROFILE_ADD(slot, since)                                          \
-  if (threadIdx.x % 128 == 0)                                             \
-  linear_mc_cycles[blockIdx.x][wg][slot] += clock64() - (since)
-#else
-#define PROFILE_MARK(var)
-#define PROFILE_ADD(slot, since)
-#endif
 
 namespace {
 
@@ -262,10 +244,16 @@ __device__ __forceinline__ void softmax_in_place(float* z, const float* b,
 // song's K frames in the lanes g, g + 1, ... of one row half.  Each sum is
 // a fixed butterfly (every lane gets the same bits) or a fixed loop:
 // classes, then frames, then members by column block j, then by lane.
-// The slice's shape is compiled in (CT, KT); otherwise every butterfly
-// runs its full length and adds 0 on the steps it does not need: a branch
-// around a shuffle would keep the N / 4 independent softmaxes of a thread
-// from interleaving, and the epilogue is bound by latency then.
+// With C and K known at run time (CT = KT = 0) every butterfly runs its
+// full length and adds 0 on the steps it does not need: a branch around a
+// shuffle would keep the N / 4 independent softmaxes of a thread from
+// interleaving, and the epilogue is bound by latency then.  With CT and KT
+// compiled in, the steps not needed are not emitted.  The slice's
+// (C, K) = (4, 4) (four emotion quadrants, bench.py's four frames per
+// song) is compiled in: the kernel then takes 0.276-0.278 ms at configs[4]
+// scale, against 0.314 ms with the run-time shape (H100 SXM at 700 W,
+// chip_smoke.py run alternately with and without it; PERF.md, run G).
+// Both give the same bits: a step that adds 0 leaves a finite sum as it is.
 template <int N, int CT, int KT>
 __device__ void epilogue_in_registers(const Params& p, const float* acc,
                                       const float* bias, long long tile0,
@@ -428,7 +416,6 @@ __device__ void consume(const Params& p, int wg, const unsigned char* stages,
   uint32_t taken = 0;       // boxes the ring has delivered to either
   int group = 0;            // groups of this block so far
   int tile_count = 0;
-  PROFILE_MARK(run_start);
 
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++tile_count) {
     const long long tile0 = t * p.tile;
@@ -489,10 +476,7 @@ __device__ void consume(const Params& p, int wg, const unsigned char* stages,
       // wholly past F, which TMA fills with zeros (A = 0 adds nothing).  Any
       // branch around the loads or the wgmma would make ptxas serialize
       // every wgmma.
-      PROFILE_MARK(turn_start);
       if (group > 0) named_sync(5 + wg, CONSUMERS * 128);
-      PROFILE_ADD(0, turn_start);
-      PROFILE_MARK(main_start);
       uint32_t a_hi[4][4], a_lo[4][4], b_hi[4][4], b_lo[4][4];
       load(a_hi, a_lo);
       issue(a_hi, a_lo, 0);
@@ -506,8 +490,6 @@ __device__ void consume(const Params& p, int wg, const unsigned char* stages,
       }
       named_arrive(5 + (1 - wg), CONSUMERS * 128);   // the other's turn
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      PROFILE_ADD(1, main_start);
-      PROFILE_MARK(epilogue_start);
 
       if (p.epilogue_in_registers) {
         if (C == 4 && p.k_frames == 4)
@@ -516,7 +498,6 @@ __device__ void consume(const Params& p, int wg, const unsigned char* stages,
         else
           epilogue_in_registers<N, 0, 0>(p, acc, bias, tile0, s0, tile_valid,
                                          es, warp, lane);
-        PROFILE_ADD(2, epilogue_start);
         continue;
       }
       // Epilogue: this warpgroup's songs s0 + [0, spw), song s on rows
@@ -598,18 +579,15 @@ __device__ void consume(const Params& p, int wg, const unsigned char* stages,
         p.ent[song] = v;
         es[in_tile] = v;
       }
-      PROFILE_ADD(2, epilogue_start);
     }
 
     // The warpgroup that took the tile's last group ranks the tile once the
     // other has arrived with its entropies.  Its warp 0 reads them into
     // registers at once (the other warpgroup cannot write this parity's
     // buffer again before this one takes its next turn).
-    PROFILE_MARK(tile_end_start);
     const int tile_bar = 3 + (tile_count & 1);
     if (((group - 1) & 1) != wg) {
       named_arrive(tile_bar, CONSUMERS * 128);
-      PROFILE_ADD(3, tile_end_start);
       continue;
     }
     named_sync(tile_bar, CONSUMERS * 128);
@@ -651,9 +629,7 @@ __device__ void consume(const Params& p, int wg, const unsigned char* stages,
           if (lane + 32 * i == bi) v[i] = gone;
       }
     }
-    PROFILE_ADD(3, tile_end_start);
   }
-  PROFILE_ADD(4, run_start);
 }
 
 template <int N>
@@ -806,18 +782,6 @@ int linear_mc_launch(const void* x, const void* w, const void* b,
     default: return launch<256>(p, st);
   }
 }
-
-#ifdef LINEAR_MC_PROFILE
-// Copies the cycle counters (1024 x 2 x 5) to `out` and clears them.
-int linear_mc_profile_read(long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, linear_mc_cycles,
-                                         sizeof(linear_mc_cycles));
-  static long long zeros[1024][2][5];
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(linear_mc_cycles, zeros, sizeof(zeros));
-  return (int)err;
-}
-#endif
 
 const char* linear_mc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

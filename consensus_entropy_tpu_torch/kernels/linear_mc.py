@@ -41,20 +41,28 @@ MAX_FRAMES = 64
 MAX_MEMBER_COLUMNS = 256
 MAX_CLASSES = 8
 SMEM_LIMIT = 232_448            # bytes a block may opt in to on sm_90
+#: The kernel's shared-memory layout, under the names ``csrc/linear_mc.cu``
+#: gives them (``tests/test_torch_linear_mc.py`` holds the two in step).
+CONSUMERS = 2                   # warpgroups, each with its logit scratch
+STAGES = 6                      # feature boxes in the ring
+BOX_ROWS = 64                   # rows per box: one m64 row block
+BOX_F = 32                      # features per box: 128 B
+LOGIT_STRIDE = 36               # floats per row of logit scratch
 
 
 def smem_bytes(n_feat: int, mc: int) -> int:
     """Shared memory a block of the kernel needs, as ``smem_bytes`` in
-    ``csrc/linear_mc.cu`` counts it: alignment slack, a ring of 6 boxes of
-    64 x 32 floats, W hi and lo ``(N_pad, F_pad)`` with F padded to whole
-    32-feature boxes, 2 x 64 x 36 logit floats, the bias, two tiles of
-    entropies and the ring barriers."""
+    ``csrc/linear_mc.cu`` counts it: alignment slack, the ring of boxes,
+    W hi and lo ``(N_pad, F_pad)`` with F padded to whole boxes, each
+    warpgroup's logit scratch, the bias, two tiles of entropies and the
+    ring barriers."""
     n_pad = 8
     while n_pad < mc:
         n_pad *= 2
-    f_pad = -(-n_feat // 32) * 32
-    return (1024 + 6 * 64 * 32 * 4 + 2 * n_pad * f_pad * 4
-            + 2 * 64 * 36 * 4 + n_pad * 4 + 2 * TILE_SONGS * 4 + 2 * 6 * 8)
+    f_pad = -(-n_feat // BOX_F) * BOX_F
+    return (1024 + STAGES * BOX_ROWS * BOX_F * 4 + 2 * n_pad * f_pad * 4
+            + CONSUMERS * BOX_ROWS * LOGIT_STRIDE * 4 + n_pad * 4
+            + 2 * TILE_SONGS * 4 + 2 * STAGES * 8)
 
 
 def pack_weights(w: torch.Tensor, b: torch.Tensor):

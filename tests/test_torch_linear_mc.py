@@ -7,13 +7,16 @@ The CUDA kernel itself is held against the plain version on the card by
 chip_smoke.py.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from consensus_entropy_tpu.experimental import pallas_scoring
 from consensus_entropy_tpu_torch import convert
-from consensus_entropy_tpu_torch.kernels import linear_mc
+from consensus_entropy_tpu_torch.kernels import build, linear_mc
 
 # The repo's entropy gate (tests/test_pallas_scoring.py): float32 sums taken
 # in another order than the Pallas kernel's.
@@ -261,6 +264,30 @@ def test_slice_shapes_fit_the_kernel():
     assert linear_mc.smem_bytes(260, 64) == 217_440 <= linear_mc.SMEM_LIMIT
     assert linear_mc.smem_bytes(20, 256) <= linear_mc.SMEM_LIMIT
     assert linear_mc.smem_bytes(400, 64) > linear_mc.SMEM_LIMIT
+
+
+def _cuda_constants() -> dict:
+    """The ``constexpr`` integers at the top of ``csrc/linear_mc.cu``, each
+    evaluated from the ones before it."""
+    with open(os.path.join(build.SRC_DIR, "linear_mc.cu")) as f:
+        text = f.read()
+    found = {}
+    for name, expr in re.findall(
+            r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", text, re.M):
+        found[name] = eval(expr, {"__builtins__": {}}, dict(found))
+    return found
+
+
+@pytest.mark.parametrize("cuda_name,python_name", [
+    ("CONSUMERS", "CONSUMERS"), ("STAGES", "STAGES"),
+    ("BOX_ROWS_MAX", "BOX_ROWS"), ("BOX_F", "BOX_F"),
+    ("LOGIT_STRIDE", "LOGIT_STRIDE"), ("MAX_TILE", "TILE_SONGS"),
+    ("MAX_SMEM", "SMEM_LIMIT"), ("MAX_FRAMES", "MAX_FRAMES"),
+    ("MAX_CLASSES", "MAX_CLASSES"), ("MAX_N", "MAX_MEMBER_COLUMNS")])
+def test_validate_uses_the_kernel_layout(cuda_name, python_name):
+    # validate() sizes shared memory with the Python names; the kernel's
+    # source is the authority.
+    assert _cuda_constants()[cuda_name] == getattr(linear_mc, python_name)
 
 
 def test_fused_k_limit():
