@@ -22,7 +22,24 @@ Phases, one line of output each (or a few):
 6. times (CUDA events, median of 50 launches; the slice step over 400; its
    merge and mask update per call over 200 back to back) beside two bounds:
    float32 off the tensor cores, and the kernel's own design (3xTF32 on the
-   tensor cores, bound by bytes).
+   tensor cores, bound by bytes);
+7. members: the closed-form committee (8 GaussianNB, 8 SGD-logistic members
+   from seeded parameters) scores the same 100,000-song pool on the card,
+   held against a float64 numpy oracle (GNB rtol 1e-3 / atol 1e-5, SGD
+   rtol 1e-4 / atol 1e-6, tests/test_device_members.py), with its peak
+   device memory;
+8. acquire: for each of the six modes, an ``Acquirer`` on the card and one
+   on the CPU run 10 fused selects on the same probs (the member table, and
+   a seeded 20-forward table for qbdc), mc also unfused: equal song ids
+   except at near-ties, whose slot values agree within the entropy gate;
+   rand ids exactly equal; 10 valid slots each select; equal-weight wmc
+   bit-identical to mc on the card, random weights reordering a slot; the
+   device masks equal the host masks at the end; no kernel launched;
+9. acquisition times: the member pass (CUDA-event median of 50) beside its
+   bounds, ms per ``Acquirer.select`` per mode (host clock over 50 selects
+   ending in a synchronize, median of 5 rounds), and each mode's device
+   busy share over ten selects from ``torch.profiler`` ("not measured" if
+   it sees no device time).
 
 Every check raises, so any failure exits non-zero and prints no result.
 The line before the last is the kernel table as JSON; the last line is
@@ -42,10 +59,25 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from consensus_entropy_tpu_torch import acquire  # noqa: E402
+from consensus_entropy_tpu_torch.al.acquisition import Acquirer  # noqa: E402
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer  # noqa: E402
-from consensus_entropy_tpu_torch.convert import linear_members_from_jax  # noqa: E402
+from consensus_entropy_tpu_torch.config import ALConfig  # noqa: E402
+from consensus_entropy_tpu_torch.convert import (  # noqa: E402
+    device_members_from_numpy,
+    linear_members_from_jax,
+)
 from consensus_entropy_tpu_torch.kernels import build, linear_mc  # noqa: E402
-from consensus_entropy_tpu_torch.ops.topk import masked_top_k, reveal_mask_update  # noqa: E402
+from consensus_entropy_tpu_torch.models.committee import (  # noqa: E402
+    DeviceMemberCommittee,
+    FramePool,
+)
+from consensus_entropy_tpu_torch.ops.scoring import make_scoring_fns  # noqa: E402
+from consensus_entropy_tpu_torch.ops.topk import (  # noqa: E402
+    masked_top_k,
+    reveal_mask_update,
+    valid_count,
+)
 
 # The repo's entropy gate (tests/test_pallas_scoring.py): float32 sums taken
 # in another order by the kernel than by the plain version's cuBLAS GEMM.
@@ -67,6 +99,13 @@ STEP_REPS = 400
 # The step's parts (merge, mask update) are too short for events around each
 # call: LOOP_CALLS back-to-back calls between one pair, median of LOOP_ROUNDS.
 LOOP_CALLS, LOOP_ROUNDS = 200, 25
+# The acquisition slice on the same pool: 8 GaussianNB and 8 SGD-logistic
+# members, the hc table's seed (bench.py::make_hc_table), qbdc's K forwards.
+G_MEMBERS, S_MEMBERS, HC_SEED, QBDC_K = 8, 8, 2021, ALConfig().qbdc_k
+# tests/test_device_members.py:31,40: GNB's float32 expanded Mahalanobis
+# form cancels (ROADMAP C5), SGD-OvA does not.
+GNB_TOL, SGD_TOL = {"rtol": 1e-3, "atol": 1e-5}, {"rtol": 1e-4, "atol": 1e-6}
+SELECT_REPS, SELECT_ROUNDS, SELECT_WARMUP, PROFILED_SELECTS = 50, 5, 5, 10
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -443,6 +482,280 @@ def phase_times(xt, w_p, b_p, mt, scorer, card):
             "step_ms": step}
 
 
+def make_member_params(seed=SEED):
+    """The closed-form committee's parameters: GaussianNB theta ~ N(0, 0.5^2),
+    var ~ U(0.5, 2), priors from a flat Dirichlet; SGD-logistic coef ~
+    N(0, 1/F), intercept ~ N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.5, (G_MEMBERS, C, F)).astype(np.float32),
+            rng.uniform(0.5, 2.0, (G_MEMBERS, C, F)).astype(np.float32),
+            np.log(rng.dirichlet(np.ones(C), G_MEMBERS)).astype(np.float32),
+            rng.normal(0, F ** -0.5, (S_MEMBERS, C, F)).astype(np.float32),
+            rng.normal(0, 0.1, (S_MEMBERS, C)).astype(np.float32))
+
+
+def make_hc_table(n_pool, n_class, seed=HC_SEED):
+    """bench.py::make_hc_table: annotator quadrant frequencies, 3 decimals."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 20, size=(n_pool, n_class)).astype(np.float64)
+    counts[:, 0] += 1
+    freq = counts / counts.sum(axis=1, keepdims=True)
+    return np.round(freq, 3).astype(np.float32)
+
+
+def oracle_member_probs(x, params):
+    """float64 numpy of the same formulas: per-frame GaussianNB posteriors
+    and OvA sigmoids (L1-normalised), then the mean over each song's K
+    frames -> (G+S, N, C)."""
+    theta, var, log_prior, coef, intercept = (p.astype(np.float64)
+                                              for p in params)
+    n, k_frames, n_feat = x.shape
+    frames = x.reshape(n * k_frames, n_feat).astype(np.float64)
+    squares = frames * frames
+    out = []
+    for g in range(theta.shape[0]):
+        inv_var = 1.0 / var[g]
+        jll = (log_prior[g] - 0.5 * np.log(2 * np.pi * var[g]).sum(1)
+               - 0.5 * (squares @ inv_var.T
+                        - 2.0 * frames @ (theta[g] * inv_var).T
+                        + (theta[g] ** 2 * inv_var).sum(1)))
+        jll -= jll.max(axis=1, keepdims=True)
+        p = np.exp(jll)
+        out.append(p / p.sum(axis=1, keepdims=True))
+    for s in range(coef.shape[0]):
+        p = 1.0 / (1.0 + np.exp(-(frames @ coef[s].T + intercept[s])))
+        out.append(p / p.sum(axis=1, keepdims=True))
+    return np.stack([p.reshape(n, k_frames, -1).mean(axis=1) for p in out])
+
+
+def phase_members(x):
+    """The device-member committee over the slice's pool on the card."""
+    params = make_member_params()
+    committee = DeviceMemberCommittee(device_members_from_numpy(*params))
+    pool = FramePool(x.reshape(N * K, F), np.repeat(np.arange(N), K))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    table = committee.score_pool(pool)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if table.shape != (G_MEMBERS + S_MEMBERS, N, C):
+        raise AssertionError(f"members: shape {tuple(table.shape)}")
+    got = table.double().cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError("members: non-finite probabilities")
+    ref = oracle_member_probs(x, params)
+    gnb, sgd = slice(0, G_MEMBERS), slice(G_MEMBERS, None)
+    np.testing.assert_allclose(got[gnb], ref[gnb], **GNB_TOL,
+                               err_msg="members: GaussianNB vs oracle")
+    np.testing.assert_allclose(got[sgd], ref[sgd], **SGD_TOL,
+                               err_msg="members: SGD-OvA vs oracle")
+    err = {kind: float(np.abs(got[sl] - ref[sl]).max())
+           for kind, sl in (("gnb", gnb), ("sgd", sgd))}
+    live = np.sort(np.random.default_rng(SEED).choice(N, 300, replace=False))
+    staged = committee.pool_probs(pool, live.tolist(), pad_to=512)
+    want = table.index_select(1, torch.from_numpy(live).to(table.device))
+    if not (torch.equal(staged[:, :300], want)
+            and torch.equal(staged[:, 300:],
+                            want[:, -1:].expand(-1, 212, -1))):
+        raise AssertionError("members: pool_probs columns or staging tail")
+    print(f"[members] {G_MEMBERS} GaussianNB + {S_MEMBERS} SGD-OvA over "
+          f"N={N} songs x K={K} frames, F={F}: (16, N, C) within the "
+          f"oracle's tolerances, max |err| GNB {err['gnb']:.3e}, SGD "
+          f"{err['sgd']:.3e}; staged columns and tail exact")
+    return committee, pool, table, {"peak": peak, "base": base, **err}
+
+
+def _select(acq, probs=None):
+    """``Acquirer.select`` through its seam, keeping the scoring result."""
+    fn_key, inputs = acq.scoring_inputs(probs)
+    res = acq.run_scoring(fn_key, inputs)
+    return acq.finish_select(res), res
+
+
+def _twins_match(acq):
+    d = acq.device
+    ok = np.array_equal(d.pool_mask.cpu().numpy(), acq.pool_mask)
+    if acq.strategy.uses_hc_table:
+        ok &= np.array_equal(d.hc_mask.cpu().numpy(), acq.hc_mask)
+    return ok
+
+
+def _compare_slots(card, host, what):
+    """Card and CPU results of one select: same valid slots, values within
+    the gate; returns how many slots name another row (near-ties)."""
+    v, i = card.values.cpu().numpy(), card.indices.cpu().numpy()
+    rv, ri = host.values.numpy(), host.indices.numpy()
+    live = rv > -np.inf
+    if not np.array_equal(v > -np.inf, live):
+        raise AssertionError(f"{what}: valid slots differ")
+    np.testing.assert_allclose(v[live], rv[live], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    return int((live & (i != ri)).sum())
+
+
+def run_pair(mode, tables, hc, fuse, weights=None):
+    """A card and a CPU ``Acquirer`` through ITERS selects on the same probs
+    (each gathers its own live columns of the table on its device)."""
+    songs = list(range(N))
+    card = Acquirer(songs, hc, queries=Q, mode=mode, seed=SEED,
+                    fuse_step=fuse)
+    host = Acquirer(songs, hc, queries=Q, mode=mode, seed=SEED,
+                    fuse_step=fuse, device="cpu")
+    table = tables.get("qbdc" if mode == "qbdc" else "members")
+    near, card_ids = 0, []
+    for it in range(ITERS):
+        out = []
+        for acq in (card, host):
+            if weights is not None:
+                acq.member_weights = weights[it]
+            probs = None
+            if acq.strategy.needs_probs:
+                t = table[acq.torch_device.type]
+                probs = t.index_select(1, torch.from_numpy(
+                    np.flatnonzero(acq.pool_mask)).to(t.device))
+            out.append(_select(acq, probs))
+        (ids, res), (host_ids, host_res) = out
+        what = f"acquire {mode} fuse_step={fuse} iteration {it}"
+        for r in (res, host_res):
+            if int(valid_count(r.values)) != Q:
+                raise AssertionError(f"{what}: valid_count != {Q}")
+        if mode == "rand":
+            if not (ids == host_ids and torch.equal(res.values.cpu(),
+                                                    host_res.values)):
+                raise AssertionError(f"{what}: rand draws differ")
+        near += _compare_slots(res, host_res, what)
+        card_ids.append(res.indices.cpu())
+    if fuse and not (_twins_match(card) and _twins_match(host)):
+        raise AssertionError(f"acquire {mode}: device masks != host masks")
+    return card_ids, near
+
+
+def phase_acquire(table):
+    """All six modes, card against CPU, on the member table (qbdc: a
+    seeded table of K dropout forwards)."""
+    hc = make_hc_table(N, C)
+    qbdc = np.random.default_rng(SEED + 2).dirichlet(
+        np.ones(C), (QBDC_K, N)).astype(np.float32)
+    tables = {"members": {"cuda": table, "cpu": table.cpu()},
+              "qbdc": {"cuda": torch.from_numpy(qbdc).cuda(),
+                       "cpu": torch.from_numpy(qbdc)}}
+    fns = make_scoring_fns(k=Q)
+    full = torch.ones(N, dtype=torch.bool, device=table.device)
+    mc = fns["mc"](table, full)
+    wmc = fns["wmc"](table, full, torch.ones(table.shape[0],
+                                             device=table.device))
+    if not all(torch.equal(a, b) for a, b in zip(mc, wmc)):
+        raise AssertionError("acquire: equal-weight wmc != mc on the card")
+    weights = np.random.default_rng(SEED + 3).uniform(
+        0.05, 1.0, (ITERS, table.shape[0])).astype(np.float32)
+    linear_mc.launches = 0
+    near, ids = {}, {}
+    for mode in acquire.available_modes():
+        ids[mode], near[mode] = run_pair(
+            mode, tables, hc, True, weights if mode == "wmc" else None)
+    _, near["mc unfused"] = run_pair("mc", tables, hc, False)
+    launches = linear_mc.launches
+    if launches:
+        raise AssertionError(f"acquire: {launches} linear_mc launches")
+    reordered = sum(int((a != b).sum()) for a, b in zip(ids["wmc"], ids["mc"]))
+    if not reordered:
+        raise AssertionError("acquire: wmc weights reordered no slot vs mc")
+    print(f"[acquire] 6 modes x {ITERS} fused selects of q={Q} at N={N}, "
+          f"card vs CPU on the same probs (mc also unfused): valid_count "
+          f"{Q} every select, rand ids equal, slots naming another song "
+          f"(near-ties within the gate) {near}; equal-weight wmc == mc bit "
+          f"for bit; random weights moved {reordered} wmc slots vs mc; "
+          f"device masks == host masks; kernel launches on this path "
+          f"{launches} (it runs no hand kernel)")
+    return tables, hc
+
+
+def device_busy(acq, probs):
+    """Profile PROFILED_SELECTS selects: the union of device-side event
+    intervals, as a share of the span of all traced events and in ms per
+    select; ``None`` when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_SELECTS):
+            acq.select(probs)
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    return busy / window, busy / 1e3 / PROFILED_SELECTS
+
+
+def member_bounds():
+    """The member pass's least time: bytes (frames, parameters, the frame
+    -> song index, the table written) and float32 operations (the three
+    GEMM families of F-long dot products, on the CUDA cores)."""
+    m, n_frames = G_MEMBERS + S_MEMBERS, N * K
+    n_bytes = (4 * n_frames * F + 4 * (3 * G_MEMBERS + 2 * S_MEMBERS) * C * F
+               + 8 * n_frames + 4 * m * N * C)
+    flop = 2 * n_frames * F * C * (2 * G_MEMBERS + S_MEMBERS)
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    flop_ms = flop / PEAK_F32_FLOP_S * 1e3
+    return n_bytes, bytes_ms, flop, flop_ms
+
+
+def phase_acquire_times(committee, pool, tables, hc, mem, card):
+    table = tables["members"]["cuda"]
+    member_ms = time_ms(lambda: committee.score_pool(pool))
+    n_bytes, bytes_ms, flop, flop_ms = member_bounds()
+    bound = max(bytes_ms, flop_ms)
+    print(f"[acq-times] {card}: member pass (16, N={N}, C) {member_ms:.4f} ms"
+          f" (median of {REPS}); bound {bound:.4f} ms by "
+          f"{'bytes' if bytes_ms >= flop_ms else 'operations'} ({n_bytes} B"
+          f" = {bytes_ms:.4f} ms at 3.35 TB/s; {flop} FLOP = {flop_ms:.4f} ms"
+          f" at 67 TFLOP/s), pass at {bound / member_ms:.1%} of it; peak "
+          f"device memory {mem['peak'] / 2**20:.1f} MiB, "
+          f"{(mem['peak'] - mem['base']) / 2**20:.1f} MiB above the "
+          f"{mem['base'] / 2**20:.1f} MiB held before the phase")
+    per_mode, busy = {}, {}
+    for mode in acquire.available_modes():
+        acq = Acquirer(list(range(N)), hc, queries=Q, mode=mode, seed=SEED)
+        t = tables["qbdc" if mode == "qbdc" else "members"]["cuda"]
+        # the table at full width: its first n_live columns stand for the
+        # live songs, the same work as the loop's gather, without it
+        probs = t if acq.strategy.needs_probs else None
+        for _ in range(SELECT_WARMUP):
+            acq.select(probs)
+        rounds = []
+        for _ in range(SELECT_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SELECT_REPS):
+                acq.select(probs)
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) / SELECT_REPS * 1e3)
+        per_mode[mode] = (statistics.median(rounds), min(rounds), max(rounds))
+        busy[mode] = device_busy(acq, probs)
+    print(f"[acq-times] {card}: ms per Acquirer.select, fused, N={N}, q={Q} "
+          f"(host clock over {SELECT_REPS} selects ending in a synchronize, "
+          f"median of {SELECT_ROUNDS} rounds (min-max), after "
+          f"{SELECT_WARMUP}): " + ", ".join(
+              f"{m} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f})"
+              for m, v in per_mode.items()))
+    print(f"[acq-times] {card}: device busy share over {PROFILED_SELECTS} "
+          f"selects (torch.profiler; device ms per select): " + (
+              "not measured (no device events)" if busy["mc"] is None
+              else ", ".join(f"{m} {b[0]:.1%} ({b[1]:.4f} ms)"
+                             for m, b in busy.items())))
+    share = busy["mc"] and busy["mc"][0]
+    return member_ms, per_mode, share
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -452,6 +765,11 @@ def main():
     xt, w_p, b_p, mt, max_err = phase_full(x, w, b, mask)
     launches, scorer = phase_slice(x, w, b)
     times = phase_times(xt, w_p, b_p, mt, scorer, card)
+    del xt, w_p, b_p, mt, scorer
+    torch.cuda.empty_cache()
+    committee, pool, table, mem = phase_members(x)
+    tables, hc = phase_acquire(table)
+    phase_acquire_times(committee, pool, tables, hc, mem, card)
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",

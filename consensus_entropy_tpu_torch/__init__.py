@@ -7,15 +7,21 @@ module of the JAX package.  Its entry points run on ``cuda`` unless the
 caller passes ``device="cpu"`` (see :func:`device.resolve_device`); on a CPU
 tensor every kernel wrapper runs its plain PyTorch version instead.
 
-Ported so far (mc acquisition over a committee of softmax-linear members):
+Ported so far:
 
-- ``ops.entropy``, ``ops.topk``, ``ops.scoring`` — the selection step;
-- ``ops.device_members.linear_softmax_probs`` — the plain member forward;
+- ``ops.entropy``, ``ops.topk``, ``ops.scoring`` — the selection step of
+  every acquisition mode (mc, hc, mix, rand, qbdc, wmc), fused and not;
+- ``prng`` — threefry-2x32, bit-equal with ``jax.random``;
+- ``ops.device_members``, ``models.committee`` — the closed-form members
+  (GaussianNB, SGD-logistic, softmax-linear) and the device-member
+  committee over a ``FramePool``;
+- ``acquire`` and ``al.acquisition.Acquirer`` — the mode registry and the
+  per-user acquisition state that maps selections to song ids;
 - ``kernels.linear_mc`` + ``csrc/linear_mc.cu`` — the fused
-  consensus-entropy kernel;
-- ``convert`` — carries JAX-layout weights across;
-- ``al.linear_pool.LinearPoolScorer`` — the AL acquisition loop over a
-  device-resident pool.
+  consensus-entropy kernel for softmax-linear members, and
+  ``al.linear_pool.LinearPoolScorer``, the AL loop over it;
+- ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
+  and JAX-layout weights, member parameters and keys carried across.
 """
 
 from consensus_entropy_tpu_torch.device import resolve_device

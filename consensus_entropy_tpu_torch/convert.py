@@ -1,4 +1,5 @@
-"""Carry committee weights from the JAX package's layouts to the port's.
+"""Carry committee weights and PRNG keys from the JAX package's layouts to
+the port's.
 
 Inputs are array-likes (numpy arrays, or JAX arrays, which ``np.asarray``
 reads without this module importing JAX).
@@ -9,8 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.device import resolve_device
 from consensus_entropy_tpu_torch.kernels.linear_mc import pack_weights
+from consensus_entropy_tpu_torch.ops.device_members import MemberStacks
 
 
 def linear_members_from_jax(w, b, device=None):
@@ -54,3 +57,38 @@ def from_jax_packed(w_packed, b_packed, pack: int, n_members: int,
     dev = resolve_device(device)
     return (torch.from_numpy(block.copy()).to(dev),
             torch.from_numpy(b[:mc].copy()).to(dev), n_members // pack)
+
+
+def device_members_from_numpy(gnb_theta, gnb_var, gnb_log_prior, sgd_coef,
+                              sgd_intercept, device=None) -> MemberStacks:
+    """The closed-form members' stacked parameters -> the port's float32
+    :class:`MemberStacks` on ``device``.
+
+    The arrays are those the JAX ``Committee._device_member_probs`` stacks
+    from fitted estimators (``models/committee.py:900-912``): per
+    GaussianNB member ``theta_``, ``var_`` and ``log(class_prior_)``, per
+    SGD-logistic member ``coef_`` and ``intercept_``.  Shapes ``(G, C, F)``
+    twice, ``(G, C)``, ``(S, C, F)``, ``(S, C)``; ``G`` or ``S`` may be 0.
+    """
+    arrays = [np.asarray(a, np.float32) for a in
+              (gnb_theta, gnb_var, gnb_log_prior, sgd_coef, sgd_intercept)]
+    theta, coef = arrays[0], arrays[3]
+    g, c, f = theta.shape if theta.ndim == 3 else (None,) * 3
+    s = coef.shape[0] if coef.ndim else None
+    want = [(g, c, f), (g, c, f), (g, c), (s, c, f), (s, c)]
+    if [a.shape for a in arrays] != want:
+        raise ValueError("expected (G, C, F) theta and var, (G, C) log "
+                         "prior, (S, C, F) coef and (S, C) intercept; got "
+                         f"{[a.shape for a in arrays]}")
+    dev = resolve_device(device)
+    return MemberStacks(*(torch.from_numpy(a.copy()).to(dev)
+                          for a in arrays))
+
+
+def key_from_jax(key_data, device=None) -> torch.Tensor:
+    """A JAX threefry key's ``(2,)`` uint32 data (``jax.random.key_data``,
+    or the nested list ``ALState`` persists) -> the port's key."""
+    words = np.asarray(key_data)
+    if words.shape != (2,) or words.min() < 0 or words.max() > 0xFFFFFFFF:
+        raise ValueError(f"expected two uint32 words, got {words!r}")
+    return prng.wrap_key_data(words, device)

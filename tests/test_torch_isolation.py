@@ -9,7 +9,8 @@ import sys
 import pytest
 import torch
 
-from consensus_entropy_tpu_torch import resolve_device
+from consensus_entropy_tpu_torch import convert, prng, resolve_device
+from consensus_entropy_tpu_torch.al.acquisition import Acquirer
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +36,7 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 10   # the walk found the modules
+    assert int(out.stdout.split()[-1]) >= 22   # the walk found the modules
 
 
 def _imported_roots(path):
@@ -56,7 +57,7 @@ def _port_sources():
 
 def test_no_jax_package_import_in_port_or_chip_smoke():
     sources = list(_port_sources())
-    assert len(sources) >= 12
+    assert len(sources) >= 25
     for path in sources:
         for name in _imported_roots(path):
             root = name.split(".")[0]
@@ -74,4 +75,13 @@ def test_default_device_is_the_card_and_never_falls_back():
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         LinearPoolScorer([[[0.0]]], [[[0.0]]], [[0.0]])
+    with pytest.raises(RuntimeError):
+        Acquirer([1, 2], None, queries=1, mode="mc")
+    with pytest.raises(RuntimeError):
+        prng.key(0)
+    with pytest.raises(RuntimeError):
+        convert.key_from_jax([0, 1])
+    with pytest.raises(RuntimeError):
+        convert.device_members_from_numpy(*[[[[0.0]]]] * 2, [[0.0]],
+                                          [[[0.0]]], [[0.0]])
     assert resolve_device("cpu") == torch.device("cpu")
