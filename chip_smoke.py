@@ -39,19 +39,41 @@ Phases, one line of output each (or a few):
    bounds, ms per ``Acquirer.select`` per mode (host clock over 50 selects
    ending in a synchronize, median of 5 rounds), and each mode's device
    busy share over ten selects from ``torch.profiler`` ("not measured" if
-   it sees no device time).
+   it sees no device time);
+10. al-loop: one user's AL loop at the same scale through ``ALLoop.
+    run_user`` (8 GaussianNB + 8 SGD members fitted by the port's own
+    ``fit`` on seeded labelled sets, scored on the card with
+    ``device_members``; q=10, 10 iterations, train size 0.85) for mc, hc,
+    mix, rand and wmc, each into a fresh workspace: queried songs disjoint,
+    the pool shrinking by q, finite F1s, the state at ``next_epoch`` 10,
+    iteration 0's selection against the same loop on the CPU (rand ids
+    equal; per-slot values within the entropy gate, near-ties counted);
+    the median ms of each ``StepTimer`` phase and of the whole iteration,
+    and the device busy share over one steady mc iteration;
+11. al-cli: ``cli.amg_test.main`` end to end on an AMG1608-shaped tree
+    this script writes (1608 songs of 4-8 frames, the 260 feature columns,
+    ``.mat`` annotations, a registry of 5 GaussianNB + 5 SGD members from
+    the port's ``fit``), on the card and on the CPU: equal ``metrics.jsonl``;
+    then a run killed by ``CETPU_FAULTS=state.save:kill@2`` and its rerun
+    reach the uninterrupted run's metrics and state.
 
 Every check raises, so any failure exits non-zero and prints no result.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero.
 """
 
+import contextlib
+import copy
+import csv
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,16 +84,29 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from consensus_entropy_tpu_torch import acquire  # noqa: E402
 from consensus_entropy_tpu_torch.al.acquisition import Acquirer  # noqa: E402
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer  # noqa: E402
-from consensus_entropy_tpu_torch.config import ALConfig  # noqa: E402
+from consensus_entropy_tpu_torch.al import state as al_state  # noqa: E402
+from consensus_entropy_tpu_torch.al.loop import ALLoop, UserData  # noqa: E402
+from consensus_entropy_tpu_torch.cli import amg_test  # noqa: E402
+from consensus_entropy_tpu_torch.config import (  # noqa: E402
+    FEATURE_SLICE_START,
+    FEATURE_SLICE_STOP,
+    ALConfig,
+)
 from consensus_entropy_tpu_torch.convert import (  # noqa: E402
     device_members_from_numpy,
     linear_members_from_jax,
 )
 from consensus_entropy_tpu_torch.kernels import build, linear_mc  # noqa: E402
 from consensus_entropy_tpu_torch.models.committee import (  # noqa: E402
+    Committee,
     DeviceMemberCommittee,
     FramePool,
 )
+from consensus_entropy_tpu_torch.models.members import (  # noqa: E402
+    GNBMember,
+    SGDMember,
+)
+from consensus_entropy_tpu_torch.obs.metrics import StepTimer  # noqa: E402
 from consensus_entropy_tpu_torch.ops.scoring import make_scoring_fns  # noqa: E402
 from consensus_entropy_tpu_torch.ops.topk import (  # noqa: E402
     masked_top_k,
@@ -106,6 +141,20 @@ G_MEMBERS, S_MEMBERS, HC_SEED, QBDC_K = 8, 8, 2021, ALConfig().qbdc_k
 # form cancels (ROADMAP C5), SGD-OvA does not.
 GNB_TOL, SGD_TOL = {"rtol": 1e-3, "atol": 1e-5}, {"rtol": 1e-4, "atol": 1e-6}
 SELECT_REPS, SELECT_ROUNDS, SELECT_WARMUP, PROFILED_SELECTS = 50, 5, 5, 10
+# The AL loop (phase 10): BASELINE.json configs[4]'s iteration, the modes
+# the port's committee of host members runs (qbdc needs a CNN member).
+AL_EPOCHS, TRAIN_SIZE, AL_MODES = 10, 0.85, ("mc", "hc", "mix", "rand", "wmc")
+# Labelled rows each member is fitted on (its own seeded draw), the class
+# centres' spread, and the steady iteration traced for the busy share.
+GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 5
+TIMED_PHASES = ("score", "select", "update_host", "evaluate", "checkpoint",
+                "ckpt_join")
+# The CLI (phase 11) at AMG1608's shape: songs, frames per song, annotators
+# and each one's chance to annotate a song, registry members of each kind.
+AMG_SONGS, AMG_FRAMES, AMG_USERS, ANNOTATE_P, REG_MEMBERS = (
+    1608, (4, 9), 6, 0.3, 5)
+CLI_ARGS = ["-q", "10", "-e", "10", "-m", "mc", "-n", "150", "--max-users",
+            "2"]
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -671,17 +720,10 @@ def phase_acquire(table):
     return tables, hc
 
 
-def device_busy(acq, probs):
-    """Profile PROFILED_SELECTS selects: the union of device-side event
-    intervals, as a share of the span of all traced events and in ms per
-    select; ``None`` when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_SELECTS):
-            acq.select(probs)
-        torch.cuda.synchronize()
+def busy_share(prof, n_units):
+    """The union of a profile's device-side event intervals, as a share of
+    the span of all its events and in ms per unit of work; ``None`` when
+    the profiler recorded no device time."""
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -693,7 +735,19 @@ def device_busy(acq, probs):
         end = max(end, hi)
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events))
-    return busy / window, busy / 1e3 / PROFILED_SELECTS
+    return busy / window, busy / 1e3 / n_units
+
+
+def device_busy(acq, probs):
+    """Profile PROFILED_SELECTS selects (see ``busy_share``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_SELECTS):
+            acq.select(probs)
+        torch.cuda.synchronize()
+    return busy_share(prof, PROFILED_SELECTS)
 
 
 def member_bounds():
@@ -756,6 +810,319 @@ def phase_acquire_times(committee, pool, tables, hc, mem, card):
     return member_ms, per_mode, share
 
 
+
+def labelled_rows(rng, centers, n):
+    """``n`` frames around the class centres, every class present."""
+    y = np.arange(n) % C
+    rng.shuffle(y)
+    x = (rng.standard_normal((n, centers.shape[1]), np.float32)
+         + centers[y])
+    return x.astype(np.float32), y
+
+
+def fit_members(centers, n_each, seed):
+    """``n_each`` GaussianNB and ``n_each`` SGD members, each fitted by the
+    port's own ``fit`` on its own seeded labelled draw."""
+    members = []
+    for i in range(n_each):
+        x, y = labelled_rows(np.random.default_rng(seed + i), centers,
+                             GNB_FIT_ROWS)
+        members.append(GNBMember(f"gnb.it_{i}").fit(x, y))
+    for i in range(n_each):
+        x, y = labelled_rows(np.random.default_rng(seed + 100 + i), centers,
+                             SGD_FIT_ROWS)
+        members.append(SGDMember(f"sgd.it_{i}", seed=i).fit(x, y))
+    return members
+
+
+class IterTimer(StepTimer):
+    """``StepTimer`` that also records each iteration's wall time (between
+    flushes) and traces one iteration (``PROFILED_EPOCH``) with
+    ``torch.profiler``."""
+
+    def __init__(self, profile_epoch=None):
+        super().__init__(None)
+        self.t = time.perf_counter()
+        self.profile_epoch = profile_epoch
+        self.prof, self.busy = None, None
+
+    def flush(self, **labels):
+        epoch = labels.get("epoch")
+        if self.prof is not None and epoch == self.profile_epoch:
+            torch.cuda.synchronize()
+            self.prof.stop()
+            self.busy = busy_share(self.prof, 1)
+            self.prof = None
+        rec = super().flush(**labels)
+        now = time.perf_counter()
+        rec["iteration_s"], self.t = now - self.t, now
+        if self.profile_epoch is not None and epoch == self.profile_epoch - 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+        return rec
+
+
+def run_al_user(mode, members, data, path, device, epochs, profile=False):
+    """One user's ``ALLoop.run_user``, recording every scoring result the
+    acquirer returns; returns (scoring results, timer, result)."""
+    os.makedirs(path)
+    committee = Committee(copy.deepcopy(members), device_members=True,
+                          device=device)
+    timer = IterTimer(PROFILED_EPOCH if profile else None)
+    loop = ALLoop(ALConfig(queries=Q, epochs=epochs, mode=mode,
+                           train_size=TRAIN_SIZE, seed=SEED), device=device)
+    picks, run = [], Acquirer.run_scoring
+
+    def recording(acq, fn_key, inputs):
+        res = run(acq, fn_key, inputs)
+        picks.append(res)
+        return res
+
+    Acquirer.run_scoring = recording
+    try:
+        return picks, timer, loop.run_user(committee, data, path,
+                                           timer=timer)
+    finally:
+        Acquirer.run_scoring = run
+
+
+def read_metrics(path):
+    """A user's ``metrics.jsonl``, the last record of each epoch."""
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {r["epoch"]: r for r in recs if "event" not in r}
+
+
+def check_al_run(mode, path, data, n_train):
+    """Queried songs disjoint and off the test split, the pool shrinking by
+    q, finite F1s, the state committed through the last iteration."""
+    recs = read_metrics(path)
+    if sorted(recs) != list(range(-1, AL_EPOCHS)):
+        raise AssertionError(f"al-loop {mode}: epochs {sorted(recs)}")
+    st = al_state.ALState.load(path)
+    if st.next_epoch != AL_EPOCHS:
+        raise AssertionError(f"al-loop {mode}: next_epoch {st.next_epoch}")
+    test = set(st.test_songs)
+    seen = set()
+    for e in range(AL_EPOCHS):
+        q = recs[e]["queried"]
+        if len(q) != Q or seen & set(q) or test & set(q):
+            raise AssertionError(f"al-loop {mode} iteration {e}: queried "
+                                 "songs repeat or leave the train split")
+        seen |= set(q)
+        if recs[e]["pool_size"] != n_train - Q * (e + 1):
+            raise AssertionError(f"al-loop {mode} iteration {e}: pool size "
+                                 f"{recs[e]['pool_size']}")
+    for e, r in recs.items():
+        if len(r["f1"]) != 2 * G_MEMBERS or not np.all(np.isfinite(r["f1"])):
+            raise AssertionError(f"al-loop {mode} epoch {e}: F1s {r['f1']}")
+    return recs
+
+
+def phase_al_loop(x, card):
+    """The AL loop at configs[4] scale on the card, each mode against the
+    same loop on the CPU at iteration 0."""
+    rng = np.random.default_rng(SEED + 4)
+    centers = rng.normal(0, CENTER_SD, (C, F)).astype(np.float32)
+    labels = rng.integers(0, C, N)
+    frames = (x + centers[labels][:, None, :]).reshape(N * K, F)
+    pool = FramePool(frames, np.repeat(np.arange(N), K))
+    del frames
+    data = UserData("synthetic", pool, dict(enumerate(labels.tolist())),
+                    hc_rows=make_hc_table(N, C))
+    t0 = time.perf_counter()
+    members = fit_members(centers, G_MEMBERS, SEED + 5)
+    fit_s = time.perf_counter() - t0
+    n_train = int(round(TRAIN_SIZE * N))
+    stats, near = {}, {}
+    busy = None
+    with tempfile.TemporaryDirectory() as root:
+        for mode in AL_MODES:
+            linear_mc.launches = 0
+            picks, timer, res = run_al_user(
+                mode, members, data, os.path.join(root, mode, "cuda"),
+                "cuda", AL_EPOCHS, profile=mode == "mc")
+            launches = linear_mc.launches
+            if launches:
+                raise AssertionError(f"al-loop {mode}: {launches} linear_mc "
+                                     "launches on a path without the kernel")
+            recs = check_al_run(mode, os.path.join(root, mode, "cuda"), data,
+                                n_train)
+            cpu_picks, _, _ = run_al_user(
+                mode, members, data, os.path.join(root, mode, "cpu"), "cpu",
+                1)
+            cpu_recs = read_metrics(os.path.join(root, mode, "cpu"))
+            what = f"al-loop {mode} iteration 0, card vs CPU"
+            near[mode] = _compare_slots(picks[0], cpu_picks[0], what)
+            if mode == "rand" and (recs[0]["queried"]
+                                   != cpu_recs[0]["queried"]):
+                raise AssertionError(f"{what}: rand ids differ")
+            if len(picks) != AL_EPOCHS or not res["trajectory"]:
+                raise AssertionError(f"al-loop {mode}: {len(picks)} selects")
+            iters = [r for r in timer.records if r["epoch"] >= 0]
+            # hc and rand score no probs table: their score phase is 0
+            stats[mode] = {k: statistics.median(r.get(f"{k}_s", 0.0)
+                                                for r in iters) * 1e3
+                           for k in TIMED_PHASES + ("iteration",)}
+            stats[mode]["final_f1"] = recs[AL_EPOCHS - 1]["mean_f1"]
+            if mode == "mc":
+                busy = timer.busy
+    print(f"[al-loop] {len(AL_MODES)} modes x {AL_EPOCHS} iterations of q={Q}"
+          f" at N={N} songs x K={K} frames, F={F}, train size {TRAIN_SIZE},"
+          f" committee {G_MEMBERS} GaussianNB + {S_MEMBERS} SGD (fitted by "
+          f"the port's fit in {fit_s:.1f} s) scored on the card: queried "
+          f"songs disjoint, pool shrinking by q, F1s finite, state at "
+          f"next_epoch {AL_EPOCHS}; iteration 0 card vs CPU: rand ids equal,"
+          f" slots naming another song (near-ties within the gate) {near}; "
+          f"kernel launches on this path 0 (it runs no hand kernel)")
+    for mode, st in stats.items():
+        print(f"[al-loop] {card}: {mode} median ms per iteration "
+              f"(StepTimer, host clock, over {AL_EPOCHS}): " + ", ".join(
+                  f"{k} {st[k]:.3f}" for k in TIMED_PHASES + ("iteration",))
+              + f"; final mean F1 {st['final_f1']:.4f}")
+    print(f"[al-loop] {card}: device busy over mc iteration {PROFILED_EPOCH}"
+          f" (torch.profiler): " + ("not measured (no device events)"
+                                    if busy is None else
+                                    f"{busy[0]:.2%}, {busy[1]:.4f} ms"))
+    return stats, busy
+
+
+def write_amg_tree(root, seed=SEED + 6):
+    """An AMG1608-shaped tree: per-song openSMILE CSVs with the 260 feature
+    columns, ``.mat`` annotations, nothing from pandas."""
+    rng = np.random.default_rng(seed)
+    middle = [f"feat_{i}" for i in range(F - 2)]
+    cols = [FEATURE_SLICE_START] + middle + [FEATURE_SLICE_STOP]
+    feats = os.path.join(root, "amg1608", "feats")
+    anno = os.path.join(root, "amg1608", "anno")
+    os.makedirs(feats)
+    os.makedirs(anno)
+    centers = rng.normal(0, 2.0, (C, F)) + rng.uniform(-5, 5, F)
+    song_ids = np.arange(1, AMG_SONGS + 1)
+    song_class = rng.integers(0, C, AMG_SONGS)
+    for sid, c in zip(song_ids, song_class):
+        k = int(rng.integers(*AMG_FRAMES))
+        rows = centers[c] + rng.standard_normal((k, F)) * 3.0
+        with open(os.path.join(feats, f"{sid}.csv"), "w", newline="") as f:
+            w = csv.writer(f, delimiter=";", lineterminator="\n")
+            w.writerow(["frameTime"] + cols)
+            for t, row in enumerate(rows.astype(np.float32)):
+                w.writerow([f"{t * 0.5:.1f}"] + [repr(float(v)) for v in row])
+    lab = np.full((AMG_SONGS, AMG_USERS, 2), np.nan)
+    for i, c in enumerate(song_class):
+        a_sign = 1.0 if c in (0, 1) else -1.0
+        v_sign = 1.0 if c in (0, 3) else -1.0
+        for u in range(AMG_USERS):
+            if rng.uniform() < ANNOTATE_P:
+                lab[i, u] = (v_sign * rng.uniform(0.1, 1.0),
+                             a_sign * rng.uniform(0.1, 1.0))
+    from scipy.io import savemat
+
+    savemat(os.path.join(anno, "AMG1608.mat"), {"song_label": lab})
+    savemat(os.path.join(anno, "1608_song_id.mat"),
+            {"mat_id2song_id": song_ids.reshape(-1, 1)})
+    return os.path.join(root, "amg1608")
+
+
+def write_registry(models_root, seed=SEED + 7):
+    """5 GaussianNB + 5 SGD members fitted by the port on standardized
+    seeded rows, saved as the port's member files."""
+    centers = np.random.default_rng(seed).normal(0, 0.5, (C, F)).astype(
+        np.float32)
+    pre = os.path.join(models_root, "pretrained")
+    os.makedirs(pre)
+    for m in fit_members(centers, REG_MEMBERS, seed):
+        m.save(os.path.join(pre, Committee.member_file(m)))
+
+
+def run_cli(args):
+    """``amg_test.main`` in this process, its chatter kept off stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = amg_test.main(args)
+    if rc != 0:
+        raise AssertionError(f"al-cli: main({args}) exited {rc}:\n"
+                             f"{out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def users_metrics(models_root):
+    users = os.path.join(models_root, "users")
+    return {u: (read_metrics(os.path.join(users, u, "mc")),
+                al_state.ALState.load(os.path.join(users, u, "mc")))
+            for u in sorted(os.listdir(users))}
+
+
+def phase_al_cli(card):
+    """The CLI on the card and on the CPU, then the kill/resume drill."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        amg_root = write_amg_tree(root)
+        tree_s = time.perf_counter() - t0
+        roots = {d: os.path.join(root, f"models_{d}")
+                 for d in ("cuda", "cpu", "killed")}
+        write_registry(roots["cuda"])
+        for d in ("cpu", "killed"):
+            shutil.copytree(os.path.join(roots["cuda"], "pretrained"),
+                            os.path.join(roots[d], "pretrained"))
+        walls = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            run_cli(CLI_ARGS + ["--models-root", roots[d], "--amg-root",
+                                amg_root, "--device", d])
+            walls[d] = time.perf_counter() - t0
+        got, ref = users_metrics(roots["cuda"]), users_metrics(roots["cpu"])
+        if sorted(got) != sorted(ref) or len(got) != 2:
+            raise AssertionError(f"al-cli: users {sorted(got)} vs "
+                                 f"{sorted(ref)}")
+        for u in got:
+            (m, st), (rm, rst) = got[u], ref[u]
+            for e in range(-1, AL_EPOCHS):
+                # host members score and evaluate alike on both devices; the
+                # selection's consensus entropy is the card's or the CPU's
+                if (m[e].get("queried") != rm[e].get("queried")
+                        or m[e]["f1"] != rm[e]["f1"]):
+                    raise AssertionError(f"al-cli user {u} epoch {e}: card "
+                                         "and CPU runs differ")
+            if st.next_epoch != AL_EPOCHS:
+                raise AssertionError(f"al-cli user {u}: {st.next_epoch}")
+        base = CLI_ARGS + ["--models-root", roots["killed"], "--amg-root",
+                           amg_root, "--device", "cuda"]
+        cmd = [sys.executable, "-m", "consensus_entropy_tpu_torch.cli.amg_test"]
+        env = dict(os.environ, PYTHONPATH=here,
+                   CETPU_FAULTS="state.save:kill@2")
+        killed = subprocess.run(cmd + base, cwd=here, env=env, timeout=600,
+                                capture_output=True, text=True)
+        if killed.returncode == 0 or "injected kill" not in killed.stderr:
+            raise AssertionError(f"al-cli: the kill drill did not kill "
+                                 f"(exit {killed.returncode}):\n"
+                                 f"{killed.stderr[-2000:]}")
+        env.pop("CETPU_FAULTS")
+        rerun = subprocess.run(cmd + base, cwd=here, env=env, timeout=600,
+                               capture_output=True, text=True)
+        if rerun.returncode != 0:
+            raise AssertionError(f"al-cli: the rerun exited "
+                                 f"{rerun.returncode}:\n{rerun.stderr[-2000:]}")
+        resumed = users_metrics(roots["killed"])
+        for u in got:
+            (m, st), (rm, rst) = got[u], resumed[u]
+            if m != rm or st != rst:
+                raise AssertionError(f"al-cli user {u}: the resumed run's "
+                                     "metrics or state differ")
+    print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
+          f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
+          f"written in {tree_s:.1f} s), {REG_MEMBERS} GaussianNB + "
+          f"{REG_MEMBERS} SGD members: card and CPU metrics.jsonl equal "
+          f"(queried songs and F1s, every epoch) in {walls['cuda']:.1f} s / "
+          f"{walls['cpu']:.1f} s; killed at state.save hit 2, the rerun "
+          f"resumed to the uninterrupted run's metrics and state")
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -770,6 +1137,10 @@ def main():
     committee, pool, table, mem = phase_members(x)
     tables, hc = phase_acquire(table)
     phase_acquire_times(committee, pool, tables, hc, mem, card)
+    del committee, pool, table, tables
+    torch.cuda.empty_cache()
+    phase_al_loop(x, card)
+    phase_al_cli(card)
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",

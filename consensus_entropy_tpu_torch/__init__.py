@@ -20,8 +20,16 @@ Ported so far:
 - ``kernels.linear_mc`` + ``csrc/linear_mc.cu`` — the fused
   consensus-entropy kernel for softmax-linear members, and
   ``al.linear_pool.LinearPoolScorer``, the AL loop over it;
+- ``models.members``, ``models.committee.Committee`` — GaussianNB and
+  SGD-logistic members that train as scikit-learn does, and the host
+  committee;
+- ``data.amg``, ``labels`` — the AMG1608 loaders and label codecs;
+- ``al`` (``loop``, ``state``, ``workspace``, ``reporting``) and
+  ``fleet.session`` — the per-user AL loop with resume, and ``cli.amg_test``,
+  its sequential CLI; ``resilience`` and ``obs`` — fault injection, retry,
+  durable writes, preemption, phase timing;
 - ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
-  and JAX-layout weights, member parameters and keys carried across.
+  and JAX-layout weights, members, workspaces and keys carried across.
 """
 
 from consensus_entropy_tpu_torch.device import resolve_device

@@ -1,0 +1,149 @@
+"""Per-user workspaces: private committee copies and crash resume.
+
+Counterpart of ``consensus_entropy_tpu/al/workspace.py:34-183``.  Each user
+gets ``{users_root}/{uid}/{mode}/`` holding a copy of every pretrained
+member file (``amg_test.py:146-171``); a ``DONE`` marker, written last,
+marks the user complete, and a partial directory whose ``al_state.json``
+belongs to the same experiment resumes at its next iteration.
+
+Member files are the port's (``classifier_{gnb,sgd}.{name}.npz``).  A
+registry or workspace holding anything the port cannot load yet (boosted
+trees, CNN checkpoints, scikit-learn pickles) raises an error naming it:
+nothing is skipped silently (``convert.registry_from_jax`` turns a JAX
+registry of GaussianNB/SGD pickles into the port's files).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+
+from consensus_entropy_tpu_torch.models.committee import Committee
+from consensus_entropy_tpu_torch.models.members import MEMBER_TYPES
+
+_DONE = "DONE"
+_MEMBER_PREFIX = "classifier_"
+
+
+class UnportedMemberError(RuntimeError):
+    """A committee file of a kind the port cannot load yet."""
+
+
+def _member_kind(fname: str) -> str | None:
+    """``gnb``/``sgd`` for the port's member files, ``None`` for files
+    that are not members; raises for member files the port cannot load."""
+    if fname.endswith(".msgpack"):
+        raise UnportedMemberError(
+            f"{fname}: CNN committee members are not ported yet "
+            "(ROADMAP A7)")
+    if not fname.startswith(_MEMBER_PREFIX):
+        return None
+    kind = fname[len(_MEMBER_PREFIX):].split(".")[0]
+    if fname.endswith(".pkl"):
+        if kind == "xgb":
+            raise UnportedMemberError(
+                f"{fname}: the boosted-trees member is not ported yet "
+                "(ROADMAP A5b)")
+        raise UnportedMemberError(
+            f"{fname}: a scikit-learn pickle; convert the registry with "
+            "consensus_entropy_tpu_torch.convert.registry_from_jax"
+            + ("" if kind in MEMBER_TYPES else
+               f" (the {kind!r} member is not ported)"))
+    if fname.endswith(".npz"):
+        if kind not in MEMBER_TYPES:
+            raise UnportedMemberError(
+                f"{fname}: no port member of kind {kind!r}")
+        return kind
+    return None
+
+
+def member_files(directory: str) -> list[str]:
+    """The port's member files in ``directory``, sorted; raises
+    :class:`UnportedMemberError` on any member file it cannot load."""
+    return [f for f in sorted(os.listdir(directory))
+            if _member_kind(f) is not None]
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A member file that exists but does not parse."""
+
+
+def user_dir(users_root: str, user, mode: str) -> str:
+    return os.path.join(users_root, str(user), mode)
+
+
+def create_user(users_root: str, pretrained_dir: str, user, mode: str,
+                experiment: dict | None = None):
+    """Returns ``(path, skip)``; copies the pretrained committee on first
+    creation.  A partial directory whose state matches ``experiment``
+    (``{'seed', 'queries', 'train_size'}``) is kept for resume; any other
+    partial directory is redone from the pretrained files."""
+    from consensus_entropy_tpu_torch.al import state as al_state
+
+    path = user_dir(users_root, user, mode)
+    if os.path.exists(os.path.join(path, _DONE)):
+        return path, True
+    files = member_files(pretrained_dir)
+    if os.path.isdir(path):
+        st = al_state.ALState.load(path)
+        resumable = st is not None and (experiment is None or st.matches(
+            mode=mode, seed=experiment["seed"],
+            queries=experiment["queries"],
+            train_size=experiment["train_size"]))
+        if resumable:
+            al_state.recover_workspace(path)
+            return path, False
+        shutil.rmtree(path)  # pre-state crash or another experiment
+    os.makedirs(path)
+    for fname in files:
+        shutil.copy(os.path.join(pretrained_dir, fname),
+                    os.path.join(path, fname))
+    return path, False
+
+
+def mark_done(path: str) -> None:
+    """The completion marker, through the durable-write seam."""
+    from consensus_entropy_tpu_torch.resilience import io as dio
+
+    dio.atomic_write(os.path.join(path, _DONE), b"ok\n",
+                     member="workspace")
+
+
+def load_committee(path: str, *, device_members: bool = False,
+                   device=None) -> Committee:
+    """Load every member file of a workspace into a ``Committee``, after
+    finishing or discarding a torn checkpoint.  A member file that fails to
+    parse rolls the workspace back one generation once (the last-good
+    snapshot) and loads again; without a snapshot the error propagates."""
+    from consensus_entropy_tpu_torch.al.state import (
+        recover_workspace,
+        rollback_workspace,
+    )
+
+    recover_workspace(path)
+    try:
+        return _load_committee_once(path, device_members, device)
+    except CheckpointCorruptError as e:
+        if not rollback_workspace(path):
+            raise
+        import warnings
+
+        warnings.warn(f"{path}: corrupt live checkpoint ({e}); rolled back "
+                      "to the previous generation - one AL iteration will "
+                      "be replayed")
+        return _load_committee_once(path, device_members, device)
+
+
+def _load_committee_once(path: str, device_members: bool,
+                         device) -> Committee:
+    members = []
+    for fname in member_files(path):
+        full = os.path.join(path, fname)
+        try:
+            members.append(MEMBER_TYPES[_member_kind(fname)].load(full))
+        except Exception as e:
+            raise CheckpointCorruptError(
+                f"{full}: failed to load member file ({e!r})") from e
+    if not members:
+        raise FileNotFoundError(f"no committee members in {path}")
+    return Committee(members, device_members=device_members, device=device)

@@ -1,0 +1,168 @@
+"""AL personalization CLI, sequential: ``amg_test.py -q 10 -e 10 -m mc
+-n 150`` (``amg_test.py:542-585``) plus ``--device {cuda,cpu}``.
+
+    python -m consensus_entropy_tpu_torch.cli.amg_test -q 10 -e 10 -m mc \\
+        -n 150 --models-root models --amg-root data/amg1608
+
+Per user: copy the pretrained committee into a private workspace, run the
+consensus-entropy AL loop, persist the members and reports, mark the user
+done (a rerun skips done users and resumes a partial one).  The registry
+holds the port's member files (``convert.registry_from_jax`` makes them
+from a JAX registry).  The fleet, serve, fabric, mesh and distributed
+modes of the JAX CLI are not ported; qbdc needs CNN members, which are
+not ported yet either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from consensus_entropy_tpu_torch.cli.common import add_device_arg, add_path_args
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from consensus_entropy_tpu_torch import acquire
+
+    p = argparse.ArgumentParser(
+        description="Consensus-entropy active learning on AMG1608")
+    p.add_argument("-q", "--queries", required=True, type=int,
+                   help="queries per AL iteration")
+    p.add_argument("-e", "--epochs", required=True, type=int,
+                   help="AL iterations")
+    p.add_argument("-n", "--num_anno", required=True, type=int,
+                   help="minimum annotations per user")
+    p.add_argument("-m", "--mode", "--al-mode", required=True,
+                   choices=acquire.available_modes(),
+                   help="acquisition: machine consensus [mc], human "
+                        "consensus [hc], both [mix], random [rand], "
+                        "query-by-dropout-committee [qbdc], weighted "
+                        "machine consensus [wmc]")
+    p.add_argument("--qbdc-k", type=int, default=20, metavar="K",
+                   help="qbdc: dropout-committee width")
+    p.add_argument("--consensus-weighting",
+                   choices=("agreement", "uniform"), default="agreement",
+                   help="wmc: 'agreement' moves each member's weight by an "
+                        "EMA toward its post-reveal agreement; 'uniform' "
+                        "keeps every weight at 1 (wmc is then mc)")
+    p.add_argument("--max-users", type=int, default=None,
+                   help="cap the user count (debug)")
+    p.add_argument("--no-fuse-step", action="store_true",
+                   help="score, pull the result and update the masks on "
+                        "the host each iteration instead of the fused "
+                        "select (same selections)")
+    p.add_argument("--seed", type=int, default=1987)
+    p.add_argument("--tie-break", choices=("fast", "numpy"), default="fast")
+    p.add_argument("--pad-pool-to", type=int, default=None, metavar="N",
+                   help="pad every user's pool to one width")
+    p.add_argument("--device-members", action="store_true",
+                   help="score the GaussianNB/SGD members on the device, "
+                        "fused with the frame->song mean")
+    add_path_args(p)
+    add_device_arg(p)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.qbdc_k < 1:
+        print(f"--qbdc-k must be >= 1, got {args.qbdc_k}")
+        return 1
+    if args.mode == "qbdc":
+        print("--al-mode qbdc needs CNN committee members, which the port "
+              "does not have yet (ROADMAP A7)")
+        return 1
+
+    import numpy as np
+
+    from consensus_entropy_tpu_torch.al import workspace
+    from consensus_entropy_tpu_torch.al.loop import ALLoop
+    from consensus_entropy_tpu_torch.config import ALConfig, PathsConfig
+    from consensus_entropy_tpu_torch.data import amg
+    from consensus_entropy_tpu_torch.device import resolve_device
+    from consensus_entropy_tpu_torch.resilience.preemption import (
+        EXIT_PREEMPTED,
+        Preempted,
+        PreemptionGuard,
+    )
+
+    device = resolve_device(args.device)
+    paths = PathsConfig(models_root=args.models_root,
+                        amg_root=args.amg_root)
+    cfg = ALConfig(queries=args.queries, epochs=args.epochs, mode=args.mode,
+                   num_anno=args.num_anno, seed=args.seed,
+                   qbdc_k=args.qbdc_k,
+                   consensus_weighting=args.consensus_weighting)
+    if not os.path.isdir(paths.pretrained_dir):
+        print("No pre-trained models of this type!  Run deam-classifier "
+              f"first (looked in {paths.pretrained_dir}).")
+        return 1
+    try:
+        workspace.member_files(paths.pretrained_dir)
+    except workspace.UnportedMemberError as e:
+        print(f"cannot personalize this registry: {e}")
+        return 1
+
+    anno = amg.load_annotations(paths.amg_annotations_mat,
+                                paths.amg_mapping_mat)
+    hc_table = amg.hc_frequency_table(anno)
+    anno, users = amg.filter_users(anno, cfg.num_anno)
+    print(f"Users with more than {cfg.num_anno} annotations: {len(users)}")
+    pool = amg.load_feature_pool(paths.amg_dataset_csv,
+                                 paths.amg_features_dir)
+    loop = ALLoop(cfg, tie_break=args.tie_break,
+                  pad_pool_to=args.pad_pool_to,
+                  fuse_step=not args.no_fuse_step, device=device)
+    results = []
+    try:
+        with PreemptionGuard() as guard:
+            _run_users(args, cfg, paths, users, pool, anno, hc_table, loop,
+                       guard, device, results)
+    except Preempted as e:
+        print(f"preempted: {e}")
+        return EXIT_PREEMPTED
+    if results:
+        finals = [r["final_mean_f1"] for r in results]
+        print(f"\n{len(results)} users; final committee F1 "
+              f"mu={np.mean(finals):.4f} sigma={np.std(finals):.4f}")
+    return 0
+
+
+def _run_users(args, cfg, paths, users, pool, anno, hc_table, loop, guard,
+               device, results) -> None:
+    from consensus_entropy_tpu_torch.al import workspace
+    from consensus_entropy_tpu_torch.al.loop import UserData
+    from consensus_entropy_tpu_torch.data import amg
+    from consensus_entropy_tpu_torch.obs.metrics import StepTimer
+    from consensus_entropy_tpu_torch.resilience.preemption import Preempted
+
+    for num_user, u_id in enumerate(users[: args.max_users]):
+        if guard.requested:
+            raise Preempted(f"stopping before user {u_id}")
+        user_path, skip = workspace.create_user(
+            paths.users_dir, paths.pretrained_dir, u_id, cfg.mode,
+            experiment={"seed": cfg.seed, "queries": cfg.queries,
+                        "train_size": cfg.train_size})
+        if skip:
+            print(f"Skipping user {u_id}, already exists!")
+            continue
+        committee = workspace.load_committee(
+            user_path, device_members=args.device_members, device=device)
+        sub_pool, labels = amg.user_pool(pool, anno, u_id)
+        data = UserData(u_id, sub_pool, labels,
+                        hc_rows=hc_table.rows_for(sub_pool.song_ids))
+        print(f"Creating and performing active learning for user {u_id} "
+              f"with {len(labels)} annotations.")
+        print(f"User {num_user} / {len(users) - 1}")
+        timer = StepTimer(os.path.join(user_path, "timings.jsonl"))
+        res = loop.run_user(committee, data, user_path, seed=cfg.seed,
+                            timer=timer, preemption=guard)
+        committee.save(user_path)
+        workspace.mark_done(user_path)
+        results.append(res)
+        print(f"user {u_id}: final mean F1 = {res['final_mean_f1']:.4f}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,11 +3,14 @@ registration order, the strategies' flags, re-registration and the
 ``probs_plan`` routing."""
 
 import pytest
+import torch
 
 from consensus_entropy_tpu import acquire as jax_acquire
 from consensus_entropy_tpu_torch import acquire
 from consensus_entropy_tpu_torch.acquire.base import AcquisitionStrategy
 from consensus_entropy_tpu_torch.config import ALConfig
+
+torch.set_num_threads(1)
 
 FLAGS = ("needs_probs", "probs_source", "uses_weights", "uses_hc_table",
          "uses_hc_entropy")

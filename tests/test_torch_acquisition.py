@@ -18,6 +18,8 @@ from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.acquire.base import sanitize_member_rows
 from consensus_entropy_tpu_torch.al.acquisition import Acquirer
 
+torch.set_num_threads(1)
+
 MODES = ["mc", "hc", "mix", "rand", "qbdc", "wmc"]
 ITERS, Q, M = 10, 10, 4
 # The repo's entropy gate (tests/test_pallas_scoring.py).

@@ -1,0 +1,110 @@
+"""The port's sequential AL CLI against the JAX package's, on the CPU.
+
+The JAX pre-training CLI fits GaussianNB and SGD registries on a synthetic
+DEAM tree; ``convert.registry_from_jax`` carries them across; both AL CLIs
+personalize the same synthetic AMG1608 users and write equal
+``metrics.jsonl`` files (queried songs equal, F1s equal exactly: tolerance
+0).  A rerun skips completed users; a registry the port cannot load yet
+exits 1 with the reason."""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from consensus_entropy_tpu.cli import amg_test as jax_amg_test
+from consensus_entropy_tpu.cli import deam_classifier
+from consensus_entropy_tpu_torch import convert
+from consensus_entropy_tpu_torch.cli import amg_test
+from tests.synth_data import build_synth_roots
+
+torch.set_num_threads(1)
+
+AL = ["-q", "4", "-e", "3", "-n", "10", "--max-users", "2"]
+
+
+@pytest.fixture(scope="module")
+def trees(tmp_path_factory):
+    """Synthetic DEAM + AMG trees, a JAX registry (2 folds each of gnb and
+    sgd) and the port's conversion of it."""
+    root = tmp_path_factory.mktemp("cli")
+    roots = build_synth_roots(root, np.random.default_rng(1987))
+    jax_flags = ["--models-root", roots["models"], "--deam-root",
+                 roots["deam"], "--amg-root", roots["amg"], "--device", "cpu"]
+    for model in ("gnb", "sgd"):
+        assert deam_classifier.main(["-cv", "2", "-m", model]
+                                    + jax_flags) == 0
+    port_models = str(root / "port_models")
+    written = convert.registry_from_jax(
+        os.path.join(roots["models"], "pretrained"),
+        os.path.join(port_models, "pretrained"))
+    assert len(written) == 4 and all(f.endswith(".npz") for f in written)
+    return roots, jax_flags, port_models
+
+
+def _user_metrics(models_root, mode):
+    users = os.path.join(models_root, "users")
+    out = {}
+    for u in sorted(os.listdir(users)):
+        with open(os.path.join(users, u, mode, "metrics.jsonl")) as f:
+            out[u] = [json.loads(line) for line in f]
+    return out
+
+
+def _port_flags(roots, models_root):
+    return ["--models-root", models_root, "--amg-root", roots["amg"],
+            "--device", "cpu"]
+
+
+@pytest.mark.parametrize("mode", ["mc", "hc"])
+def test_cli_matches_the_jax_cli(trees, capsys, mode):
+    roots, jax_flags, port_models = trees
+    assert jax_amg_test.main(AL + ["-m", mode] + jax_flags) == 0
+    assert amg_test.main(AL + ["-m", mode]
+                         + _port_flags(roots, port_models)) == 0
+    ours = _user_metrics(port_models, mode)
+    theirs = _user_metrics(roots["models"], mode)
+    assert sorted(ours) == sorted(theirs) and len(ours) == 2
+    for u in ours:
+        assert len(ours[u]) == 4
+        for a, b in zip(ours[u], theirs[u]):
+            assert a.get("queried") == b.get("queried")
+            assert a["f1"] == b["f1"]  # tolerance 0
+    for u in ours:  # the members were saved back and the user is done
+        udir = os.path.join(port_models, "users", u, mode)
+        assert os.path.exists(os.path.join(udir, "DONE"))
+        assert sum(f.endswith(".npz") for f in os.listdir(udir)) == 4
+    capsys.readouterr()
+    assert amg_test.main(AL + ["-m", mode]
+                         + _port_flags(roots, port_models)) == 0
+    assert capsys.readouterr().out.count("Skipping user") == 2
+
+
+@pytest.mark.parametrize("extra, reason", [
+    ("classifier_xgb.it_0.pkl", "boosted-trees"),
+    ("classifier_cnn.it_0.msgpack", "CNN"),
+    ("classifier_gnb.it_9.pkl", "registry_from_jax"),
+])
+def test_unported_registry_exits_with_the_reason(trees, tmp_path, capsys,
+                                                 extra, reason):
+    roots, _, port_models = trees
+    models = str(tmp_path / "models")
+    shutil.copytree(os.path.join(port_models, "pretrained"),
+                    os.path.join(models, "pretrained"))
+    open(os.path.join(models, "pretrained", extra), "wb").close()
+    assert amg_test.main(AL + ["-m", "mc"] + _port_flags(roots, models)) == 1
+    assert reason in capsys.readouterr().out
+    assert not os.path.exists(os.path.join(models, "users"))
+
+
+def test_qbdc_and_missing_registry_exit_cleanly(trees, tmp_path, capsys):
+    roots, _, port_models = trees
+    assert amg_test.main(AL + ["-m", "qbdc"]
+                         + _port_flags(roots, port_models)) == 1
+    assert "CNN" in capsys.readouterr().out
+    assert amg_test.main(AL + ["-m", "mc"]
+                         + _port_flags(roots, str(tmp_path / "none"))) == 1
+    assert "No pre-trained models" in capsys.readouterr().out

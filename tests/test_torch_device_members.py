@@ -21,6 +21,8 @@ from consensus_entropy_tpu_torch.models.committee import (
 )
 from consensus_entropy_tpu_torch.ops import device_members
 
+torch.set_num_threads(1)
+
 GNB_TOL = {"rtol": 1e-3, "atol": 1e-5}
 SGD_TOL = {"rtol": 1e-4, "atol": 1e-6}
 

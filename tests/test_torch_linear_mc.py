@@ -18,6 +18,8 @@ from consensus_entropy_tpu.experimental import pallas_scoring
 from consensus_entropy_tpu_torch import convert
 from consensus_entropy_tpu_torch.kernels import build, linear_mc
 
+torch.set_num_threads(1)
+
 # The repo's entropy gate (tests/test_pallas_scoring.py): float32 sums taken
 # in another order than the Pallas kernel's.
 RTOL, ATOL = 1e-5, 1e-6

@@ -14,6 +14,8 @@ from consensus_entropy_tpu.ops import scoring as jax_scoring
 from consensus_entropy_tpu.ops import topk as jax_topk
 from consensus_entropy_tpu_torch.ops import device_members, entropy, scoring, topk
 
+torch.set_num_threads(1)
+
 # The repo's entropy gate (tests/test_pallas_scoring.py): float32 reductions
 # taken in another order than XLA's.
 RTOL, ATOL = 1e-5, 1e-6

@@ -8,6 +8,8 @@ import torch
 
 from consensus_entropy_tpu_torch import convert, prng
 
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 1987, -1, 2**31 - 1, 2**40 + 3]
 SHAPES = [(), (1,), (7,), (1000,), (3, 5)]
 

@@ -12,6 +12,8 @@ from consensus_entropy_tpu.ops import scoring as jax_scoring
 from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.ops import scoring
 
+torch.set_num_threads(1)
+
 # The repo's entropy gate (tests/test_pallas_scoring.py).
 RTOL, ATOL = 1e-5, 1e-6
 N, M, K = 240, 5, 12

@@ -5,10 +5,13 @@ interpret mode) followed by ``reveal_mask_update``."""
 
 import numpy as np
 import pytest
+import torch
 
 from consensus_entropy_tpu.experimental import pallas_scoring
 from consensus_entropy_tpu.ops.topk import reveal_mask_update
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer
+
+torch.set_num_threads(1)
 
 # The repo's entropy gate (tests/test_pallas_scoring.py).
 RTOL, ATOL = 1e-5, 1e-6

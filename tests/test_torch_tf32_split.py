@@ -18,6 +18,8 @@ import torch
 from consensus_entropy_tpu.experimental import pallas_scoring
 from consensus_entropy_tpu_torch.ops.entropy import shannon_entropy
 
+torch.set_num_threads(1)
+
 # The repo's entropy gate (tests/test_pallas_scoring.py).
 RTOL, ATOL = 1e-5, 1e-6
 # BASELINE.json configs[4] widths (bench.py's linear defaults), at a pool
