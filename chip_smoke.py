@@ -43,19 +43,43 @@ Phases, one line of output each (or a few):
 10. al-loop: one user's AL loop at the same scale through ``ALLoop.
     run_user`` (8 GaussianNB + 8 SGD members fitted by the port's own
     ``fit`` on seeded labelled sets, scored on the card with
-    ``device_members``; q=10, 10 iterations, train size 0.85) for mc, hc,
-    mix, rand and wmc, each into a fresh workspace: queried songs disjoint,
-    the pool shrinking by q, finite F1s, the state at ``next_epoch`` 10,
+    ``device_members``; q=10, AL_EPOCHS iterations, train size 0.85) for
+    mc, hc, mix, rand and wmc, each into a fresh workspace: queried songs
+    disjoint, the pool shrinking by q, finite F1s, the committed state,
     iteration 0's selection against the same loop on the CPU (rand ids
     equal; per-slot values within the entropy gate, near-ties counted);
     the median ms of each ``StepTimer`` phase and of the whole iteration,
-    and the device busy share over one steady mc iteration;
+    and the device busy share over one steady mc iteration (device events
+    over the iteration's wall time);
 11. al-cli: ``cli.amg_test.main`` end to end on an AMG1608-shaped tree
     this script writes (1608 songs of 4-8 frames, the 260 feature columns,
     ``.mat`` annotations, a registry of 5 GaussianNB + 5 SGD members from
     the port's ``fit``), on the card and on the CPU: equal ``metrics.jsonl``;
     then a run killed by ``CETPU_FAULTS=state.save:kill@2`` and its rerun
-    reach the uninterrupted run's metrics and state.
+    reach the uninterrupted run's metrics and state; then ``-m mc`` and
+    ``-m qbdc`` with 2 GBDT and 2 narrow vgg members added to the registry
+    and 4-s clips in ``npy/``, on the card and the CPU (every epoch, finite
+    F1s, state and DONE written; iteration 0's slot values within CNN_TOL,
+    near-ties counted);
+12. gbdt: the GBDT host core built with g++; one tree and a forest's
+    margins at DEAM pre-training scale (108,120 frames x 260 features, 256
+    bins, depth 5) bit-equal to the numpy plain versions; an AL member's
+    fit, update and pool predict timed;
+13. cnn: the vgg CNN at full width (``CNNConfig()``): 5 members x 256
+    crops on the card; 2 members x 16 crops, qbdc K=20 and a 3-epoch
+    ``fit_many`` against the CPU port (equal crops, masks, permutations and
+    dropout keys; scores within CNN_TOL; losses within FIT_TOL; one step's
+    gradient within GRAD64_REL_TOL in float64), the log-mel frontend
+    against float64; ms per crop per member beside the FLOP bound, ms per
+    member-epoch of retraining, peak device memory;
+14. al-loop-full: one AMG1608 user (1608 30-s clips on the card, 400
+    annotated songs) through ``ALLoop`` with 5 GaussianNB + 5 SGD + 5 GBDT
+    + 5 vgg members for mc and qbdc (K=20), FULL_EPOCHS iterations of 100
+    retrain epochs: queried songs disjoint, the pool shrinking by q, finite
+    F1s, the state committed; the ``StepTimer`` medians and the busy share
+    of one mc iteration; iteration 0 at a narrow CNN against the CPU.
+
+A line before the JSON lines gives each group of phases' wall time.
 
 Every check raises, so any failure exits non-zero and prints no result.
 The line before the last is the kernel table as JSON; the last line is
@@ -65,6 +89,7 @@ The line before the last is the kernel table as JSON; the last line is
 import contextlib
 import copy
 import csv
+import dataclasses
 import io
 import json
 import os
@@ -81,7 +106,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from consensus_entropy_tpu_torch import acquire  # noqa: E402
+from consensus_entropy_tpu_torch import acquire, native, prng  # noqa: E402
 from consensus_entropy_tpu_torch.al.acquisition import Acquirer  # noqa: E402
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer  # noqa: E402
 from consensus_entropy_tpu_torch.al import state as al_state  # noqa: E402
@@ -91,22 +116,42 @@ from consensus_entropy_tpu_torch.config import (  # noqa: E402
     FEATURE_SLICE_START,
     FEATURE_SLICE_STOP,
     ALConfig,
+    CNNConfig,
+    TrainConfig,
 )
 from consensus_entropy_tpu_torch.convert import (  # noqa: E402
     device_members_from_numpy,
     linear_members_from_jax,
 )
+from consensus_entropy_tpu_torch.data.audio import (  # noqa: E402
+    DeviceWaveformStore,
+)
 from consensus_entropy_tpu_torch.kernels import build, linear_mc  # noqa: E402
+from consensus_entropy_tpu_torch.labels import one_hot_np  # noqa: E402
+from consensus_entropy_tpu_torch.models import short_cnn  # noqa: E402
+from consensus_entropy_tpu_torch.models.cnn_trainer import (  # noqa: E402
+    CNNTrainer,
+    bce_loss,
+)
 from consensus_entropy_tpu_torch.models.committee import (  # noqa: E402
+    CNNMember,
     Committee,
     DeviceMemberCommittee,
     FramePool,
+)
+from consensus_entropy_tpu_torch.models.gbdt import (  # noqa: E402
+    GBDT,
+    NativeGBDTMember,
+    QuantileBinner,
 )
 from consensus_entropy_tpu_torch.models.members import (  # noqa: E402
     GNBMember,
     SGDMember,
 )
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer  # noqa: E402
+from consensus_entropy_tpu_torch.ops.mel import (  # noqa: E402
+    log_mel_spectrogram,
+)
 from consensus_entropy_tpu_torch.ops.scoring import make_scoring_fns  # noqa: E402
 from consensus_entropy_tpu_torch.ops.topk import (  # noqa: E402
     masked_top_k,
@@ -142,19 +187,79 @@ G_MEMBERS, S_MEMBERS, HC_SEED, QBDC_K = 8, 8, 2021, ALConfig().qbdc_k
 GNB_TOL, SGD_TOL = {"rtol": 1e-3, "atol": 1e-5}, {"rtol": 1e-4, "atol": 1e-6}
 SELECT_REPS, SELECT_ROUNDS, SELECT_WARMUP, PROFILED_SELECTS = 50, 5, 5, 10
 # The AL loop (phase 10): BASELINE.json configs[4]'s iteration, the modes
-# the port's committee of host members runs (qbdc needs a CNN member).
-AL_EPOCHS, TRAIN_SIZE, AL_MODES = 10, 0.85, ("mc", "hc", "mix", "rand", "wmc")
+# the host-member committee runs, AL_EPOCHS iterations each (cut from 10:
+# at 10, and 4 iterations in phase 14, the script took 684.5 s on one
+# card machine's host and 1034.3 s on a slower one, too near its 1200 s
+# limit).
+AL_EPOCHS, TRAIN_SIZE, AL_MODES = 5, 0.85, ("mc", "hc", "mix", "rand", "wmc")
 # Labelled rows each member is fitted on (its own seeded draw), the class
 # centres' spread, and the steady iteration traced for the busy share.
-GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 5
+GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 3
 TIMED_PHASES = ("score", "select", "update_host", "evaluate", "checkpoint",
                 "ckpt_join")
 # The CLI (phase 11) at AMG1608's shape: songs, frames per song, annotators
 # and each one's chance to annotate a song, registry members of each kind.
 AMG_SONGS, AMG_FRAMES, AMG_USERS, ANNOTATE_P, REG_MEMBERS = (
     1608, (4, 9), 6, 0.3, 5)
-CLI_ARGS = ["-q", "10", "-e", "10", "-m", "mc", "-n", "150", "--max-users",
-            "2"]
+CLI_EPOCHS = 10
+CLI_ARGS = ["-q", "10", "-e", str(CLI_EPOCHS), "-m", "mc", "-n", "150",
+            "--max-users", "2"]
+# Phase 11's CNN registry: 4-s clips in npy/ (AMG1608's are 30 s), two
+# GBDT and two vgg members at a narrow width, so the CPU run keeps up; two
+# iterations of two retrain epochs, one user.
+CLI_CLIP_SAMPLES, CLI_XGB, CLI_CNN_MEMBERS, CLI_CNN_EPOCHS = 4 * 16000, 2, 2, 2
+CLI_CNN = {"n_channels": 8, "input_length": 32768}
+CLI_CNN_ARGS = ["-q", "10", "-e", str(CLI_CNN_EPOCHS), "-n", "150",
+                "--max-users", "1", "--retrain-epochs", "2"]
+# Phase 12: the GBDT core at DEAM pre-training scale (1802 songs x 60
+# frames, 2 Hz over the annotated 15-45 s), 256 bins, depth 5; the rows an
+# AL member's fit sees (phases 12 and 14) and the rounds of the forest
+# whose margins are checked.
+DEAM_SONGS, DEAM_FRAMES, GBDT_BINS, GBDT_DEPTH = 1802, 60, 256, 5
+GBDT_FIT_ROWS, GBDT_CHECK_ROUNDS = 1000, 2
+# Phase 13: the vgg CNN at full width: members, crops (one crop bucket),
+# members and crops held against the CPU, passes timed; 30-s clips.
+CNN_MEMBERS, CNN_CROPS, CNN_CHECK_MEMBERS, CNN_CHECK_CROPS, CNN_REPS = (
+    5, 256, 2, 16, 5)
+CLIP_SAMPLES = 30 * 16000
+# Card against CPU: sigmoid scores (float32 convolutions summed in another
+# order by cuDNN than by the CPU's), the log-mel frontend against float64
+# (dB), losses over FIT_EPOCHS epochs of training.  Training is chaotic in
+# float32: Adam turns a gradient coordinate near zero into a step of about
+# lr whatever its size, so rounding noise in such coordinates moves weights
+# by lr a step on one device and not the other, and the losses part by a
+# few percent within three epochs while the draws stay equal.  The tight
+# check of the training path is GRAD64_REL_TOL below; FIT_TOL only holds
+# the trajectories together.
+CNN_TOL = {"rtol": 1e-4, "atol": 1e-5}
+MEL_TOL = {"rtol": 1e-5, "atol": 1e-3}
+FIT_TOL = {"rtol": 5e-2, "atol": 1e-3}
+# One training step's gradient at the same weights, crops and dropout
+# mask, card against CPU (relative L2).  In float64 the two agree to
+# rounding: this holds the backward graph on the card.  In float32 a near
+# tie in a 2x2 max pool can send a channel's gradient down another path on
+# either side, so float32 gradients can part by a few percent from each
+# other and from float64 at some inputs; the float32 bound only holds them
+# together, and the float32 forward is held tightly by CNN_TOL.
+GRAD64_REL_TOL, GRAD32_REL_TOL = 1e-6, 5e-2
+# fit_many in phase 13: a retrain's shape (q songs, the test split of a
+# USER_SONGS-song user), FIT_EPOCHS epochs.
+FIT_SONGS, FIT_TEST_SONGS, FIT_EPOCHS = 10, 60, 3
+# Phase 14: AMG1608's 1608 songs of 30 s in the store, one user with 400
+# annotated songs of USER_FRAMES frames, 5 members of each kind, the
+# CNNs' short fit before the run, q=10 for FULL_EPOCHS[mode] iterations
+# (cut from the paper's 10 to keep the script inside its time limit;
+# widths and the 100 retrain epochs are not cut), mc's iteration 1 traced,
+# so each mode's medians stand on 3 untraced iterations; the narrow CNN
+# of the card-vs-CPU run, one iteration with its retrain epochs cut
+# (iteration 0's selection, which it checks, comes before any retrain).
+FULL_SONGS, USER_SONGS, USER_FRAMES, FULL_MEMBERS = 1608, 400, 6, 5
+FULL_EPOCHS, FULL_PROFILED_EPOCH = {"mc": 4, "qbdc": 3}, 1
+PRE_FIT_SONGS, PRE_FIT_EPOCHS = 20, 2
+NARROW_CNN, NARROW_EPOCHS = {"n_channels": 16, "input_length": 32768}, 1
+NARROW_RETRAIN_EPOCHS = 2
+FULL_PHASES = ("score", "select", "update_host", "retrain_cnn", "evaluate",
+               "checkpoint", "ckpt_join")
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -630,15 +735,16 @@ def _twins_match(acq):
     return ok
 
 
-def _compare_slots(card, host, what):
+def _compare_slots(card, host, what, rtol=RTOL, atol=ATOL):
     """Card and CPU results of one select: same valid slots, values within
-    the gate; returns how many slots name another row (near-ties)."""
+    the gate (or the given tolerance); returns how many slots name another
+    row (near-ties)."""
     v, i = card.values.cpu().numpy(), card.indices.cpu().numpy()
     rv, ri = host.values.numpy(), host.indices.numpy()
     live = rv > -np.inf
     if not np.array_equal(v > -np.inf, live):
         raise AssertionError(f"{what}: valid slots differ")
-    np.testing.assert_allclose(v[live], rv[live], rtol=RTOL, atol=ATOL,
+    np.testing.assert_allclose(v[live], rv[live], rtol=rtol, atol=atol,
                                err_msg=what)
     return int((live & (i != ri)).sum())
 
@@ -720,22 +826,24 @@ def phase_acquire(table):
     return tables, hc
 
 
-def busy_share(prof, n_units):
-    """The union of a profile's device-side event intervals, as a share of
-    the span of all its events and in ms per unit of work; ``None`` when
-    the profiler recorded no device time."""
-    events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+def busy_share(prof, n_units, window_s=None):
+    """The union of a stopped profile's device-side intervals (kernels and
+    copies), as a share of ``window_s`` (by default the span of all its
+    events) and in ms per unit of work; ``None`` when the profiler
+    recorded no device time."""
+    events = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
     if not spans:
         return None
-    busy, end = 0.0, float("-inf")
+    busy, end = 0, -1
     for lo, hi in spans:
-        busy += max(0.0, hi - max(lo, end))
+        busy += max(0, hi - max(lo, end))
         end = max(end, hi)
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
-    return busy / window, busy / 1e3 / n_units
+    if window_s is None:
+        window_s = (max(e.end_ns() for e in events)
+                    - min(e.start_ns() for e in events)) / 1e9
+    return busy / 1e9 / window_s, busy / 1e6 / n_units
 
 
 def device_busy(acq, probs):
@@ -836,9 +944,10 @@ def fit_members(centers, n_each, seed):
 
 
 class IterTimer(StepTimer):
-    """``StepTimer`` that also records each iteration's wall time (between
-    flushes) and traces one iteration (``PROFILED_EPOCH``) with
-    ``torch.profiler``."""
+    """``StepTimer`` recording each iteration's wall time (between flushes)
+    and tracing one (``profile_epoch``) with ``torch.profiler``, device
+    activity only; ``busy`` is then the union of the device's kernel and
+    copy intervals, as a share of that iteration's wall time and in ms."""
 
     def __init__(self, profile_epoch=None):
         super().__init__(None)
@@ -848,33 +957,31 @@ class IterTimer(StepTimer):
 
     def flush(self, **labels):
         epoch = labels.get("epoch")
-        if self.prof is not None and epoch == self.profile_epoch:
+        traced = self.prof is not None and epoch == self.profile_epoch
+        if traced:
             torch.cuda.synchronize()
-            self.prof.stop()
-            self.busy = busy_share(self.prof, 1)
-            self.prof = None
         rec = super().flush(**labels)
-        now = time.perf_counter()
-        rec["iteration_s"], self.t = now - self.t, now
+        rec["iteration_s"] = time.perf_counter() - self.t
+        if traced:
+            self.prof.stop()
+            self.busy = busy_share(self.prof, 1, rec["iteration_s"])
+            self.prof = None
         if self.profile_epoch is not None and epoch == self.profile_epoch - 1:
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.start()
+        # the next iteration starts here: the trace's processing is not
+        # part of any iteration
+        self.t = time.perf_counter()
         return rec
 
 
-def run_al_user(mode, members, data, path, device, epochs, profile=False):
-    """One user's ``ALLoop.run_user``, recording every scoring result the
-    acquirer returns; returns (scoring results, timer, result)."""
-    os.makedirs(path)
-    committee = Committee(copy.deepcopy(members), device_members=True,
-                          device=device)
-    timer = IterTimer(PROFILED_EPOCH if profile else None)
-    loop = ALLoop(ALConfig(queries=Q, epochs=epochs, mode=mode,
-                           train_size=TRAIN_SIZE, seed=SEED), device=device)
+@contextlib.contextmanager
+def recorded_scoring():
+    """Yields a list that gathers every scoring result an ``Acquirer``
+    returns while the block runs."""
     picks, run = [], Acquirer.run_scoring
 
     def recording(acq, fn_key, inputs):
@@ -884,10 +991,21 @@ def run_al_user(mode, members, data, path, device, epochs, profile=False):
 
     Acquirer.run_scoring = recording
     try:
-        return picks, timer, loop.run_user(committee, data, path,
-                                           timer=timer)
+        yield picks
     finally:
         Acquirer.run_scoring = run
+
+
+def run_al_user(mode, committee, data, path, device, epochs, timer,
+                retrain_epochs=None):
+    """One user's ``ALLoop.run_user``, recording every scoring result the
+    acquirer returns; returns (scoring results, result)."""
+    os.makedirs(path)
+    loop = ALLoop(ALConfig(queries=Q, epochs=epochs, mode=mode,
+                           train_size=TRAIN_SIZE, seed=SEED, qbdc_k=QBDC_K),
+                  retrain_epochs=retrain_epochs, device=device)
+    with recorded_scoring() as picks:
+        return picks, loop.run_user(committee, data, path, timer=timer)
 
 
 def read_metrics(path):
@@ -897,29 +1015,31 @@ def read_metrics(path):
     return {r["epoch"]: r for r in recs if "event" not in r}
 
 
-def check_al_run(mode, path, data, n_train):
+def check_al_run(mode, path, data, n_train, epochs=AL_EPOCHS,
+                 n_members=G_MEMBERS + S_MEMBERS, what="al-loop"):
     """Queried songs disjoint and off the test split, the pool shrinking by
     q, finite F1s, the state committed through the last iteration."""
+    mode = f"{what} {mode}"
     recs = read_metrics(path)
-    if sorted(recs) != list(range(-1, AL_EPOCHS)):
-        raise AssertionError(f"al-loop {mode}: epochs {sorted(recs)}")
+    if sorted(recs) != list(range(-1, epochs)):
+        raise AssertionError(f"{mode}: epochs {sorted(recs)}")
     st = al_state.ALState.load(path)
-    if st.next_epoch != AL_EPOCHS:
-        raise AssertionError(f"al-loop {mode}: next_epoch {st.next_epoch}")
+    if st.next_epoch != epochs:
+        raise AssertionError(f"{mode}: next_epoch {st.next_epoch}")
     test = set(st.test_songs)
     seen = set()
-    for e in range(AL_EPOCHS):
+    for e in range(epochs):
         q = recs[e]["queried"]
         if len(q) != Q or seen & set(q) or test & set(q):
-            raise AssertionError(f"al-loop {mode} iteration {e}: queried "
+            raise AssertionError(f"{mode} iteration {e}: queried "
                                  "songs repeat or leave the train split")
         seen |= set(q)
         if recs[e]["pool_size"] != n_train - Q * (e + 1):
-            raise AssertionError(f"al-loop {mode} iteration {e}: pool size "
+            raise AssertionError(f"{mode} iteration {e}: pool size "
                                  f"{recs[e]['pool_size']}")
     for e, r in recs.items():
-        if len(r["f1"]) != 2 * G_MEMBERS or not np.all(np.isfinite(r["f1"])):
-            raise AssertionError(f"al-loop {mode} epoch {e}: F1s {r['f1']}")
+        if len(r["f1"]) != n_members or not np.all(np.isfinite(r["f1"])):
+            raise AssertionError(f"{mode} epoch {e}: F1s {r['f1']}")
     return recs
 
 
@@ -943,18 +1063,23 @@ def phase_al_loop(x, card):
     with tempfile.TemporaryDirectory() as root:
         for mode in AL_MODES:
             linear_mc.launches = 0
-            picks, timer, res = run_al_user(
-                mode, members, data, os.path.join(root, mode, "cuda"),
-                "cuda", AL_EPOCHS, profile=mode == "mc")
+            timer = IterTimer(PROFILED_EPOCH if mode == "mc" else None)
+            picks, res = run_al_user(
+                mode, Committee(copy.deepcopy(members), device_members=True,
+                                device="cuda"),
+                data, os.path.join(root, mode, "cuda"), "cuda", AL_EPOCHS,
+                timer)
             launches = linear_mc.launches
             if launches:
                 raise AssertionError(f"al-loop {mode}: {launches} linear_mc "
                                      "launches on a path without the kernel")
             recs = check_al_run(mode, os.path.join(root, mode, "cuda"), data,
                                 n_train)
-            cpu_picks, _, _ = run_al_user(
-                mode, members, data, os.path.join(root, mode, "cpu"), "cpu",
-                1)
+            cpu_picks, _ = run_al_user(
+                mode, Committee(copy.deepcopy(members), device_members=True,
+                                device="cpu"),
+                data, os.path.join(root, mode, "cpu"), "cpu", 1,
+                StepTimer(None))
             cpu_recs = read_metrics(os.path.join(root, mode, "cpu"))
             what = f"al-loop {mode} iteration 0, card vs CPU"
             near[mode] = _compare_slots(picks[0], cpu_picks[0], what)
@@ -963,7 +1088,9 @@ def phase_al_loop(x, card):
                 raise AssertionError(f"{what}: rand ids differ")
             if len(picks) != AL_EPOCHS or not res["trajectory"]:
                 raise AssertionError(f"al-loop {mode}: {len(picks)} selects")
-            iters = [r for r in timer.records if r["epoch"] >= 0]
+            # the traced iteration runs slower: out of the medians
+            iters = [r for r in timer.records
+                     if r["epoch"] >= 0 and r["epoch"] != timer.profile_epoch]
             # hc and rand score no probs table: their score phase is 0
             stats[mode] = {k: statistics.median(r.get(f"{k}_s", 0.0)
                                                 for r in iters) * 1e3
@@ -981,13 +1108,14 @@ def phase_al_loop(x, card):
           f"kernel launches on this path 0 (it runs no hand kernel)")
     for mode, st in stats.items():
         print(f"[al-loop] {card}: {mode} median ms per iteration "
-              f"(StepTimer, host clock, over {AL_EPOCHS}): " + ", ".join(
+              f"(StepTimer, host clock, over {AL_EPOCHS - (mode == 'mc')} "
+              f"untraced): " + ", ".join(
                   f"{k} {st[k]:.3f}" for k in TIMED_PHASES + ("iteration",))
               + f"; final mean F1 {st['final_f1']:.4f}")
     print(f"[al-loop] {card}: device busy over mc iteration {PROFILED_EPOCH}"
-          f" (torch.profiler): " + ("not measured (no device events)"
-                                    if busy is None else
-                                    f"{busy[0]:.2%}, {busy[1]:.4f} ms"))
+          f" (torch.profiler, device events only): " + (
+              "not measured (no device events)" if busy is None else
+              f"{busy[0]:.2%} of the iteration, {busy[1]:.4f} ms"))
     return stats, busy
 
 
@@ -1082,14 +1210,14 @@ def phase_al_cli(card):
                                  f"{sorted(ref)}")
         for u in got:
             (m, st), (rm, rst) = got[u], ref[u]
-            for e in range(-1, AL_EPOCHS):
+            for e in range(-1, CLI_EPOCHS):
                 # host members score and evaluate alike on both devices; the
                 # selection's consensus entropy is the card's or the CPU's
                 if (m[e].get("queried") != rm[e].get("queried")
                         or m[e]["f1"] != rm[e]["f1"]):
                     raise AssertionError(f"al-cli user {u} epoch {e}: card "
                                          "and CPU runs differ")
-            if st.next_epoch != AL_EPOCHS:
+            if st.next_epoch != CLI_EPOCHS:
                 raise AssertionError(f"al-cli user {u}: {st.next_epoch}")
         base = CLI_ARGS + ["--models-root", roots["killed"], "--amg-root",
                            amg_root, "--device", "cuda"]
@@ -1114,6 +1242,7 @@ def phase_al_cli(card):
             if m != rm or st != rst:
                 raise AssertionError(f"al-cli user {u}: the resumed run's "
                                      "metrics or state differ")
+        phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
           f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
           f"written in {tree_s:.1f} s), {REG_MEMBERS} GaussianNB + "
@@ -1123,7 +1252,566 @@ def phase_al_cli(card):
           f"resumed to the uninterrupted run's metrics and state")
 
 
+# -- slice 5: the boosted slot and the CNN members -------------------------
+
+
+def phase_gbdt(card):
+    """The GBDT host core at DEAM pre-training scale: built with g++, one
+    tree and a small forest's margins bit-equal to the numpy plain
+    versions; then an AL member's fit, update and pool predict timed."""
+    t0 = time.perf_counter()
+    lib, _ = native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 8)
+    n = DEAM_SONGS * DEAM_FRAMES
+    y = rng.integers(0, C, n)
+    centers = rng.normal(0, 0.5, (C, F)).astype(np.float32)
+    x = rng.standard_normal((n, F), np.float32) + centers[y]
+    t0 = time.perf_counter()
+    xb = QuantileBinner(GBDT_BINS).fit(x).transform(x)
+    bin_s = time.perf_counter() - t0
+    # the first round's class-0 gradients under the uniform start
+    g = (0.25 - (y == 0)).astype(np.float32)
+    h = np.full(n, 0.25 * 0.75, np.float32)
+    # the first call loads the library and starts OpenMP's threads
+    native.gbdt_build_tree(xb[:64], g[:64], h[:64], max_depth=GBDT_DEPTH,
+                           n_bins=GBDT_BINS)
+    t0 = time.perf_counter()
+    tree = native.gbdt_build_tree(xb, g, h, max_depth=GBDT_DEPTH,
+                                  n_bins=GBDT_BINS)
+    tree_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = native.gbdt_build_tree(xb, g, h, max_depth=GBDT_DEPTH,
+                                   n_bins=GBDT_BINS, plain=True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(a, b) for a, b in zip(tree, plain)):
+        raise AssertionError("gbdt: the core's tree differs from the plain "
+                             "version's")
+    forest = GBDT(C, max_depth=GBDT_DEPTH, n_bins=GBDT_BINS).boost(
+        xb, y, GBDT_CHECK_ROUNDS)
+    st = forest.state()
+    args = (xb, st["feature"], st["threshold"], st["value"],
+            st["tree_class"], C, forest.learning_rate)
+    t0 = time.perf_counter()
+    margins = native.gbdt_predict_margins(*args)
+    margins_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(margins, native.gbdt_predict_margins(
+            *args, plain=True)):
+        raise AssertionError("gbdt: the core's margins differ from the "
+                             "plain version's")
+    # an AL member: its fit, one update on a 10-song batch, a pool predict
+    xf, yf = labelled_rows(np.random.default_rng(SEED + 9), centers,
+                           GBDT_FIT_ROWS)
+    t0 = time.perf_counter()
+    member = NativeGBDTMember("xgb.it_0").fit(xf, yf)
+    fit_s = time.perf_counter() - t0
+    xq, yq = labelled_rows(np.random.default_rng(SEED + 10), centers,
+                           Q * USER_FRAMES)
+    n_fit_trees = member.model.n_trees
+    t0 = time.perf_counter()
+    member.update(xq, yq)
+    update_s = time.perf_counter() - t0
+    xp, _ = labelled_rows(np.random.default_rng(SEED + 11), centers,
+                          USER_SONGS * USER_FRAMES)
+    t0 = time.perf_counter()
+    p = member.predict_proba(xp)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.all(np.isfinite(p)) and np.allclose(p.sum(1), 1, atol=1e-5)):
+        raise AssertionError("gbdt: pool probabilities are not rows of a "
+                             "distribution")
+    print(f"[gbdt] host core {os.path.basename(lib)} built in {build_s:.3f} "
+          f"s; DEAM scale ({DEAM_SONGS} songs x {DEAM_FRAMES} frames = {n} "
+          f"rows, F={F}, {GBDT_BINS} bins, depth {GBDT_DEPTH}): binning "
+          f"{bin_s:.3f} s, one tree {tree_ms:.3f} ms (plain "
+          f"{plain_ms:.3f} ms), bit-equal; margins of {forest.n_trees} "
+          f"trees {margins_ms:.3f} ms, bit-equal to the plain version")
+    print(f"[gbdt] {card}: host clock, an AL member (100 rounds x {C} "
+          f"classes, depth {GBDT_DEPTH}): fit on {GBDT_FIT_ROWS} rows "
+          f"{fit_s:.3f} s, update on a {Q}-song batch ({Q * USER_FRAMES} "
+          f"rows, +{member.model.n_trees - n_fit_trees} trees) "
+          f"{update_s:.3f} s, "
+          f"pool predict of {len(xp)} rows with {member.model.n_trees} "
+          f"trees {predict_ms:.3f} ms")
+    return {"fit_s": fit_s, "update_s": update_s, "predict_ms": predict_ms}
+
+
+def cnn_work(cfg, n_crops=1):
+    """FLOP and bytes of one vgg forward over ``n_crops`` crops of
+    ``cfg``: the DFT and mel matmuls, the convolutions and dense layers
+    (2 per multiply-add), about 6 elementwise operations per
+    convolution output (BatchNorm, ReLU, pooling); bytes are the crops
+    read once, the weights read once and the scores written once."""
+    t, nf = cfg.n_frames, cfg.n_fft // 2 + 1
+    flop = 2 * t * cfg.n_fft * nf * 2 + 2 * cfg.n_mels * nf * t
+    h, w, c_in = cfg.n_mels, t, 1
+    for width in cfg.channel_widths:
+        flop += (2 * 9 * c_in + 6) * width * h * w
+        h, w, c_in = h // 2, w // 2, width
+    d = cfg.channel_widths[-1]
+    flop += 2 * d * d + 2 * d * cfg.n_class
+    n_weights = sum(int(np.prod(s)) for s in
+                    short_cnn.variable_shapes(cfg).values())
+    n_bytes = 4 * (n_crops * cfg.input_length + n_weights
+                   + n_crops * cfg.n_class)
+    return n_crops * flop, n_bytes
+
+
+def make_waves(n_songs, n_samples, seed):
+    """Seeded noise clips (std 0.1), one per song."""
+    rng = np.random.default_rng(seed)
+    return {i: rng.standard_normal(n_samples, np.float32) * np.float32(0.1)
+            for i in range(n_songs)}
+
+
+def train_step_grads(variables, x, y, dropout_key, cfg):
+    """The loss and the flat gradient of one training step's forward and
+    backward (``CNNTrainer._epoch``'s step without the optimizer)."""
+    params = {k: t.detach().clone().requires_grad_(True)
+              for k, t in variables.items() if not short_cnn.is_stat(k)}
+    stats = {k: t for k, t in variables.items() if short_cnn.is_stat(k)}
+    out, _ = short_cnn.apply_train({**params, **stats}, x, dropout_key, cfg)
+    loss = bce_loss(out, y)
+    with short_cnn.exact_float32():
+        loss.backward()
+    return float(loss.detach()), torch.cat(
+        [params[k].grad.reshape(-1).double().cpu() for k in sorted(params)])
+
+
+def phase_cnn(card):
+    """The vgg CNN at full width on the card against the CPU port."""
+    cfg, tc = CNNConfig(), TrainConfig()
+    waves = make_waves(CNN_CROPS, CLIP_SAMPLES, SEED + 12)
+    stores = {d: DeviceWaveformStore(waves, cfg.input_length, d)
+              for d in ("cuda", "cpu")}
+    ids = list(waves)
+    members = [CNNMember(f"cnn.it_{i}", short_cnn.init_variables(
+        SEED + i, cfg, "cuda"), cfg) for i in range(CNN_MEMBERS)]
+    committee = Committee([], members, cfg, tc, device="cuda")
+    cpu_vars = [{k: v.cpu() for k, v in m.variables.items()}
+                for m in members[:CNN_CHECK_MEMBERS]]
+    key = prng.key(SEED + 13, "cpu")
+    rows = stores["cuda"].row_of(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probs = committee.predict_songs_cnn(stores["cuda"], ids, key)
+    torch.cuda.synchronize()
+    peak_fwd = torch.cuda.max_memory_allocated()
+    p = probs.cpu().numpy()
+    if p.shape != (CNN_MEMBERS, CNN_CROPS, C) or not (
+            np.all(np.isfinite(p)) and p.min() > 0 and p.max() < 1):
+        raise AssertionError(f"cnn: forward scores {p.shape} out of (0, 1)")
+    fwd_ms = time_ms(lambda: committee.predict_songs_cnn(
+        stores["cuda"], ids, key), reps=CNN_REPS)
+    per_crop_ms = fwd_ms / (CNN_MEMBERS * CNN_CROPS)
+    flop, n_bytes = cnn_work(cfg, CNN_CROPS)
+    bound_ms = max(flop / PEAK_F32_FLOP_S, n_bytes / PEAK_BYTES_S) * 1e3 \
+        / CNN_CROPS
+    # the same crops on both devices: the draws are the key's
+    crops = {d: committee._bucketed_crops(stores[d], rows, key)
+             for d in ("cuda", "cpu")}
+    if not torch.equal(crops["cuda"].cpu(), crops["cpu"]):
+        raise AssertionError("cnn: card and CPU crops differ")
+    sub = {d: c[:CNN_CHECK_CROPS] for d, c in crops.items()}
+    mel = log_mel_spectrogram(sub["cuda"], cfg).double().cpu()
+    mel_ref = log_mel_spectrogram(sub["cpu"].double(), cfg)
+    mel_err = float((mel - mel_ref).abs().max())
+    np.testing.assert_allclose(mel.numpy(), mel_ref.numpy(), **MEL_TOL,
+                               err_msg="cnn: log-mel vs float64")
+    ref = short_cnn.committee_infer(cpu_vars, sub["cpu"], cfg).numpy()
+    got = p[:CNN_CHECK_MEMBERS, :CNN_CHECK_CROPS]
+    prob_err = float(np.abs(got - ref).max())
+    np.testing.assert_allclose(got, ref, **CNN_TOL,
+                               err_msg="cnn: card vs CPU probabilities")
+    # qbdc: one member under QBDC_K masks
+    q_crops, mask_keys = committee._qbdc_stage(stores["cuda"], rows, key,
+                                               QBDC_K)
+    q_ref_crops = committee._bucketed_crops(stores["cpu"], rows,
+                                            prng.split(key)[0])
+    if not torch.equal(q_crops.cpu(), q_ref_crops):
+        raise AssertionError("cnn: qbdc crops differ between card and CPU")
+    d_feat = cfg.channel_widths[-1]
+    keep = 1.0 - cfg.dropout_rate
+    for k in mask_keys:
+        if not torch.equal(prng.bernoulli(k, keep, (d_feat,),
+                                          device="cuda").cpu(),
+                           prng.bernoulli(k, keep, (d_feat,), device="cpu")):
+            raise AssertionError("cnn: qbdc masks differ")
+    with torch.no_grad():
+        q_got = short_cnn.qbdc_infer(members[0].variables,
+                                     q_crops[:CNN_CHECK_CROPS], mask_keys,
+                                     cfg).cpu().numpy()
+    q_ref = short_cnn.qbdc_infer(cpu_vars[0], q_ref_crops[:CNN_CHECK_CROPS],
+                                 mask_keys, cfg).numpy()
+    qbdc_err = float(np.abs(q_got - q_ref).max())
+    np.testing.assert_allclose(q_got, q_ref, **CNN_TOL,
+                               err_msg="cnn: qbdc card vs CPU")
+    qbdc_ms = time_ms(lambda: committee.qbdc_pool_probs(
+        stores["cuda"], ids, key, k=QBDC_K), reps=CNN_REPS)
+    # fit_many: FIT_EPOCHS epochs on FIT_SONGS songs, validated on
+    # FIT_TEST_SONGS, card (every member) against CPU (the first two)
+    labels = np.random.default_rng(SEED + 14).integers(0, C, CNN_CROPS)
+    tr, te = ids[:FIT_SONGS], ids[FIT_SONGS:FIT_SONGS + FIT_TEST_SONGS]
+    y_tr, y_te = one_hot_np(labels[tr]), one_hot_np(labels[te])
+    fkey = prng.key(SEED + 15, "cpu")
+    trainers = {d: CNNTrainer(cfg, tc) for d in ("cuda", "cpu")}
+    # one warm-up epoch: the timed fit should not carry cuDNN's first calls
+    trainers["cuda"].fit(members[0].variables, stores["cuda"], tr, y_tr, te,
+                         y_te, fkey, n_epochs=1)
+    for t in trainers.values():
+        t.draws = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, hist = trainers["cuda"].fit_many(
+        [m.variables for m in members], stores["cuda"], tr, y_tr, te, y_te,
+        fkey, n_epochs=FIT_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    _, hist_ref = trainers["cpu"].fit_many(
+        cpu_vars, stores["cpu"], tr, y_tr, te, y_te, fkey,
+        n_epochs=FIT_EPOCHS)
+    cpu_fit_s = time.perf_counter() - t0
+    n_draws = CNN_CHECK_MEMBERS * FIT_EPOCHS
+    for a, b in zip(trainers["cuda"].draws[:n_draws],
+                    trainers["cpu"].draws):
+        for k in ("perm", "starts", "test_starts"):
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"cnn fit: card and CPU {k} differ")
+        for dk in b["dropout_keys"]:
+            shape = (tc.batch_size, d_feat)
+            if not torch.equal(
+                    prng.bernoulli(prng.fold_in_static(
+                        dk, *short_cnn.DROPOUT_RNG_PATH), keep, shape,
+                        device="cuda").cpu(),
+                    prng.bernoulli(prng.fold_in_static(
+                        dk, *short_cnn.DROPOUT_RNG_PATH), keep, shape,
+                        device="cpu")):
+                raise AssertionError("cnn fit: dropout masks differ")
+    loss_err = 0.0
+    for m, (h, r) in enumerate(zip(hist, hist_ref)):
+        print(f"[cnn] fit member {m} (card / CPU) " + "; ".join(
+            f"epoch {e['epoch']} {e['phase']} train {e['train_loss']:.6f} / "
+            f"{er['train_loss']:.6f} val {e['val_loss']:.6f} / "
+            f"{er['val_loss']:.6f}" for e, er in zip(h, r)))
+        for e, er in zip(h, r):
+            for k in ("train_loss", "val_loss"):
+                loss_err = max(loss_err, abs(e[k] - er[k]))
+                np.testing.assert_allclose(e[k], er[k], **FIT_TOL,
+                                           err_msg=f"cnn fit {k}")
+    # one step's gradient at the members' initial weights, card vs CPU,
+    # in float32 and in float64
+    step_x = {d: crops[d][:tc.batch_size] for d in crops}
+    step_y = torch.from_numpy(one_hot_np(labels[:tc.batch_size]))
+    dk = prng.key(SEED + 16, "cpu")
+    grad_err = {}
+    for dtype in ("float32", "float64"):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+        d = getattr(torch, dtype)
+        loss_c, g_c = train_step_grads(
+            {k: t.to(d) for k, t in members[0].variables.items()},
+            step_x["cuda"].to(d), step_y.to(step_x["cuda"].device, d), dk,
+            cfg_d)
+        loss_h, g_h = train_step_grads(
+            {k: t.to(d) for k, t in cpu_vars[0].items()},
+            step_x["cpu"].to(d), step_y.to(d), dk, cfg_d)
+        grad_err[dtype] = float((g_c - g_h).norm() / g_h.norm())
+        if abs(loss_c - loss_h) > 1e-5:
+            raise AssertionError(f"cnn: a training step's {dtype} loss "
+                                 f"{loss_c} (card) / {loss_h} (CPU)")
+    if (grad_err["float64"] > GRAD64_REL_TOL
+            or grad_err["float32"] > GRAD32_REL_TOL):
+        raise AssertionError(f"cnn: a training step's gradient, card vs "
+                             f"CPU, relative L2 error {grad_err}")
+    epoch_ms = fit_s * 1e3 / (CNN_MEMBERS * FIT_EPOCHS)
+    f_fwd, _ = cnn_work(cfg)
+    epoch_flop = f_fwd * (3 * FIT_SONGS + FIT_TEST_SONGS)
+    epoch_bound = epoch_flop / PEAK_F32_FLOP_S * 1e3
+    print(f"[cnn] vgg at full width ({cfg.n_channels} channels, "
+          f"{cfg.n_layers} layers, {cfg.n_mels} mels, {cfg.input_length}-"
+          f"sample crops of {CLIP_SAMPLES}-sample clips), {CNN_MEMBERS} "
+          f"members x {CNN_CROPS} crops on the card; {CNN_CHECK_MEMBERS} "
+          f"members x {CNN_CHECK_CROPS} crops against the CPU port: crops "
+          f"equal, log-mel vs float64 max |err| {mel_err:.3e} dB, "
+          f"probabilities max |err| {prob_err:.3e} ({CNN_TOL}); qbdc "
+          f"K={QBDC_K}: crops and masks equal, max |err| {qbdc_err:.3e}; "
+          f"fit_many {FIT_EPOCHS} epochs on {FIT_SONGS} songs (validated "
+          f"on {FIT_TEST_SONGS}): permutations, crop starts and dropout "
+          f"masks equal, losses max |err| {loss_err:.3e} ({FIT_TOL}); one "
+          f"step's gradient, card vs CPU, relative L2 error: float64 "
+          f"{grad_err['float64']:.3e} (<= {GRAD64_REL_TOL}), float32 "
+          f"{grad_err['float32']:.3e} (<= {GRAD32_REL_TOL}); "
+          f"CPU fit {cpu_fit_s:.1f} s")
+    print(f"[cnn] {card}: forward {per_crop_ms:.5f} ms per crop per member "
+          f"(CUDA events, median of {CNN_REPS} passes of {CNN_MEMBERS} x "
+          f"{CNN_CROPS}), FLOP bound {bound_ms:.5f} ms ({flop / CNN_CROPS:.4e}"
+          f" FLOP a crop at {PEAK_F32_FLOP_S:.3g} FLOP/s float32, "
+          f"{bound_ms / per_crop_ms:.1%}); qbdc K={QBDC_K} pass over "
+          f"{CNN_CROPS} crops {qbdc_ms:.3f} ms; retrain {epoch_ms:.3f} ms "
+          f"per member-epoch ({FIT_SONGS} train + {FIT_TEST_SONGS} "
+          f"validation crops, host clock over {CNN_MEMBERS} x {FIT_EPOCHS}; "
+          f"FLOP bound {epoch_bound:.3f} ms); peak device memory "
+          f"{peak_fwd / 2**30:.2f} GiB forward, {peak_fit / 2**30:.2f} GiB "
+          f"retrain")
+    return {"per_crop_ms": per_crop_ms, "epoch_ms": epoch_ms}
+
+
+def full_user(store_ids, seed=SEED + 16):
+    """One AMG1608 user: USER_SONGS annotated songs (a seeded choice of
+    the store's ids) with USER_FRAMES frames of F features around seeded
+    class centres, and seeded labels."""
+    rng = np.random.default_rng(seed)
+    songs = sorted(rng.choice(store_ids, USER_SONGS, replace=False).tolist())
+    labels = {s: int(c) for s, c in zip(songs, rng.integers(0, C,
+                                                             USER_SONGS))}
+    centers = rng.normal(0, CENTER_SD * 5, (C, F)).astype(np.float32)
+    frames = (rng.standard_normal((USER_SONGS, USER_FRAMES, F), np.float32)
+              + centers[[labels[s] for s in songs]][:, None, :])
+    pool = FramePool(frames.reshape(-1, F), np.repeat(songs, USER_FRAMES))
+    return pool, labels, centers
+
+
+def full_host_members(centers, seed):
+    """FULL_MEMBERS GaussianNB, SGD and GBDT members, each fitted by the
+    port on its own seeded labelled draw."""
+    members = fit_members(centers, FULL_MEMBERS, seed)
+    for i in range(FULL_MEMBERS):
+        x, y = labelled_rows(np.random.default_rng(seed + 200 + i), centers,
+                             GBDT_FIT_ROWS)
+        members.append(NativeGBDTMember(f"xgb.it_{i}").fit(x, y))
+    return members
+
+
+def full_cnn_members(cfg, store, pre_ids, seed, device, fit=True):
+    """FULL_MEMBERS vgg members from ``init_variables``, then (``fit``) a
+    short fit on seeded labels of ``pre_ids``' waveforms."""
+    variables = [short_cnn.init_variables(seed + i, cfg, device)
+                 for i in range(FULL_MEMBERS)]
+    if fit:
+        y = one_hot_np(np.random.default_rng(seed).integers(
+            0, C, len(pre_ids)))
+        n = len(pre_ids) // 2
+        variables, _ = CNNTrainer(cfg, TrainConfig()).fit_many(
+            variables, store, pre_ids[:n], y[:n], pre_ids[n:], y[n:],
+            prng.key(seed, "cpu"), n_epochs=PRE_FIT_EPOCHS)
+    return [CNNMember(f"cnn.it_{i}", v, cfg)
+            for i, v in enumerate(variables)]
+
+
+def phase_al_loop_full(card):
+    """The paper's committee (5 GaussianNB, 5 SGD, 5 GBDT, 5 vgg CNN) in
+    one AMG1608 user's AL loop on the card, mc and qbdc; iteration 0 at a
+    narrow CNN width against the CPU."""
+    cfg = CNNConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    t0 = time.perf_counter()
+    data_t = torch.randn((FULL_SONGS, CLIP_SAMPLES), generator=gen,
+                         device="cuda").mul_(0.1)
+    ids = list(range(1, FULL_SONGS + 1))
+    store = DeviceWaveformStore.from_padded(
+        ids, data_t, torch.full((FULL_SONGS,), CLIP_SAMPLES, device="cuda"),
+        cfg.input_length)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    pool, labels, centers = full_user(ids)
+    pre_ids = [i for i in ids if i not in labels][:PRE_FIT_SONGS]
+    t0 = time.perf_counter()
+    host = full_host_members(centers, SEED + 18)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cnns = full_cnn_members(cfg, store, pre_ids, SEED + 19, "cuda")
+    torch.cuda.synchronize()
+    cnn_s = time.perf_counter() - t0
+    data = UserData("amg-user", pool, labels, store=store)
+    n_train = int(round(TRAIN_SIZE * USER_SONGS))
+    n_members = 4 * FULL_MEMBERS
+    stats, busy, picks0 = {}, None, {}
+    with tempfile.TemporaryDirectory() as root:
+        for mode, epochs in FULL_EPOCHS.items():
+            linear_mc.launches = 0
+            committee = Committee(copy.deepcopy(host), copy.deepcopy(cnns),
+                                  cfg, device="cuda")
+            timer = IterTimer(FULL_PROFILED_EPOCH if mode == "mc"
+                                  else None)
+            path = os.path.join(root, mode)
+            picks, res = run_al_user(mode, committee, data, path, "cuda",
+                                       epochs, timer)
+            if linear_mc.launches:
+                raise AssertionError(f"al-loop-full {mode}: linear_mc "
+                                     "launched on a path without it")
+            recs = check_al_run(mode, path, data, n_train, epochs,
+                                n_members, what="al-loop-full")
+            if len(picks) != epochs:
+                raise AssertionError(f"al-loop-full {mode}: {len(picks)} "
+                                     "selects")
+            iters = [r for r in timer.records
+                     if r["epoch"] >= 0 and r["epoch"] != timer.profile_epoch]
+            stats[mode] = {k: statistics.median(r.get(f"{k}_s", 0.0)
+                                                for r in iters) * 1e3
+                           for k in FULL_PHASES + ("iteration",)}
+            stats[mode]["final_f1"] = recs[epochs - 1]["mean_f1"]
+            stats[mode]["untraced"] = len(iters)
+            if mode == "mc":
+                busy = timer.busy
+            del committee
+            torch.cuda.empty_cache()
+        # iteration 0 at a narrow CNN width, card against CPU
+        narrow = CNNConfig(**NARROW_CNN)
+        user_rows = store.row_of(pool.song_ids)
+        cpu_store = DeviceWaveformStore.from_padded(
+            pool.song_ids, data_t[torch.as_tensor(user_rows,
+                                                  device="cuda")].cpu(),
+            torch.full((USER_SONGS,), CLIP_SAMPLES), narrow.input_length)
+        narrow_store = DeviceWaveformStore.from_padded(
+            ids, data_t, store.lengths, narrow.input_length)
+        narrow_cnns = full_cnn_members(narrow, None, None, SEED + 20, "cpu",
+                                       fit=False)
+        near, narrow_s = {}, {}
+        for mode in FULL_EPOCHS:
+            for side, (dev, st) in enumerate((("cuda", narrow_store),
+                                              ("cpu", cpu_store))):
+                committee = Committee(copy.deepcopy(host),
+                                      copy.deepcopy(narrow_cnns), narrow,
+                                      device=dev)
+                t0 = time.perf_counter()
+                picks0[side], _ = run_al_user(
+                    mode, committee, UserData("amg-user", pool, labels,
+                                              store=st),
+                    os.path.join(root, f"narrow-{mode}-{side}"), dev,
+                    NARROW_EPOCHS, StepTimer(None), NARROW_RETRAIN_EPOCHS)
+                narrow_s[f"{mode} {dev}"] = time.perf_counter() - t0
+            near[mode] = _compare_slots(
+                picks0[0][0], picks0[1][0],
+                f"al-loop-full {mode} iteration 0, card vs CPU", **CNN_TOL)
+    del store, narrow_store, data_t
+    torch.cuda.empty_cache()
+    print(f"[al-loop-full] {FULL_MEMBERS} GaussianNB + {FULL_MEMBERS} SGD + "
+          f"{FULL_MEMBERS} GBDT + {FULL_MEMBERS} vgg CNN members (host fits "
+          f"{host_s:.1f} s, CNN init + {PRE_FIT_EPOCHS}-epoch fit on "
+          f"{PRE_FIT_SONGS} songs {cnn_s:.1f} s); a store of {FULL_SONGS} "
+          f"clips x {CLIP_SAMPLES} samples on the card "
+          f"({FULL_SONGS * CLIP_SAMPLES * 4 / 1e9:.2f} GB, {store_s:.1f} s);"
+          f" one user with {USER_SONGS} songs x {USER_FRAMES} frames, q={Q},"
+          f" {TrainConfig().n_epochs_retrain} retrain epochs an iteration, "
+          f"iterations {FULL_EPOCHS} (qbdc K={QBDC_K}): queried songs "
+          f"disjoint, pool shrinking by q, F1s finite, each state at "
+          f"next_epoch = its iterations; kernel launches 0")
+    print(f"[al-loop-full] iteration 0 card vs CPU at a narrow CNN "
+          f"({NARROW_CNN}, {NARROW_EPOCHS} iteration of "
+          f"{NARROW_RETRAIN_EPOCHS} retrain epochs): slot values within "
+          f"{CNN_TOL}, slots naming another song {near}; wall s " +
+          ", ".join(f"{k} {v:.1f}" for k, v in narrow_s.items()))
+    for mode, st in stats.items():
+        print(f"[al-loop-full] {card}: {mode} median ms per iteration "
+              f"(StepTimer, host clock, over {st['untraced']} untraced): "
+              + ", ".join(
+                  f"{k} {st[k]:.3f}" for k in FULL_PHASES + ("iteration",))
+              + f"; final mean F1 {st['final_f1']:.4f}")
+    print(f"[al-loop-full] {card}: device busy over mc iteration "
+          f"{FULL_PROFILED_EPOCH} (torch.profiler, device events only): " + (
+              "not measured (no device events)" if busy is None else
+              f"{busy[0]:.2%} of the iteration, {busy[1]:.3f} ms"))
+    return stats, busy
+
+
+def write_npy_tree(amg_root, seed=SEED + 21):
+    """``npy/{song_id}.npy``: a seeded CLI_CLIP_SAMPLES-sample clip for
+    each of the tree's songs."""
+    npy = os.path.join(amg_root, "npy")
+    os.makedirs(npy)
+    rng = np.random.default_rng(seed)
+    for sid in range(1, AMG_SONGS + 1):
+        np.save(os.path.join(npy, f"{sid}.npy"),
+                rng.standard_normal(CLI_CLIP_SAMPLES, np.float32)
+                * np.float32(0.1))
+
+
+def write_cnn_registry(src_models, models_root, seed=SEED + 22):
+    """The host registry of ``src_models`` plus CLI_XGB GBDT members and
+    CLI_CNN_MEMBERS vgg members at the CLI's narrow geometry."""
+    pre = os.path.join(models_root, "pretrained")
+    shutil.copytree(os.path.join(src_models, "pretrained"), pre)
+    centers = np.random.default_rng(seed).normal(0, 0.5, (C, F)).astype(
+        np.float32)
+    for i in range(CLI_XGB):
+        x, y = labelled_rows(np.random.default_rng(seed + i), centers,
+                             GBDT_FIT_ROWS)
+        m = NativeGBDTMember(f"xgb.it_{i}").fit(x, y)
+        m.save(os.path.join(pre, Committee.member_file(m)))
+    cfg = CNNConfig(**CLI_CNN)
+    for i in range(CLI_CNN_MEMBERS):
+        m = CNNMember(f"cnn.it_{i}", short_cnn.init_variables(
+            seed + 10 + i, cfg, "cpu"), cfg)
+        m.save(os.path.join(pre, Committee.member_file(m)))
+
+
+def phase_al_cli_cnn(card, root, amg_root, host_models):
+    """The CLI with xgb and CNN members in the registry, mc and qbdc, on
+    the card and on the CPU; iteration 0's selection card against CPU
+    (slot values within CNN_TOL, near-ties counted)."""
+    t0 = time.perf_counter()
+    write_npy_tree(amg_root)
+    npy_s = time.perf_counter() - t0
+    base = os.path.join(root, "models_cnn")
+    write_cnn_registry(host_models, base)
+    near, walls = {}, {}
+    n_members = 2 * REG_MEMBERS + CLI_XGB + CLI_CNN_MEMBERS
+    for mode in ("mc", "qbdc"):
+        picks = {}
+        for d in ("cuda", "cpu"):
+            models = os.path.join(root, f"models_cnn_{mode}_{d}")
+            shutil.copytree(os.path.join(base, "pretrained"),
+                            os.path.join(models, "pretrained"))
+            t0 = time.perf_counter()
+            with recorded_scoring() as picks[d]:
+                run_cli(CLI_CNN_ARGS + ["-m", mode, "--models-root", models,
+                                        "--amg-root", amg_root, "--device",
+                                        d, "--cnn-config-json",
+                                        json.dumps(CLI_CNN)])
+            walls[f"{mode} {d}"] = time.perf_counter() - t0
+            if len(picks[d]) != CLI_CNN_EPOCHS:
+                raise AssertionError(f"al-cli {mode} {d}: "
+                                     f"{len(picks[d])} selects")
+            users = os.path.join(models, "users")
+            (uid,) = os.listdir(users)
+            path = os.path.join(users, uid, mode)
+            recs = read_metrics(path)
+            st = al_state.ALState.load(path)
+            if (sorted(recs) != list(range(-1, CLI_CNN_EPOCHS))
+                    or st.next_epoch != CLI_CNN_EPOCHS
+                    or not os.path.exists(os.path.join(path, "DONE"))):
+                raise AssertionError(f"al-cli {mode} {d}: epochs "
+                                     f"{sorted(recs)}, state {st.next_epoch}")
+            for e, r in recs.items():
+                if (len(r["f1"]) != n_members
+                        or not np.all(np.isfinite(r["f1"]))):
+                    raise AssertionError(f"al-cli {mode} {d} epoch {e}: "
+                                         f"F1s {r['f1']}")
+            files = sorted(os.listdir(path))
+            if sum(f.startswith("classifier_") for f in files) != n_members:
+                raise AssertionError(f"al-cli {mode} {d}: members {files}")
+        near[mode] = _compare_slots(
+            picks["cuda"][0], picks["cpu"][0],
+            f"al-cli {mode} iteration 0, card vs CPU", **CNN_TOL)
+    print(f"[al-cli] {card}: amg_test {' '.join(CLI_CNN_ARGS)} -m mc|qbdc "
+          f"with {CLI_XGB} GBDT and {CLI_CNN_MEMBERS} vgg members ("
+          f"{CLI_CNN}) added to the registry, waveforms from npy/ "
+          f"({AMG_SONGS} clips of {CLI_CLIP_SAMPLES} samples, written in "
+          f"{npy_s:.1f} s): every epoch on the card and on the CPU, "
+          f"{n_members} finite F1s, state and DONE written; iteration 0 "
+          f"card vs CPU: slot values within {CNN_TOL}, slots naming another"
+          f" song {near}; wall s " +
+          ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+
 def main():
+    t0 = time.perf_counter()
+    walls = {}
+
+    def lap(name):
+        walls[name] = time.perf_counter() - t0 - sum(walls.values())
+
     card = phase_device()
     phase_build()
     phase_small()
@@ -1134,13 +1822,27 @@ def main():
     times = phase_times(xt, w_p, b_p, mt, scorer, card)
     del xt, w_p, b_p, mt, scorer
     torch.cuda.empty_cache()
+    lap("1-6")
     committee, pool, table, mem = phase_members(x)
     tables, hc = phase_acquire(table)
     phase_acquire_times(committee, pool, tables, hc, mem, card)
     del committee, pool, table, tables
     torch.cuda.empty_cache()
+    lap("7-9")
     phase_al_loop(x, card)
+    lap("10")
     phase_al_cli(card)
+    lap("11")
+    phase_gbdt(card)
+    lap("12")
+    phase_cnn(card)
+    torch.cuda.empty_cache()
+    lap("13")
+    phase_al_loop_full(card)
+    lap("14")
+    print("[wall] host clock, s by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; total {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",

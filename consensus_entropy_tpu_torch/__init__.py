@@ -28,8 +28,16 @@ Ported so far:
   ``fleet.session`` — the per-user AL loop with resume, and ``cli.amg_test``,
   its sequential CLI; ``resilience`` and ``obs`` — fault injection, retry,
   durable writes, preemption, phase timing;
+- ``native`` + ``native/ce_gbdt.cpp``, ``models.gbdt`` — the boosted
+  committee slot: gradient-boosted trees with continued boosting, their
+  tree build and forest predict in C++ built with the host compiler;
+- ``ops.mel``, ``data.audio``, ``models.short_cnn``, ``models.cnn_trainer``
+  and the CNN half of ``models.committee`` — the vgg ShortChunkCNN members:
+  log-mel frontend, device waveform store and crops, forward, qbdc's
+  dropout committee and the retraining schedule;
 - ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
-  and JAX-layout weights, members, workspaces and keys carried across.
+  and JAX-layout weights, members (CNN checkpoints included), workspaces
+  and keys carried across.
 """
 
 from consensus_entropy_tpu_torch.device import resolve_device

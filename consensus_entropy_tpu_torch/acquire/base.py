@@ -47,18 +47,6 @@ class AcquisitionStrategy:
         the acquirer then takes the two-call path."""
         return None
 
-    def probs_plan(self, committee, store, song_ids, key, *, pad_to,
-                   config):
-        """Stage this mode's CNN probs production as a batchable plan, or
-        ``None``; routed by ``probs_source`` to the committee's
-        ``qbdc_score_plan`` / ``cnn_score_plan``."""
-        if not self.needs_probs:
-            return None
-        if self.probs_source == "qbdc":
-            return committee.qbdc_score_plan(store, song_ids, key,
-                                             k=config.qbdc_k, pad_to=pad_to)
-        return committee.cnn_score_plan(store, song_ids, key, pad_to=pad_to)
-
     def extract_queries(self, acq, res) -> list:
         """Map a scoring result to song ids and apply any mode-specific mask
         change (hc row removal, mix dedup); the common pool shrink happens

@@ -2,9 +2,9 @@
 
 Counterpart of ``consensus_entropy_tpu/acquire/qbdc.py``: one personalised
 CNN forwarded under K seeded dropout masks replaces the stored committee,
-and scoring is mc's reduction over those K forwards.  Only the scoring is
-ported; the producer (``probs_source == "qbdc"``, routed by the base
-``probs_plan``) comes with the CNN members.
+and scoring is mc's reduction over those K forwards.  The producer
+(``probs_source == "qbdc"``) is ``Committee.qbdc_pool_probs``, which the
+session calls.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 
 Counterpart of ``consensus_entropy_tpu/al/loop.py``.  Per user: a grouped
 85/15 song split, then ``epochs`` iterations of [score the pool -> query
-the top q -> reveal the user's labels -> update every member -> evaluate]
-after a baseline evaluation.  The iteration body is
+the top q -> reveal the user's labels -> update the host members and
+retrain the CNN members -> evaluate] after a baseline evaluation.  The iteration body is
 ``fleet.session.UserSession``; this module keeps the sequential surface
 (``ALLoop``), the per-user data (``UserData``, ``SplitData``,
 ``grouped_split``, ``query_batch``) and the checkpoint writer
@@ -19,6 +19,7 @@ from typing import Mapping
 import numpy as np
 
 from consensus_entropy_tpu_torch.config import ALConfig
+from consensus_entropy_tpu_torch.data.audio import DeviceWaveformStore
 from consensus_entropy_tpu_torch.device import resolve_device
 from consensus_entropy_tpu_torch.models.committee import Committee, FramePool
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
@@ -83,6 +84,7 @@ class UserData:
     pool: FramePool  # frames of the user's annotated songs (scaled)
     labels: Mapping  # song id -> class 0..3 (the user's annotations)
     hc_rows: np.ndarray | None = None  # hc rows aligned with pool.song_ids
+    store: DeviceWaveformStore | None = None  # audio (CNN committees only)
 
 
 @dataclasses.dataclass
@@ -135,16 +137,19 @@ def grouped_split(pool: FramePool, labels: Mapping, train_size: float,
 
 
 class ALLoop:
-    """The sequential AL loop.  ``pad_pool_to`` pads every user's pool
-    to one width; ``fuse_step`` stages the fused select (one call: score
-    -> top-k -> mask update); ``device`` is where the acquisition runs
-    (``None`` is the card)."""
+    """The sequential AL loop.  ``retrain_epochs`` overrides the CNN
+    members' retrain epochs an iteration; ``pad_pool_to`` pads every
+    user's pool to one width; ``fuse_step`` stages the fused select (one
+    call: score -> top-k -> mask update); ``device`` is where the
+    acquisition runs (``None`` is the card)."""
 
     def __init__(self, config: ALConfig, *, tie_break: str = "fast",
+                 retrain_epochs: int | None = None,
                  pad_pool_to: int | None = None, fuse_step: bool = True,
                  device=None):
         self.config = config
         self.tie_break = tie_break
+        self.retrain_epochs = retrain_epochs
         self.pad_pool_to = pad_pool_to
         self.fuse_step = fuse_step
         self.device = resolve_device(device)
@@ -163,7 +168,8 @@ class ALLoop:
 
         session = UserSession(
             self.config, committee, data, user_path, seed=seed,
-            tie_break=self.tie_break, pad_pool_to=self.pad_pool_to,
+            tie_break=self.tie_break, retrain_epochs=self.retrain_epochs,
+            pad_pool_to=self.pad_pool_to,
             resume=resume, timer=timer, preemption=preemption,
             fuse_step=self.fuse_step, device=self.device)
         return drive_inline(session)

@@ -6,11 +6,11 @@ member file (``amg_test.py:146-171``); a ``DONE`` marker, written last,
 marks the user complete, and a partial directory whose ``al_state.json``
 belongs to the same experiment resumes at its next iteration.
 
-Member files are the port's (``classifier_{gnb,sgd}.{name}.npz``).  A
-registry or workspace holding anything the port cannot load yet (boosted
-trees, CNN checkpoints, scikit-learn pickles) raises an error naming it:
-nothing is skipped silently (``convert.registry_from_jax`` turns a JAX
-registry of GaussianNB/SGD pickles into the port's files).
+Member files are the port's (``classifier_{gnb,sgd,xgb,cnn}.{name}.npz``).
+A registry or workspace holding JAX files (scikit-learn and boosted-tree
+pickles, ``.msgpack`` CNN checkpoints) raises an error naming them and
+``convert.registry_from_jax``, which converts them: nothing is skipped
+silently.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from __future__ import annotations
 import os
 import shutil
 
-from consensus_entropy_tpu_torch.models.committee import Committee
+from consensus_entropy_tpu_torch.config import CNNConfig, TrainConfig
+from consensus_entropy_tpu_torch.models.committee import CNNMember, Committee
 from consensus_entropy_tpu_torch.models.members import MEMBER_TYPES
 
 _DONE = "DONE"
@@ -29,27 +30,31 @@ class UnportedMemberError(RuntimeError):
     """A committee file of a kind the port cannot load yet."""
 
 
+#: the JAX pickles ``convert.registry_from_jax`` reads
+_PICKLED = {"gnb": "GaussianNB", "sgd": "SGD", "xgb": "boosted-trees"}
+_CONVERT = ("convert it with "
+            "consensus_entropy_tpu_torch.convert.registry_from_jax")
+
+
 def _member_kind(fname: str) -> str | None:
-    """``gnb``/``sgd`` for the port's member files, ``None`` for files
-    that are not members; raises for member files the port cannot load."""
+    """``gnb``/``sgd``/``xgb``/``cnn`` for the port's member files,
+    ``None`` for files that are not members; raises for member files the
+    port cannot load."""
     if fname.endswith(".msgpack"):
         raise UnportedMemberError(
-            f"{fname}: CNN committee members are not ported yet "
-            "(ROADMAP A7)")
+            f"{fname}: a JAX CNN checkpoint; {_CONVERT}")
     if not fname.startswith(_MEMBER_PREFIX):
         return None
     kind = fname[len(_MEMBER_PREFIX):].split(".")[0]
     if fname.endswith(".pkl"):
-        if kind == "xgb":
+        if kind not in _PICKLED:
             raise UnportedMemberError(
-                f"{fname}: the boosted-trees member is not ported yet "
-                "(ROADMAP A5b)")
+                f"{fname}: a JAX {kind!r} member; it is not ported")
         raise UnportedMemberError(
-            f"{fname}: a scikit-learn pickle; convert the registry with "
-            "consensus_entropy_tpu_torch.convert.registry_from_jax"
-            + ("" if kind in MEMBER_TYPES else
-               f" (the {kind!r} member is not ported)"))
+            f"{fname}: a JAX {_PICKLED[kind]} pickle; {_CONVERT}")
     if fname.endswith(".npz"):
+        if kind == CNNMember.kind:
+            return kind
         if kind not in MEMBER_TYPES:
             raise UnportedMemberError(
                 f"{fname}: no port member of kind {kind!r}")
@@ -109,9 +114,11 @@ def mark_done(path: str) -> None:
                      member="workspace")
 
 
-def load_committee(path: str, *, device_members: bool = False,
-                   device=None) -> Committee:
-    """Load every member file of a workspace into a ``Committee``, after
+def load_committee(path: str, config: CNNConfig = CNNConfig(),
+                   train_config: TrainConfig = TrainConfig(), *,
+                   device_members: bool = False, device=None) -> Committee:
+    """Load every member file of a workspace into a ``Committee`` (CNN
+    members under ``config``, honouring their files' frontend), after
     finishing or discarding a torn checkpoint.  A member file that fails to
     parse rolls the workspace back one generation once (the last-good
     snapshot) and loads again; without a snapshot the error propagates."""
@@ -122,7 +129,8 @@ def load_committee(path: str, *, device_members: bool = False,
 
     recover_workspace(path)
     try:
-        return _load_committee_once(path, device_members, device)
+        return _load_committee_once(path, config, train_config,
+                                    device_members, device)
     except CheckpointCorruptError as e:
         if not rollback_workspace(path):
             raise
@@ -131,19 +139,25 @@ def load_committee(path: str, *, device_members: bool = False,
         warnings.warn(f"{path}: corrupt live checkpoint ({e}); rolled back "
                       "to the previous generation - one AL iteration will "
                       "be replayed")
-        return _load_committee_once(path, device_members, device)
+        return _load_committee_once(path, config, train_config,
+                                    device_members, device)
 
 
-def _load_committee_once(path: str, device_members: bool,
-                         device) -> Committee:
-    members = []
+def _load_committee_once(path: str, config, train_config,
+                         device_members: bool, device) -> Committee:
+    members, cnns = [], []
     for fname in member_files(path):
         full = os.path.join(path, fname)
+        kind = _member_kind(fname)
         try:
-            members.append(MEMBER_TYPES[_member_kind(fname)].load(full))
+            if kind == CNNMember.kind:
+                cnns.append(CNNMember.load(full, config, device))
+            else:
+                members.append(MEMBER_TYPES[kind].load(full))
         except Exception as e:
             raise CheckpointCorruptError(
                 f"{full}: failed to load member file ({e!r})") from e
-    if not members:
+    if not members and not cnns:
         raise FileNotFoundError(f"no committee members in {path}")
-    return Committee(members, device_members=device_members, device=device)
+    return Committee(members, cnns, config, train_config,
+                     device_members=device_members, device=device)

@@ -8,9 +8,10 @@ Per user: copy the pretrained committee into a private workspace, run the
 consensus-entropy AL loop, persist the members and reports, mark the user
 done (a rerun skips done users and resumes a partial one).  The registry
 holds the port's member files (``convert.registry_from_jax`` makes them
-from a JAX registry).  The fleet, serve, fabric, mesh and distributed
-modes of the JAX CLI are not ported; qbdc needs CNN members, which are
-not ported yet either.
+from a JAX registry); when it holds CNN members, the waveforms come from
+``{amg_root}/npy/{song_id}.npy`` into a store on the device, and qbdc
+runs.  The fleet, serve, fabric, mesh and distributed modes of the JAX
+CLI are not ported, nor ``--full-song-hop`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ import argparse
 import os
 import sys
 
-from consensus_entropy_tpu_torch.cli.common import add_device_arg, add_path_args
+from consensus_entropy_tpu_torch.cli.common import (
+    add_device_arg,
+    add_path_args,
+    resolve_cnn_config,
+)
+from consensus_entropy_tpu_torch.config import CNN_ARCHS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,6 +65,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-members", action="store_true",
                    help="score the GaussianNB/SGD members on the device, "
                         "fused with the frame->song mean")
+    p.add_argument("--retrain-epochs", type=int, default=None,
+                   help="CNN retrain epochs per AL iteration (default "
+                        "TrainConfig.n_epochs_retrain)")
+    p.add_argument("--cnn-config-json", default=None, metavar="JSON",
+                   help="CNNConfig field overrides as a JSON object (must "
+                        "match the pre-trained geometry)")
+    p.add_argument("--cnn-arch", default=None, choices=CNN_ARCHS,
+                   help="trunk family of the pre-trained CNN committee "
+                        "(the port runs vgg; the others are ROADMAP A8)")
     add_path_args(p)
     add_device_arg(p)
     return p
@@ -69,11 +84,6 @@ def main(argv=None) -> int:
     if args.qbdc_k < 1:
         print(f"--qbdc-k must be >= 1, got {args.qbdc_k}")
         return 1
-    if args.mode == "qbdc":
-        print("--al-mode qbdc needs CNN committee members, which the port "
-              "does not have yet (ROADMAP A7)")
-        return 1
-
     import numpy as np
 
     from consensus_entropy_tpu_torch.al import workspace
@@ -99,9 +109,19 @@ def main(argv=None) -> int:
               f"first (looked in {paths.pretrained_dir}).")
         return 1
     try:
-        workspace.member_files(paths.pretrained_dir)
-    except workspace.UnportedMemberError as e:
+        files = workspace.member_files(paths.pretrained_dir)
+        cnn_cfg = resolve_cnn_config(args.cnn_config_json,
+                                     arch=args.cnn_arch)
+    except (workspace.UnportedMemberError, NotImplementedError,
+            ValueError) as e:
         print(f"cannot personalize this registry: {e}")
+        return 1
+    has_cnn = any(f.startswith("classifier_cnn.") for f in files)
+    if args.mode == "qbdc" and not has_cnn:
+        # the dropout committee is K masked forwards of a CNN member
+        print("--al-mode qbdc needs pre-trained CNN members (no "
+              f"classifier_cnn.*.npz in {paths.pretrained_dir}); run "
+              "deam-classifier with a CNN registry first")
         return 1
 
     anno = amg.load_annotations(paths.amg_annotations_mat,
@@ -111,14 +131,24 @@ def main(argv=None) -> int:
     print(f"Users with more than {cfg.num_anno} annotations: {len(users)}")
     pool = amg.load_feature_pool(paths.amg_dataset_csv,
                                  paths.amg_features_dir)
+    store = None
+    if has_cnn:
+        from consensus_entropy_tpu_torch.data.audio import (
+            device_store_from_npy,
+        )
+
+        # CNN scoring and retraining crop from the device store
+        store = device_store_from_npy(paths.amg_npy_dir, pool.song_ids,
+                                      cnn_cfg.input_length, device)
     loop = ALLoop(cfg, tie_break=args.tie_break,
+                  retrain_epochs=args.retrain_epochs,
                   pad_pool_to=args.pad_pool_to,
                   fuse_step=not args.no_fuse_step, device=device)
     results = []
     try:
         with PreemptionGuard() as guard:
-            _run_users(args, cfg, paths, users, pool, anno, hc_table, loop,
-                       guard, device, results)
+            _run_users(args, cfg, paths, users, pool, anno, hc_table,
+                       store, cnn_cfg, loop, guard, device, results)
     except Preempted as e:
         print(f"preempted: {e}")
         return EXIT_PREEMPTED
@@ -129,8 +159,8 @@ def main(argv=None) -> int:
     return 0
 
 
-def _run_users(args, cfg, paths, users, pool, anno, hc_table, loop, guard,
-               device, results) -> None:
+def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
+               cnn_cfg, loop, guard, device, results) -> None:
     from consensus_entropy_tpu_torch.al import workspace
     from consensus_entropy_tpu_torch.al.loop import UserData
     from consensus_entropy_tpu_torch.data import amg
@@ -148,10 +178,12 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, loop, guard,
             print(f"Skipping user {u_id}, already exists!")
             continue
         committee = workspace.load_committee(
-            user_path, device_members=args.device_members, device=device)
+            user_path, cnn_cfg, device_members=args.device_members,
+            device=device)
         sub_pool, labels = amg.user_pool(pool, anno, u_id)
         data = UserData(u_id, sub_pool, labels,
-                        hc_rows=hc_table.rows_for(sub_pool.song_ids))
+                        hc_rows=hc_table.rows_for(sub_pool.song_ids),
+                        store=store)
         print(f"Creating and performing active learning for user {u_id} "
               f"with {len(labels)} annotations.")
         print(f"User {num_user} / {len(users) - 1}")

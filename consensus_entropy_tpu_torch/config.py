@@ -2,8 +2,10 @@
 
 Counterpart of ``consensus_entropy_tpu/config.py``: the label codec, the
 openSMILE feature slice, ``PathsConfig``, ``ALConfig`` and
-``ScoringConfig``, with the same defaults and checks.  The CNN and
-training configurations wait for the CNN members (ROADMAP A7).
+``ScoringConfig``, ``CNNConfig`` and ``TrainConfig``, with the same
+defaults and checks.  ``CNNConfig`` keeps every field of the JAX one, so
+its configurations load; the trunk families other than ``vgg`` wait for
+ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ FEATURE_SLICE_START = "F0final_sma_stddev"
 FEATURE_SLICE_STOP = "mfcc_sma_de[14]_amean"
 FEATURE_SLICE_STOP_FFTMAG = "pcm_fftMag_mfcc_sma_de[14]_amean"
 NUM_FEATURES = 260
+
+
+def stft_frame_count(length: int, n_fft: int, hop: int) -> int:
+    """Frames of the centered STFT: ``(length + 2*(n_fft//2)) // hop - 1``,
+    231 for the 59,049-sample crop."""
+    return (length + 2 * (n_fft // 2)) // hop - 1
 
 
 def feature_slice(columns: Sequence[str]) -> slice:
@@ -69,12 +77,104 @@ class PathsConfig:
         return os.path.join(self.amg_root, "dataset_feats.csv")
 
     @property
+    def amg_npy_dir(self) -> str:
+        """One ``{song_id}.npy`` waveform a song (the CNN members' audio)."""
+        return os.path.join(self.amg_root, "npy")
+
+    @property
     def amg_annotations_mat(self) -> str:
         return os.path.join(self.amg_root, "anno", "AMG1608.mat")
 
     @property
     def amg_mapping_mat(self) -> str:
         return os.path.join(self.amg_root, "anno", "1608_song_id.mat")
+
+
+#: the trunk families of the JAX package; only ``vgg`` is ported
+CNN_ARCHS = ("vgg", "res", "harm", "se1d", "musicnn")
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    """ShortChunkCNN hyperparameters (``short_cnn.py:284-291``,
+    ``settings.py:36``); ``n_layers`` is configurable so tests can use tiny
+    inputs."""
+
+    n_channels: int = 128
+    sample_rate: int = 16000
+    n_fft: int = 512
+    hop_length: int = 256  # torchaudio's default, n_fft // 2
+    f_min: float = 0.0
+    f_max: float = 8000.0
+    n_mels: int = 128
+    n_class: int = NUM_CLASSES
+    n_layers: int = 7
+    input_length: int = 59049  # about 3.69 s at 16 kHz
+    dropout_rate: float = 0.5
+    #: the convolutions' and dense layers' compute dtype ("float64" serves
+    #: as an oracle); parameters and BatchNorm statistics stay at least
+    #: float32
+    compute_dtype: str = "float32"
+    #: the trunk family: ``vgg`` is the paper's ShortChunkCNN (conv, BN,
+    #: ReLU, max pool blocks); the others (ROADMAP A8) are refused
+    arch: str = "vgg"
+    #: the ``harm`` frontend's geometry, kept so its configurations load
+    n_harmonic: int = 6
+    semitone_scale: int = 2
+    bw_q_init: float = 1.0
+
+    def __post_init__(self):
+        if self.arch not in CNN_ARCHS:
+            raise ValueError(f"arch must be one of {CNN_ARCHS}; got "
+                             f"{self.arch!r}")
+        if self.arch != "vgg":
+            raise NotImplementedError(
+                f"the {self.arch!r} trunk family is not ported yet (ROADMAP "
+                "A8); the port runs arch='vgg'")
+        if self.compute_dtype not in ("float32", "bfloat16", "float64"):
+            raise ValueError(f"compute_dtype must be 'float32', 'bfloat16' "
+                             f"or 'float64'; got {self.compute_dtype!r}")
+        # the pooling pyramid must not collapse a dimension to zero
+        f, t = self.n_mels, self.n_frames
+        for layer in range(self.n_layers):
+            f, t = f // 2, t // 2
+            if f == 0 or t == 0:
+                raise ValueError(
+                    f"CNN geometry collapses at layer {layer + 1}: "
+                    f"freq={self.n_mels}, input_length={self.input_length} "
+                    f"survive only {layer} of {self.n_layers} 2x2 pools")
+
+    @property
+    def n_frames(self) -> int:
+        return stft_frame_count(self.input_length, self.n_fft,
+                                self.hop_length)
+
+    @property
+    def channel_widths(self) -> tuple[int, ...]:
+        """Output channels a layer: 128,128,256,256,256,256,512 by default
+        (``short_cnn.py:304-310``)."""
+        return tuple(self.n_channels if i < 2 else
+                     self.n_channels * 2 if i < self.n_layers - 1 else
+                     self.n_channels * 4 for i in range(self.n_layers))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """CNN training hyperparameters (``settings.py:36-42``)."""
+
+    n_epochs: int = 200  # pre-training
+    n_epochs_retrain: int = 100  # AL retraining
+    batch_size: int = 5
+    lr: float = 1e-4
+    weight_decay: float = 1e-4  # Adam's coupled L2 (amg_test.py:281)
+    log_step: int = 20
+    #: epochs since the last transition before each optimizer transition
+    #: (``drop_counter`` resets only at transitions, ``amg_test.py:203-231``)
+    adam_patience: int = 20
+    sgd_patience: int = 20
+    sgd_momentum: float = 0.9
+    sgd_weight_decay: float = 1e-4
+    sgd_lrs: tuple[float, ...] = (1e-3, 1e-4, 1e-5)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +187,10 @@ class ALConfig:
     num_anno: int = 150  # -n: min annotations per user
     train_size: float = 0.85  # GroupShuffleSplit (amg_test.py:363)
     seed: int = 1987  # amg_test.py:55
+    #: dtype of the CNN members' per-iteration checkpoint files: bfloat16
+    #: halves the bytes; loading casts back to float32, so a resumed run
+    #: carries bf16-rounded weights ("float32" resumes bit for bit)
+    ckpt_dtype: str = "bfloat16"
     #: survivor floor for member quarantine
     min_members: int = 1
     #: bounded retry of a transient error at the scoring call site
@@ -104,6 +208,9 @@ class ALConfig:
     gate_host_updates: bool = False
 
     def __post_init__(self):
+        if self.ckpt_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"ckpt_dtype must be 'float32' or 'bfloat16'; "
+                             f"got {self.ckpt_dtype!r}")
         if self.consensus_weighting not in ("agreement", "uniform"):
             raise ValueError(
                 f"consensus_weighting must be 'agreement' or 'uniform'; "

@@ -1,15 +1,20 @@
-"""Carry committee weights, PRNG keys, fitted host members, user
-workspaces and pretrained registries from the JAX package's layouts to the
-port's.
+"""Carry committee weights, PRNG keys, fitted host members, CNN members,
+user workspaces and pretrained registries from the JAX package's layouts
+to the port's.
 
 Inputs are array-likes (numpy arrays, or JAX arrays, which ``np.asarray``
-reads without this module importing JAX) and, for the host members, the
-JAX package's pickles of fitted scikit-learn estimators, read by attribute.
+reads without this module importing JAX), the JAX package's pickles of
+fitted scikit-learn estimators and boosted trees, read by attribute, and
+its ``CETPU1`` CNN checkpoints, whose msgpack payload a small reader here
+decodes (no msgpack or Flax import).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -154,6 +159,17 @@ def _sgd_from_estimator(name: str, est):
     return m
 
 
+def _gbdt_from_jax(member):
+    """A JAX ``NativeGBDTMember`` -> the port's, read by attribute."""
+    from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
+
+    return NativeGBDTMember.from_state({
+        "name": member.name, "n_estimators": member.n_estimators,
+        "update_estimators": member.update_estimators,
+        "n_bins": member.binner.n_bins, "edges": member.binner.edges,
+        "model": member.model.state()})
+
+
 def _from_estimator(name: str, est):
     if hasattr(est, "theta_") and hasattr(est, "var_smoothing"):
         return _gnb_from_estimator(name, est)
@@ -164,10 +180,11 @@ def _from_estimator(name: str, est):
 
 
 def host_members_from_jax(members) -> list:
-    """The JAX package's GaussianNB / SGD members (``GNBMember``,
-    ``SGDMember``, or their fitted scikit-learn estimators, read by
-    attribute) -> the port's members with the same fitted state."""
-    return [_from_estimator(getattr(m, "name", f"member_{i}"),
+    """The JAX package's host members (``GNBMember``, ``SGDMember`` or
+    their fitted scikit-learn estimators, and ``NativeGBDTMember``, read
+    by attribute) -> the port's members with the same fitted state."""
+    return [_gbdt_from_jax(m) if hasattr(m, "binner") else
+            _from_estimator(getattr(m, "name", f"member_{i}"),
                             getattr(m, "estimator", m))
             for i, m in enumerate(members)]
 
@@ -177,41 +194,51 @@ def _member_from_pickle(path: str):
     port's member."""
     import pickle
 
+    from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
+
     with open(path, "rb") as f:
         state = pickle.load(f)
+    if state.get("fmt") == "native_gbdt":
+        return NativeGBDTMember.from_state(state)
     if state.get("kind") not in ("gnb", "sgd") or "estimator" not in state:
         raise ValueError(f"{path}: a {state.get('kind')!r} member, not a "
-                         "GaussianNB / SGD pickle; it is not ported")
+                         "GaussianNB / SGD / native GBDT pickle; it is not "
+                         "ported")
     return _from_estimator(state["name"], state["estimator"])
 
 
-def _convert_members(src: str, dst: str) -> list[str]:
-    """Write the port's file for every ``classifier_*.pkl`` in ``src``
-    into ``dst``; any other committee file is refused by name."""
+def _convert_members(src: str, dst: str, config=None) -> list[str]:
+    """Write the port's file for every ``classifier_*.pkl`` and
+    ``classifier_cnn.*.msgpack`` in ``src`` into ``dst``, CNN members
+    (geometry ``config``, default ``CNNConfig()``) in float32."""
     from consensus_entropy_tpu_torch.models.committee import Committee
 
     written = []
     for fname in sorted(os.listdir(src)):
-        if fname.endswith(".msgpack"):
-            raise ValueError(f"{fname}: CNN committee members are not "
-                             "ported yet (ROADMAP A7)")
-        if not (fname.startswith("classifier_") and fname.endswith(".pkl")):
+        if not fname.startswith("classifier_"):
             continue
-        member = _member_from_pickle(os.path.join(src, fname))
+        if fname.endswith(".msgpack"):
+            member = cnn_member_from_jax(os.path.join(src, fname), config)
+        elif fname.endswith(".pkl"):
+            member = _member_from_pickle(os.path.join(src, fname))
+        else:
+            continue
         out = Committee.member_file(member)
         member.save(os.path.join(dst, out))
         written.append(out)
     return written
 
 
-def registry_from_jax(pretrained_dir: str, out: str) -> list[str]:
-    """A JAX pretrained registry (``classifier_{gnb,sgd}.*.pkl``) -> the
-    port's member files in ``out``; returns their names."""
+def registry_from_jax(pretrained_dir: str, out: str,
+                      config=None) -> list[str]:
+    """A JAX pretrained registry (``classifier_{gnb,sgd,xgb}.*.pkl``,
+    ``classifier_cnn.*.msgpack`` of geometry ``config``) -> the port's
+    member files in ``out``; returns their names."""
     os.makedirs(out, exist_ok=True)
-    return _convert_members(pretrained_dir, out)
+    return _convert_members(pretrained_dir, out, config)
 
 
-def workspace_from_jax(src: str, dst: str) -> list[str]:
+def workspace_from_jax(src: str, dst: str, config=None) -> list[str]:
     """A JAX user workspace -> the port's: ``al_state.json`` (and its
     previous generation) copied as is, member pickles converted, reports
     and metrics copied.  A workspace with a torn checkpoint (a staging
@@ -232,4 +259,183 @@ def workspace_from_jax(src: str, dst: str) -> list[str]:
             shutil.copyfile(os.path.join(src, fname),
                             os.path.join(dst, fname))
             copied.append(fname)
-    return copied + _convert_members(src, dst)
+    return copied + _convert_members(src, dst, config)
+
+
+# -- CNN members ------------------------------------------------------------
+
+
+def cnn_variables_from_jax(variables, config=None, device=None) -> dict:
+    """A Flax ShortChunkCNN's ``{"params", "batch_stats"}`` (arrays or
+    nested dicts of them, as ``flax.serialization`` restores them) -> the
+    port's variables (``models.short_cnn.variable_shapes`` names), float32
+    on ``device``: conv kernels HWIO -> OIHW, dense kernels ``(in, out)``
+    -> ``(out, in)``, BatchNorm ``scale``/``bias``/``mean``/``var`` ->
+    ``weight``/``bias``/``running_mean``/``running_var``."""
+    from consensus_entropy_tpu_torch.config import CNNConfig
+    from consensus_entropy_tpu_torch.models.short_cnn import variable_shapes
+
+    config = CNNConfig() if config is None else config
+    params, stats = variables["params"], variables["batch_stats"]
+
+    def arr(a):
+        return np.asarray(a, np.float32)
+
+    out = {}
+
+    def bn(prefix, p, s):
+        out[f"{prefix}.weight"] = arr(p["scale"])
+        out[f"{prefix}.bias"] = arr(p["bias"])
+        out[f"{prefix}.running_mean"] = arr(s["mean"])
+        out[f"{prefix}.running_var"] = arr(s["var"])
+
+    bn("spec_bn", params["spec_bn"], stats["spec_bn"])
+    for i in range(config.n_layers):
+        blk = f"ConvBlock_{i}"
+        out[f"blocks.{i}.conv.weight"] = arr(
+            params[blk]["Conv_0"]["kernel"]).transpose(3, 2, 0, 1)
+        out[f"blocks.{i}.conv.bias"] = arr(params[blk]["Conv_0"]["bias"])
+        bn(f"blocks.{i}.bn", params[blk]["BatchNorm_0"],
+           stats[blk]["BatchNorm_0"])
+    for name in ("dense1", "dense2"):
+        out[f"{name}.weight"] = arr(params[name]["kernel"]).T
+        out[f"{name}.bias"] = arr(params[name]["bias"])
+    bn("head_bn", params["head_bn"], stats["head_bn"])
+    shapes = variable_shapes(config)
+    got = {k: v.shape for k, v in out.items()}
+    if got != shapes:
+        raise ValueError(f"the variables do not fit {config}: "
+                         f"{sorted(set(got.items()) ^ set(shapes.items()))}")
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(out[k], np.float32)).to(dev)
+            for k in shapes}
+
+
+_CETPU_MAGIC = b"CETPU1\n"
+
+
+class _MsgpackReader:
+    """The msgpack subset ``flax.serialization.to_bytes`` writes: maps,
+    arrays, strings, binaries, numbers, nil, booleans and extension types
+    (Flax's ndarray, ext code 1, and numpy scalar, ext code 3)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def _take(self, n: int) -> bytes:
+        out = self.data[self.pos: self.pos + n]
+        if len(out) != n:
+            raise ValueError("truncated msgpack payload")
+        self.pos += n
+        return out
+
+    def _num(self, fmt: str):
+        return struct.unpack(">" + fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self._take(b & 0x1F).decode("utf-8")
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        sized = {0xC4: ("bin", "B"), 0xC5: ("bin", "H"), 0xC6: ("bin", "I"),
+                 0xD9: ("str", "B"), 0xDA: ("str", "H"), 0xDB: ("str", "I"),
+                 0xDC: ("arr", "H"), 0xDD: ("arr", "I"),
+                 0xDE: ("map", "H"), 0xDF: ("map", "I"),
+                 0xC7: ("ext", "B"), 0xC8: ("ext", "H"), 0xC9: ("ext", "I")}
+        nums = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I",
+                0xCF: "Q", 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in nums:
+            return self._num(nums[b])
+        if 0xD4 <= b <= 0xD8:  # fixext 1, 2, 4, 8, 16
+            return self._ext(1 << (b - 0xD4))
+        if b not in sized:
+            raise ValueError(f"unsupported msgpack type byte {b:#x}")
+        kind, fmt = sized[b]
+        n = self._num(fmt)
+        if kind == "bin":
+            return self._take(n)
+        if kind == "str":
+            return self._take(n).decode("utf-8")
+        if kind == "arr":
+            return [self.read() for _ in range(n)]
+        if kind == "map":
+            return self._map(n)
+        return self._ext(n)
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+    def _ext(self, n: int):
+        code = self._num("b")
+        body = self._take(n)
+        if code not in (1, 3):
+            raise ValueError(f"unsupported msgpack extension {code}")
+        shape, dtype, buf = _MsgpackReader(body).read()
+        dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+        if dtype == "bfloat16":
+            # the top half of a float32's bits
+            bits = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        else:
+            arr = np.frombuffer(buf, np.dtype(dtype)).copy()
+        return arr.reshape(shape)
+
+
+def read_cetpu_checkpoint(path: str) -> tuple[dict, dict]:
+    """A JAX ``utils/checkpoint.py`` file (``:35-90``): the ``CETPU1``
+    magic, the header length and JSON (CRC32 of the payload checked when
+    present), then Flax's msgpack payload.  Returns ``(variables, meta)``,
+    the variables as nested dicts of numpy arrays, bfloat16 leaves as
+    float32."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if not raw.startswith(_CETPU_MAGIC):
+        raise ValueError(f"{path}: not a CETPU1 checkpoint")
+    at = len(_CETPU_MAGIC)
+    if len(raw) < at + 4:
+        raise ValueError(f"{path}: truncated header")
+    (hlen,) = struct.unpack("<I", raw[at: at + 4])
+    header = raw[at + 4: at + 4 + hlen]
+    if len(header) != hlen:
+        raise ValueError(f"{path}: truncated header")
+    meta = json.loads(header.decode())
+    payload = raw[at + 4 + hlen:]
+    crc = meta.get("crc32")
+    if crc is not None and zlib.crc32(payload) != crc:
+        raise ValueError(f"{path}: payload CRC mismatch (expected {crc}, "
+                         f"got {zlib.crc32(payload)})")
+    return _MsgpackReader(payload).read(), meta
+
+
+def cnn_member_from_jax(path: str, config=None, device="cpu"):
+    """A JAX ``classifier_cnn.*.msgpack`` member -> the port's
+    ``CNNMember`` (float32 variables on ``device``), its frontend fields
+    taken from the file's header as the JAX loader does."""
+    import dataclasses
+
+    from consensus_entropy_tpu_torch.config import CNNConfig
+    from consensus_entropy_tpu_torch.models.committee import CNNMember
+
+    variables, meta = read_cetpu_checkpoint(path)
+    config = CNNConfig() if config is None else config
+    override = {k: meta[k] for k in CNNMember.FRONTEND_META
+                if k in meta and meta[k] != getattr(config, k)}
+    if override:
+        config = dataclasses.replace(config, **override)
+    name = meta.get("name", os.path.basename(path))
+    return CNNMember(name, cnn_variables_from_jax(variables, config, device),
+                     config)

@@ -1,17 +1,20 @@
 """The per-user AL loop as a steppable coroutine.
 
-Counterpart of ``consensus_entropy_tpu/fleet/session.py:63-940`` for
-committees of host members (scored on the host, or through the device
-slice with ``device_members``).  ``UserSession.steps`` is a generator that
-yields a :class:`ScoreStep` for the staged scoring call (``Acquirer.
-scoring_inputs``) and runs the host work (member predicts, updates,
-evaluation) inline.  The sequential runner, :func:`drive_inline`, answers
-each step with its result, so a run executes the statements of the JAX
-session in the same order with the same per-user key stream (one
-``prng.split`` for each ``jax.random.split``).  The host-work offload
-protocol (``HostStep``) comes back with the fleet scheduler that needs it
-(ROADMAP A9); the CNN device steps, the span tracer and the multi-host
-barriers wait for A7, A10 and A11.
+Counterpart of ``consensus_entropy_tpu/fleet/session.py:63-940``,
+sequential path: committees of host members (scored on the host, or
+through the device slice with ``device_members``) and CNN members (the
+test-split CNN forward in the evaluation, the CNN block of the mc score,
+the qbdc producer, the ``retrain_cnn`` phase; ``:353-372, 540-560,
+630-712, 876-905``).  ``UserSession.steps`` is a generator that yields a
+:class:`ScoreStep` for the staged scoring call (``Acquirer.
+scoring_inputs``) and runs the rest inline.  The sequential runner,
+:func:`drive_inline`, answers each step with its result, so a run executes
+the statements of the JAX session in the same order with the same per-user
+key stream (one ``prng.split`` for each ``jax.random.split``), with and
+without CNN members.  The offload protocol (``HostStep``) and the
+batchable CNN device steps (``DeviceStep`` and its plans) come back with
+the fleet scheduler (ROADMAP A9); the span tracer and the multi-host
+barriers wait for A10 and A11.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from consensus_entropy_tpu_torch.al import state as al_state
 from consensus_entropy_tpu_torch.al.acquisition import Acquirer
 from consensus_entropy_tpu_torch.al.reporting import UserReport
 from consensus_entropy_tpu_torch.config import ALConfig
+from consensus_entropy_tpu_torch.labels import one_hot_np
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
 from consensus_entropy_tpu_torch.resilience import faults
 from consensus_entropy_tpu_torch.resilience.preemption import Preempted
@@ -78,6 +82,7 @@ class UserSession:
 
     def __init__(self, config: ALConfig, committee, data, user_path: str, *,
                  seed: int | None = None, tie_break: str = "fast",
+                 retrain_epochs: int | None = None,
                  pad_pool_to: int | None = None, resume: bool = True,
                  timer: StepTimer | None = None, preemption=None,
                  fuse_step: bool = True, device=None):
@@ -94,6 +99,8 @@ class UserSession:
         self.seed = cfg.seed if seed is None else seed
         self.timer = timer or StepTimer(None)
         self.preemption = preemption
+        #: CNN retrain epochs an iteration (None: ``n_epochs_retrain``)
+        self.retrain_epochs = retrain_epochs
         self.result: dict | None = None
         # the config's survivor floor never weakens a stricter committee
         committee.min_members = max(committee.min_members, cfg.min_members)
@@ -159,7 +166,8 @@ class UserSession:
         probs axis (active members, committee order); unseen members start
         at 1.  Records the name order for the post-reveal update."""
         c = self.committee
-        names = [m.name for m in c.active_host_members]
+        names = ([m.name for m in c.active_cnn_members]
+                 + [m.name for m in c.active_host_members])
         self._scoring_member_names = names
         return np.array([self.member_weights.get(nm, 1.0)
                          for nm in names], np.float32)
@@ -190,11 +198,24 @@ class UserSession:
             w = self.member_weights.get(nm, 1.0)
             self.member_weights[nm] = (1.0 - alpha) * w + alpha * float(a)
 
-    def _evaluate(self, report: UserReport) -> list[float]:
-        """F1 of every active member on the test split, committee order; a
-        member whose predict raises is quarantined and left out."""
+    def _evaluate(self, report: UserReport, key) -> list[float]:
+        """F1 of every active member on the test split, committee order
+        (CNN members first, each on one random crop a test song under
+        ``key``); a member whose predict raises or whose CNN probabilities
+        go non-finite is quarantined and left out."""
         committee, split = self.committee, self.split
         f1s = []
+        cnns = committee.active_cnn_members
+        if cnns:
+            probs = committee.predict_songs_cnn(
+                self.data.store, split.test_songs, key).cpu().numpy()
+            for m, p in zip(cnns, probs):
+                if not np.all(np.isfinite(p)):
+                    committee.quarantine(
+                        m.name, "non-finite eval probabilities")
+                    continue
+                f1s.append(report.model_eval(m.name, split.y_test_songs,
+                                             p.argmax(axis=1)))
         for m in committee.active_host_members:
             try:
                 y_pred = m.predict(split.X_test)
@@ -214,7 +235,9 @@ class UserSession:
         # join the previous commit first: its recover_workspace prunes
         # staging directories of other generations
         self.ckpt.wait()
-        committee.save(al_state.staging_dir(user_path, next_epoch))
+        finish_members = committee.begin_save(
+            al_state.staging_dir(user_path, next_epoch),
+            reuse_dir=user_path, dtype=cfg.ckpt_dtype)
         kd, kdt = al_state.ALState.pack_key(current_key)
         state_obj = al_state.ALState(
             next_epoch=next_epoch, trajectory=list(self.trajectory),
@@ -230,21 +253,25 @@ class UserSession:
         bg_times = self.bg_times
 
         def commit():
+            bg = finish_members()  # the CNN members' copies and files
             t0 = time.perf_counter()
             state_obj.save(user_path)  # the commit point
             al_state.recover_workspace(user_path)  # promote the stage
-            bg_times["commit_s"] = time.perf_counter() - t0
+            bg["commit_s"] = time.perf_counter() - t0
+            bg_times.update(bg)
 
         self.ckpt.submit(commit)
 
     def _join_and_drain(self) -> None:
         """Join the previous background checkpoint in its own phase and
-        record its self-timed part (``ckpt_bg_commit``; it overlapped the
-        iteration, so it is not part of its wall clock)."""
+        record its self-timed parts (``ckpt_bg_fetch``, ``_write``,
+        ``_commit``; they overlapped the iteration, so they are not part
+        of its wall clock)."""
         with self.timer.phase("ckpt_join"):
             self.ckpt.wait()
-        if "commit_s" in self.bg_times:
-            self.timer.add("ckpt_bg_commit", self.bg_times.pop("commit_s"))
+        for k in ("fetch", "write", "commit"):
+            if f"{k}_s" in self.bg_times:
+                self.timer.add(f"ckpt_bg_{k}", self.bg_times.pop(f"{k}_s"))
 
     def _preempt_check(self, boundary: str) -> None:
         if self.preemption is not None and self.preemption.requested:
@@ -277,10 +304,11 @@ class UserSession:
             if self._fresh:
                 # epoch 0: baseline evaluation (amg_test.py:398-418)
                 report.epoch_header(-1)
-                self.key, _ = _split(self.key)
+                self.key, sub = _split(self.key)
                 with timer.phase("evaluate"):
-                    f1s = self._evaluate(report)
-                last_host_f1s = None if drain_events(-1) else f1s
+                    f1s = self._evaluate(report, sub)
+                last_host_f1s = (None if drain_events(-1) else
+                                 f1s[len(committee.active_cnn_members):])
                 report.epoch_summary(-1, f1s)
                 trajectory.append(float(np.mean(f1s)))
                 self._join_and_drain()
@@ -297,15 +325,21 @@ class UserSession:
                 member_probs = None
                 strat = acq.strategy
                 if strat.needs_probs:
-                    self.key, _ = _split(self.key)
+                    self.key, sub = _split(self.key)
                     if strat.uses_weights:
                         acq.member_weights = self._weights_vector()
 
-                    # a pure pass: a transient error retries it
-                    def produce(live=live):
+                    # a pure pass (fixed crop and mask keys): a transient
+                    # error retries it; the producer is the strategy's
+                    def produce(live=live, sub=sub):
+                        if strat.probs_source == "qbdc":
+                            return committee.qbdc_pool_probs(
+                                data.store, live, sub, k=cfg.qbdc_k,
+                                pad_to=acq.staging_width(len(live)))
                         return committee.pool_probs(
                             data.pool, live,
-                            pad_to=acq.staging_width(len(live)))
+                            pad_to=acq.staging_width(len(live)),
+                            store=data.store, key=sub)
 
                     with timer.phase("score"):
                         member_probs = retry_transient(
@@ -342,10 +376,27 @@ class UserSession:
                             split.y_test_frames, before_scores=last_host_f1s)
                     else:
                         committee.update_host(X_batch, y_batch)
-                self.key, _ = _split(self.key)
+                if committee.active_cnn_members:
+                    y_q = one_hot_np([data.labels[s] for s in q_songs])
+                    y_t = one_hot_np(split.y_test_songs)
+                    self.key, sub = _split(self.key)
+                    with timer.phase("retrain_cnn"):
+                        # fit_many rebinds the members' variables only on
+                        # return, so a retry replays the identical fit
+                        retry_transient(
+                            lambda sub=sub, y_q=y_q, y_t=y_t, q=q_songs:
+                            committee.retrain_cnns(
+                                data.store, q, y_q, split.test_songs, y_t,
+                                sub, n_epochs=self.retrain_epochs),
+                            attempts=cfg.retry_attempts,
+                            base_delay=cfg.retry_base_delay,
+                            seed=seed + 7919 * (epoch + 1),
+                            what="member.retrain")
+                self.key, sub = _split(self.key)
                 with timer.phase("evaluate"):
-                    f1s = self._evaluate(report)
-                last_host_f1s = None if drain_events(epoch) else f1s
+                    f1s = self._evaluate(report, sub)
+                last_host_f1s = (None if drain_events(epoch) else
+                                 f1s[len(committee.active_cnn_members):])
                 report.epoch_summary(epoch, f1s, queried=q_songs,
                                      pool_size=len(acq.remaining_songs))
                 trajectory.append(float(np.mean(f1s)))

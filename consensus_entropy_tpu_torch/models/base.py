@@ -7,14 +7,19 @@ scores feature rows, absorbs a labelled batch and round-trips to disk.
 from __future__ import annotations
 
 import abc
+import io
+import json
+import zlib
 
 import numpy as np
+
+from consensus_entropy_tpu_torch.config import NUM_CLASSES
 
 
 class Member(abc.ABC):
     """One committee member."""
 
-    #: short algorithm tag: 'gnb', 'sgd'
+    #: short algorithm tag: 'gnb', 'sgd', 'xgb', 'cnn'
     kind: str = "?"
 
     def __init__(self, name: str):
@@ -39,3 +44,35 @@ class Member(abc.ABC):
     @classmethod
     @abc.abstractmethod
     def load(cls, path: str) -> "Member": ...
+
+
+def _require_all_classes(y):
+    """Pre-training must expose the full class universe."""
+    seen = np.unique(y)
+    if len(seen) != NUM_CLASSES:
+        raise ValueError(
+            f"pre-training data must contain all {NUM_CLASSES} classes; "
+            f"got {sorted(int(c) for c in seen)}")
+
+
+def _write_npz(path: str, meta: dict, arrays: dict) -> None:
+    """An ``.npz`` archive (the arrays and a JSON header) followed by the
+    CRC32 of its bytes, so bit-rot anywhere in the file is caught on
+    load."""
+    buf = io.BytesIO()
+    np.savez(buf, meta=np.array(json.dumps(meta)), **arrays)
+    body = buf.getvalue()
+    with open(path, "wb") as f:
+        f.write(body + zlib.crc32(body).to_bytes(4, "little"))
+
+
+def _read_npz(path: str) -> tuple[dict, dict]:
+    with open(path, "rb") as f:
+        data = f.read()
+    body, crc = data[:-4], data[-4:]
+    if len(data) < 4 or zlib.crc32(body).to_bytes(4, "little") != crc:
+        raise ValueError(f"{path}: member file fails its CRC32")
+    with np.load(io.BytesIO(body), allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+        meta = json.loads(str(z["meta"]))
+    return meta, arrays

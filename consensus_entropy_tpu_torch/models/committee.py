@@ -1,28 +1,42 @@
-"""The pool in segment layout, the device-member committee and the
-user's committee.
+"""The pool in segment layout, the device-member committee, the CNN
+member and the user's committee.
 
 Counterpart of ``consensus_entropy_tpu/models/committee.py``:
 ``FramePool`` (``:50-121``), the closed-form device slice
-(``DeviceMemberCommittee``; ``_device_member_probs`` ``:868-918``) and
-``Committee`` (``:365-993, 1236-1325``) for host members (GaussianNB,
-SGD-logistic): quarantine, ``pool_probs`` over host members and, with
-``device_members=True``, over the device slice, the incremental updates
-and the checkpoint snapshot.  CNN members wait for ROADMAP A7; the depth
-dial waits for the fleet scheduler that sets it (A9).
+(``DeviceMemberCommittee``; ``_device_member_probs`` ``:868-918``),
+``CNNMember`` (``:126-206``) and ``Committee`` (``:365-1120, 1236-1325``),
+sequential path: quarantine, ``pool_probs`` over the CNN block, the host
+members and, with ``device_members=True``, the device slice; the qbdc
+dropout committee; the incremental host updates and the CNN retrain; the
+checkpoint snapshot.  The full-song window grid and the sequence-parallel
+scorer wait for ROADMAP A8, the cross-user device plans and the depth dial
+for the fleet scheduler (A9), meshes for A11.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from consensus_entropy_tpu_torch.config import NUM_CLASSES
+from consensus_entropy_tpu_torch import prng
+from consensus_entropy_tpu_torch.config import (
+    NUM_CLASSES,
+    CNNConfig,
+    TrainConfig,
+)
 from consensus_entropy_tpu_torch.device import resolve_device
-from consensus_entropy_tpu_torch.models.base import Member
+from consensus_entropy_tpu_torch.models import short_cnn
+from consensus_entropy_tpu_torch.models.base import (
+    Member,
+    _read_npz,
+    _write_npz,
+)
+from consensus_entropy_tpu_torch.models.cnn_trainer import CNNTrainer
 from consensus_entropy_tpu_torch.models.members import GNBMember, SGDMember
 from consensus_entropy_tpu_torch.ops.device_members import (
     MemberStacks,
@@ -161,30 +175,150 @@ class DeviceMemberCommittee:
             1, torch.from_numpy(sel).to(self.device))
 
 
+class CNNMember(Member):
+    """A ShortChunkCNN committee member: its variables are torch tensors
+    on the committee's device (``models.short_cnn`` names).  Files are the
+    port's ``.npz`` (CRC32 trailer) in float32 or bfloat16; loading casts
+    to float32."""
+
+    kind = "cnn"
+
+    #: config fields that shape no parameter: a file carries them and
+    #: loading honours them (``committee.py:163-164``)
+    FRONTEND_META = ("arch", "n_harmonic", "semitone_scale", "n_mels",
+                     "n_fft", "hop_length", "f_min", "f_max", "sample_rate")
+
+    def __init__(self, name: str, variables: dict,
+                 config: CNNConfig = CNNConfig()):
+        super().__init__(name)
+        self.variables = variables
+        self.config = config
+
+    @property
+    def variables(self) -> dict:
+        return self._variables
+
+    @variables.setter
+    def variables(self, value):
+        """Rebinding marks the member dirty: ``begin_save`` writes only
+        members whose variables changed since their last file
+        (``ckpt_clean_path`` names that file).  Retraining rebinds, never
+        changes a tensor in place."""
+        self._variables = value
+        self.ckpt_dirty = True
+        self.ckpt_clean_path: str | None = None
+
+    def predict_proba(self, X):
+        raise TypeError("CNNMember scores audio crops via Committee")
+
+    def update(self, X, y):
+        raise TypeError("CNNMember retrains via Committee.retrain_cnns")
+
+    def save(self, path: str, variables: dict | None = None,
+             dtype: str | None = None) -> None:
+        """Write ``variables`` (default the member's own) as float32, or
+        as bfloat16 bits (``dtype="bfloat16"``)."""
+        variables = self.variables if variables is None else variables
+        dtype = dtype or "float32"
+        if dtype == "bfloat16":
+            arrays = {k: t.detach().to(torch.bfloat16).view(torch.int16)
+                      .cpu().numpy() for k, t in variables.items()}
+        elif dtype == "float32":
+            arrays = {k: t.detach().to(torch.float32).cpu().numpy()
+                      for k, t in variables.items()}
+        else:
+            raise ValueError(f"unsupported checkpoint dtype {dtype!r}")
+        meta = {"kind": self.kind, "name": self.name, "dtype": dtype,
+                **{k: getattr(self.config, k) for k in self.FRONTEND_META}}
+        _write_npz(path, meta, arrays)
+
+    @classmethod
+    def load(cls, path: str, config: CNNConfig = CNNConfig(),
+             device=None) -> "CNNMember":
+        meta, a = _read_npz(path)
+        override = {k: meta[k] for k in cls.FRONTEND_META
+                    if k in meta and meta[k] != getattr(config, k)}
+        if override:
+            config = dataclasses.replace(config, **override)
+        dev = resolve_device(device)
+        if meta["dtype"] == "bfloat16":
+            variables = {k: torch.from_numpy(v).view(torch.bfloat16).to(
+                torch.float32) for k, v in a.items()}
+        else:
+            variables = {k: torch.from_numpy(v) for k, v in a.items()}
+        member = cls(meta["name"], {k: v.to(dev) for k, v in
+                                    variables.items()}, config)
+        # loaded == the file's content: the member is clean against it
+        member.ckpt_dirty = False
+        member.ckpt_clean_path = os.path.abspath(path)
+        return member
+
+
+def _keep_columns(out: torch.Tensor, keep: int) -> torch.Tensor:
+    """A bucket-wide ``(M, W, C)`` block cut to ``keep`` columns, extended
+    with repeats of the last column if ``keep`` exceeds it."""
+    if keep > out.shape[1]:
+        out = torch.cat([out, out[:, -1:].expand(
+            -1, keep - out.shape[1], -1)], dim=1)
+    return out[:, :keep]
+
+
 class CommitteeExhaustedError(RuntimeError):
     """Quarantine left fewer members than ``Committee.min_members``."""
 
 
 class Committee:
-    """The user's private committee of host members.
+    """The user's private committee: host members (GaussianNB, SGD-
+    logistic, boosted trees) and CNN members.
 
     ``device_members=True`` scores the GaussianNB and SGD-logistic members
     on ``device`` through a :class:`DeviceMemberCommittee` whose stacks are
-    rebuilt from the members' parameters at each pass; training stays on
-    the host either way.  ``cnn_members`` must be empty: CNN members are
-    not ported yet (ROADMAP A7).
+    rebuilt from the members' parameters at each pass; the boosted trees
+    stay on the host (``committee.py:841-866``) and training stays on the
+    host either way.  CNN members score and retrain on ``device`` (their
+    variables are moved there); ``device=None`` is the card.
     """
 
-    def __init__(self, host_members: list[Member], cnn_members=(), *,
+    #: the crop compile bucket of the JAX package (``Acquirer.
+    #: STAGING_BUCKET``): crops are sampled for a pool padded to a multiple
+    #: of it, so a song's crop does not depend on the pool's width, and
+    #: forwarded in bucket-wide slices
+    CROP_BUCKET = 256
+
+    def __init__(self, host_members: list[Member], cnn_members=(),
+                 config: CNNConfig = CNNConfig(),
+                 train_config: TrainConfig = TrainConfig(), *,
                  device_members: bool = False, min_members: int = 1,
                  device=None):
-        if cnn_members:
-            raise NotImplementedError(
-                "CNN committee members are not ported yet (ROADMAP A7)")
         self.host_members = list(host_members)
+        self.cnn_members = list(cnn_members)
         self.device_members = device_members
-        #: where the device slice scores (``None`` is the card)
-        self.device = resolve_device(device) if device_members else None
+        #: where the device slice and the CNN members run
+        self.device = (resolve_device(device)
+                       if device_members or self.cnn_members else None)
+        if self.cnn_members:
+            # one architecture for every CNN member; the committee's config
+            # follows the members' (their files know theirs)
+            keys = CNNMember.FRONTEND_META
+            sigs = {tuple(getattr(m.config, k) for k in keys)
+                    for m in self.cnn_members}
+            if len(sigs) > 1:
+                raise ValueError(
+                    f"CNN members mix trunk families/frontend geometries "
+                    f"{sorted(sigs)}; a committee needs one architecture")
+            sig = sigs.pop()
+            if sig != tuple(getattr(config, k) for k in keys):
+                config = dataclasses.replace(config, **dict(zip(keys, sig)))
+            for m in self.cnn_members:
+                if any(t.device != self.device
+                       for t in m.variables.values()):
+                    # a move changes no value: keep the member's clean state
+                    dirty, clean = m.ckpt_dirty, m.ckpt_clean_path
+                    m.variables = {k: t.to(self.device)
+                                   for k, t in m.variables.items()}
+                    m.ckpt_dirty, m.ckpt_clean_path = dirty, clean
+        self.config = config
+        self.trainer = CNNTrainer(config, train_config)
         #: quarantine: a member whose update or predict raises, or whose
         #: probabilities go non-finite, leaves the run; the run aborts only
         #: below ``min_members`` survivors
@@ -192,15 +326,33 @@ class Committee:
         self.quarantined: dict[str, str] = {}
         self._pending_events: list[dict] = []
 
+    @property
+    def member_names(self) -> list[str]:
+        """Committee order: CNN members first (``committee.py:519-524``)."""
+        return ([m.name for m in self.cnn_members]
+                + [m.name for m in self.host_members])
+
     # -- quarantine --------------------------------------------------------
+
+    def _active_pair(self) -> tuple[list, list]:
+        """``(cnn, host)`` members still in the run."""
+        return ([m for m in self.cnn_members
+                 if m.name not in self.quarantined],
+                [m for m in self.host_members
+                 if m.name not in self.quarantined])
 
     @property
     def active_host_members(self) -> list[Member]:
-        return [m for m in self.host_members if m.name not in self.quarantined]
+        return self._active_pair()[1]
+
+    @property
+    def active_cnn_members(self) -> list[CNNMember]:
+        return self._active_pair()[0]
 
     @property
     def active_size(self) -> int:
-        return len(self.active_host_members)
+        cnn, host = self._active_pair()
+        return len(cnn) + len(host)
 
     def quarantine(self, name: str, reason: str) -> None:
         """Remove ``name`` from the run (idempotent); raises
@@ -222,17 +374,41 @@ class Committee:
     # -- scoring -----------------------------------------------------------
 
     def pool_probs(self, pool: FramePool, song_ids: Sequence,
-                   pad_to: int | None = None):
+                   pad_to: int | None = None, *, store=None, key=None):
         """Stacked member probabilities ``(M, N, C)`` over ``song_ids`` in
-        committee order, ``(M, pad_to, C)`` with a staging tail of the
-        last live song's column.  A committee with a device slice returns
-        a tensor on its device; a host-only one returns numpy."""
+        committee order (CNN members first), ``(M, pad_to, C)`` with a
+        staging tail the acquirer drops.  The CNN block scores one random
+        crop a song from ``store`` under ``key`` (:meth:`predict_songs_cnn`).
+        A committee with CNN members or a device slice returns a tensor on
+        its device; a host-only one returns numpy."""
         n_live = len(song_ids)
         if pad_to is not None and pad_to < n_live:
             raise ValueError(f"pad_to={pad_to} < n={n_live}")
-        active = self.active_host_members
+        active_cnn, active = self._active_pair()
         if pad_to is not None and n_live == 0 and active:
             raise ValueError("pad_to requires at least one live song")
+        cnn_block = None
+        if active_cnn:
+            if store is None or key is None:
+                raise ValueError("CNN members score audio: pass the "
+                                 "waveform store and the pass's key")
+            # queued first: the host members below compute meanwhile
+            cnn_block = self.predict_songs_cnn(store, song_ids, key,
+                                               pad_to=pad_to)
+        if not active:
+            return cnn_block
+        host_block = self._host_probs(pool, song_ids, pad_to)
+        if cnn_block is None:
+            return host_block
+        return torch.cat([cnn_block, torch.as_tensor(host_block).to(
+            cnn_block.device)], dim=0)
+
+    def _host_probs(self, pool: FramePool, song_ids: Sequence,
+                    pad_to: int | None):
+        """The host members' block: the device slice's tensor merged with
+        the host-scored members, or numpy without a device slice."""
+        n_live = len(song_ids)
+        active = self.active_host_members
         width = n_live if pad_to is None else pad_to
         sel = pool.row_of(song_ids)
         if width > n_live:
@@ -331,6 +507,98 @@ class Committee:
             self.device)
         return DeviceMemberCommittee(stacks).score_pool(pool)
 
+    # -- CNN members -------------------------------------------------------
+
+    def _bucketed_crops(self, store, rows, key) -> torch.Tensor:
+        """Crops of ``rows`` padded (repeating the last row) to a multiple
+        of ``CROP_BUCKET``, sampled at the full width: threefry draws are
+        prefix-stable in the width, so the real rows' crops do not depend
+        on the padding."""
+        pad = -len(rows) % self.CROP_BUCKET
+        rows_in = (np.concatenate([rows, np.repeat(rows[-1:], pad)])
+                   if pad else rows)
+        return store.sample_crops(key, rows_in)
+
+    def predict_songs_cnn(self, store, song_ids, key, *,
+                          pad_to: int | None = None) -> torch.Tensor:
+        """``(M_cnn, n, C)`` CNN scores of one random crop a song, or
+        ``(M_cnn, pad_to, C)`` whose tail holds the bucket padding's extra
+        crops (``committee.py:1022-1100``, crop path).  The forward runs
+        in ``CROP_BUCKET``-wide slices, one member after another."""
+        rows = store.row_of(song_ids)
+        if pad_to is not None and pad_to < len(rows):
+            raise ValueError(f"pad_to={pad_to} < n={len(rows)}")
+        active = self.active_cnn_members
+        if len(rows) == 0:
+            return torch.zeros((len(active), pad_to or 0,
+                                self.config.n_class), device=self.device)
+        crops = self._bucketed_crops(store, rows, key)
+        variables = [m.variables for m in active]
+        with torch.no_grad():
+            out = torch.cat([
+                short_cnn.committee_infer(
+                    variables, crops[lo: lo + self.CROP_BUCKET], self.config)
+                for lo in range(0, crops.shape[0], self.CROP_BUCKET)], dim=1)
+        return _keep_columns(out, len(rows) if pad_to is None else pad_to)
+
+    def _qbdc_stage(self, store, rows, key, k: int):
+        """Split the pass's key into the crop and the mask streams, fire
+        ``acquire.qbdc.masks``, draw the bucket-padded crops: ``(crops,
+        mask_keys)``."""
+        crop_key, mask_key = prng.split(key)
+        faults.fire("acquire.qbdc.masks", k=int(k))
+        return (self._bucketed_crops(store, rows, crop_key),
+                prng.split(mask_key, k))
+
+    def qbdc_pool_probs(self, store, song_ids, key, *, k: int,
+                        pad_to: int | None = None) -> torch.Tensor:
+        """Query-by-dropout-committee probabilities ``(K, N, C)`` (or
+        ``(K, pad_to, C)``): the first active CNN member under ``k`` seeded
+        unit-level dropout masks (``committee.py:727-806``)."""
+        active = self.active_cnn_members
+        if not active:
+            raise ValueError(
+                "qbdc acquisition needs a committee with at least one "
+                "(active) CNN member: the dropout committee is K masked "
+                "forwards of that network")
+        if k < 1:
+            raise ValueError(f"qbdc committee width must be >= 1, got {k}")
+        if store is None:
+            raise ValueError("qbdc scoring needs the waveform store")
+        rows = store.row_of(song_ids)
+        if pad_to is not None and pad_to < len(rows):
+            raise ValueError(f"pad_to={pad_to} < n={len(rows)}")
+        if len(rows) == 0:
+            return torch.zeros((k, pad_to or 0, self.config.n_class),
+                               device=self.device)
+        crops, mask_keys = self._qbdc_stage(store, rows, key, k)
+        variables = active[0].variables
+        with torch.no_grad():
+            out = torch.cat([
+                short_cnn.qbdc_infer(variables,
+                                     crops[lo: lo + self.CROP_BUCKET],
+                                     mask_keys, self.config)
+                for lo in range(0, crops.shape[0], self.CROP_BUCKET)], dim=1)
+        return _keep_columns(out, len(rows) if pad_to is None else pad_to)
+
+    def retrain_cnns(self, store, train_ids, train_y, test_ids, test_y, key,
+                     *, n_epochs: int | None = None) -> list:
+        """Retrain every active CNN member on the queried songs
+        (``amg_test.py:496-502``), member ``i`` under ``fold_in(key, i)``;
+        a member with no improved epoch keeps its variables (and stays
+        clean).  Returns the per-member histories."""
+        faults.fire("member.retrain", member="__cnn_stack__")
+        active = self.active_cnn_members
+        best, histories = self.trainer.fit_many(
+            [m.variables for m in active], store, train_ids, train_y,
+            test_ids, test_y, key,
+            n_epochs=(self.trainer.train_config.n_epochs_retrain
+                      if n_epochs is None else n_epochs))
+        for m, b, h in zip(active, best, histories):
+            if any(e["improved"] for e in h):
+                m.variables = b
+        return histories
+
     # -- updates -----------------------------------------------------------
 
     def update_host(self, X_batch: np.ndarray, y_batch: np.ndarray):
@@ -382,16 +650,60 @@ class Committee:
 
     @staticmethod
     def member_file(m: Member) -> str:
-        """``classifier_{kind}.{name}`` in the port's member format."""
+        """``classifier_{kind}.{name}.npz`` in the port's member format."""
         return f"classifier_{m.kind}.{m.name}.npz"
 
     def save(self, directory: str) -> None:
-        """Write the active members' files into ``directory``; quarantined
-        members are skipped, leaving their last good file live.  (The JAX
-        package's ``begin_save`` also defers a CNN member's device fetch;
-        host members have none.)"""
+        self.begin_save(directory)()
+
+    def begin_save(self, directory: str, *, reuse_dir: str | None = None,
+                   dtype: str | None = None):
+        """Snapshot the committee into ``directory``; returns the deferred
+        write (``committee.py:1239-1325``).  Host members are written now
+        (the next update changes them in place); CNN members need only
+        their variables' references, since retraining rebinds them, so
+        their device->host copy and file writes run in the returned
+        callable (the checkpointer's thread).  A CNN member that is clean
+        against ``reuse_dir``'s file is skipped: the promote leaves that
+        file in place.  ``dtype="bfloat16"`` casts on the device before
+        the copy.  Quarantined members are skipped, leaving their last
+        good file live."""
         os.makedirs(directory, exist_ok=True)
         for m in self.active_host_members:
             p = os.path.join(directory, self.member_file(m))
             m.save(p)
             faults.fire("checkpoint.write", payload=p, member=m.name)
+
+        def provably_current(m):
+            if reuse_dir is None or m.ckpt_dirty:
+                return False
+            target = os.path.abspath(os.path.join(reuse_dir,
+                                                  self.member_file(m)))
+            return m.ckpt_clean_path == target and os.path.exists(target)
+
+        if dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"unsupported checkpoint dtype {dtype!r}")
+        to_write = [m for m in self.active_cnn_members
+                    if not provably_current(m)]
+        snapshot = [(m, m.variables) for m in to_write]
+        for m in to_write:
+            m.ckpt_dirty = False
+            m.ckpt_clean_path = os.path.abspath(os.path.join(
+                reuse_dir if reuse_dir is not None else directory,
+                self.member_file(m)))
+
+        def finish():
+            import time
+
+            t0 = time.perf_counter()
+            fetched = [{k: (t.to(torch.bfloat16) if dtype == "bfloat16"
+                            else t).cpu() for k, t in v.items()}
+                       for _, v in snapshot]
+            t1 = time.perf_counter()
+            for (m, _), v in zip(snapshot, fetched):
+                p = os.path.join(directory, self.member_file(m))
+                m.save(p, variables=v, dtype=dtype)
+                faults.fire("checkpoint.write", payload=p)
+            return {"fetch_s": t1 - t0, "write_s": time.perf_counter() - t1}
+
+        return finish

@@ -33,29 +33,23 @@ estimators).
 
 from __future__ import annotations
 
-import io
-import json
 import math
-import zlib
 
 import numpy as np
 
 from consensus_entropy_tpu_torch.config import NUM_CLASSES
-from consensus_entropy_tpu_torch.models.base import Member
+from consensus_entropy_tpu_torch.models.base import (
+    Member,
+    _read_npz,
+    _require_all_classes,
+    _write_npz,
+)
+from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
 
 ALL_CLASSES = np.arange(NUM_CLASSES)
 #: ``np.iinfo(np.int32).max``: the bound of scikit-learn's seed draws
 MAX_INT = 2 ** 31 - 1
 _MAX_DLOSS = 1e12
-
-
-def _require_all_classes(y):
-    """Pre-training must expose the full class universe."""
-    seen = np.unique(y)
-    if len(seen) != NUM_CLASSES:
-        raise ValueError(
-            f"pre-training data must contain all {NUM_CLASSES} classes; "
-            f"got {sorted(int(c) for c in seen)}")
 
 
 def _as_float_rows(X) -> np.ndarray:
@@ -86,29 +80,6 @@ def _first_call(member, classes) -> bool:
         member.classes_ = classes
         return True
     return False
-
-
-def _write_npz(path: str, meta: dict, arrays: dict) -> None:
-    """An ``.npz`` archive (the arrays and a JSON header) followed by the
-    CRC32 of its bytes, so bit-rot anywhere in the file is caught on
-    load."""
-    buf = io.BytesIO()
-    np.savez(buf, meta=np.array(json.dumps(meta)), **arrays)
-    body = buf.getvalue()
-    with open(path, "wb") as f:
-        f.write(body + zlib.crc32(body).to_bytes(4, "little"))
-
-
-def _read_npz(path: str) -> tuple[dict, dict]:
-    with open(path, "rb") as f:
-        data = f.read()
-    body, crc = data[:-4], data[-4:]
-    if len(data) < 4 or zlib.crc32(body).to_bytes(4, "little") != crc:
-        raise ValueError(f"{path}: member file fails its CRC32")
-    with np.load(io.BytesIO(body), allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files if k != "meta"}
-        meta = json.loads(str(z["meta"]))
-    return meta, arrays
 
 
 def _full_proba(p, classes) -> np.ndarray:
@@ -534,4 +505,5 @@ class SGDMember(Member):
 
 
 #: member kind -> class, for files named ``classifier_{kind}.{name}.npz``
-MEMBER_TYPES = {"gnb": GNBMember, "sgd": SGDMember}
+MEMBER_TYPES = {"gnb": GNBMember, "sgd": SGDMember,
+                "xgb": NativeGBDTMember}

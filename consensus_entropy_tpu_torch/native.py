@@ -1,0 +1,293 @@
+"""The boosted slot's host core: tree build and forest predict in C++.
+
+Counterpart of the GBDT half of ``consensus_entropy_tpu/native/__init__.py``
+(``gbdt_build_tree`` ``:199-240``, ``_gbdt_build_tree_np`` ``:242-350``,
+``gbdt_predict_margins`` ``:352-402``) and of ``native/build.py:41-75``.
+``native/ce_gbdt.cpp`` (the port's own copy of the source) is compiled with
+the host compiler (``g++ -O3 -fopenmp -shared -fPIC -std=c++17``) at first
+use into ``consensus_entropy_tpu_torch/_build/``, named after a hash of the
+source and the flags; each process builds under its own temporary name and
+moves the library into place with ``os.replace``.
+
+Unlike the JAX package there is no silent fallback: a failed build or load
+raises.  The numpy plain versions (the same algorithm with the same double
+accumulation order, so the trees are identical) run only when the caller
+passes ``plain=True``, as the tests do.
+
+    python -m consensus_entropy_tpu_torch.native   # build the core
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+
+import numpy as np
+from numpy.ctypeslib import ndpointer
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_PKG, "native", "ce_gbdt.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+
+_f32 = ndpointer(np.float32, flags="C_CONTIGUOUS")
+_f64 = ndpointer(np.float64, flags="C_CONTIGUOUS")
+_i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_int64 = ctypes.c_int64
+
+_lib = None
+
+
+def library_path() -> str:
+    """Where the library for the current source and flags lives."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(SOURCE, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"ce_gbdt-{digest.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, str]:
+    """Compile the core unless it is built; returns ``(path, compiler
+    log)``.  Raises with the compiler's output when the build fails."""
+    out = library_path()
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", *CXX_FLAGS, SOURCE, "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"GBDT core build failed ({' '.join(cmd)}), "
+                           f"exit {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stderr
+
+
+def _get_lib() -> ctypes.CDLL:
+    """The bound library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()[0])
+        lib.ce_gbdt_build_tree.argtypes = [
+            _u8, _int64, _int64, _f32, _f32, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_double, ctypes.c_double, _i32, _i32,
+            _f64]
+        lib.ce_gbdt_build_tree.restype = None
+        lib.ce_gbdt_predict_margins.argtypes = [
+            _u8, _int64, _int64, _i32, _i32, _f64, _int64, _int64, _i32,
+            _int64, ctypes.c_double, _f64]
+        lib.ce_gbdt_predict_margins.restype = None
+        _lib = lib
+    return _lib
+
+
+def gbdt_build_tree(Xb, g, h, *, max_depth: int, n_bins: int,
+                    lam: float = 1.0, min_child_weight: float = 1.0,
+                    min_gain: float = 0.0, plain: bool = False):
+    """One depth-limited regression tree on binned features.
+
+    ``Xb``: ``(n, f)`` uint8 bin codes; ``g``/``h``: float32 gradients and
+    hessians.  Returns ``(feature, threshold, value)`` in the complete-heap
+    layout of ``native/ce_gbdt.cpp`` (``feature[i] == -1`` marks a leaf;
+    rows with ``bin <= threshold`` descend left).  ``plain=True`` runs the
+    numpy version, which builds the identical tree."""
+    Xb = np.ascontiguousarray(Xb, np.uint8)
+    g = np.ascontiguousarray(g, np.float32)
+    h = np.ascontiguousarray(h, np.float32)
+    n, f = Xb.shape
+    if g.shape != (n,) or h.shape != (n,):
+        raise ValueError(f"shape mismatch: Xb {Xb.shape} g {g.shape} "
+                         f"h {h.shape}")
+    if not 2 <= n_bins <= 256:
+        raise ValueError(f"n_bins must be in [2, 256], got {n_bins}")
+    if max_depth < 0:
+        raise ValueError(f"max_depth must be >= 0, got {max_depth}")
+    # the core indexes hist[... + code]: codes must fit in n_bins (uint8
+    # cannot break this at 256 bins, so that case skips the scan)
+    if n_bins < 256 and n and Xb.max() >= n_bins:
+        raise ValueError(f"bin codes must be < n_bins={n_bins}; "
+                         f"got max {int(Xb.max())}")
+    if plain:
+        return _build_tree_plain(Xb, g, h, max_depth, n_bins, lam,
+                                 min_child_weight, min_gain)
+    n_nodes = 2 ** (max_depth + 1) - 1
+    feature = np.empty(n_nodes, np.int32)
+    threshold = np.empty(n_nodes, np.int32)
+    value = np.empty(n_nodes, np.float64)
+    _get_lib().ce_gbdt_build_tree(Xb, n, f, g, h, max_depth, n_bins, lam,
+                                  min_child_weight, min_gain, feature,
+                                  threshold, value)
+    return feature, threshold, value
+
+
+def _build_tree_plain(Xb, g, h, max_depth, n_bins, lam, min_child_weight,
+                      min_gain):
+    """Level-wise histogram tree build in numpy, double accumulation in the
+    core's order."""
+    n, f = Xb.shape
+    n_nodes = 2 ** (max_depth + 1) - 1
+    feature = np.full(n_nodes, -1, np.int32)
+    threshold = np.zeros(n_nodes, np.int32)
+    value = np.zeros(n_nodes, np.float64)
+    G = np.zeros(n_nodes)
+    H = np.zeros(n_nodes)
+    # cumsum's last element is the strictly sequential sum, the core's root
+    # loop order (np.sum is pairwise and can flip near-tie splits)
+    if n:
+        G[0] = np.cumsum(g, dtype=np.float64)[-1]
+        H[0] = np.cumsum(h, dtype=np.float64)[-1]
+    open_ = np.zeros(n_nodes, bool)
+    open_[0] = True
+    node_of_row = np.zeros(n, np.int32)
+    cols = np.arange(f, dtype=np.int64)
+    prev_hg = prev_hh = None
+    prev_local = np.full(n_nodes, -1, np.int64)
+
+    for depth in range(max_depth):
+        level = np.arange(2 ** depth - 1, 2 ** (depth + 1) - 1)
+        act = level[open_[level]]
+        if act.size == 0:
+            break
+        local = np.full(n_nodes, -1, np.int64)
+        local[act] = np.arange(act.size)
+        row_local = local[node_of_row]
+        sel = row_local >= 0
+        rl = row_local[sel]
+        # sibling subtraction as the core does it: rows accumulate only for
+        # the smaller child of each pair (ties: the left one); the sibling
+        # is parent_hist - built_hist
+        if depth == 0 or prev_hg is None:
+            direct = np.ones(act.size, bool)
+        else:
+            counts = np.bincount(rl, minlength=act.size)
+            direct = np.empty(act.size, bool)
+            for a, nd in enumerate(act):
+                sib = nd + 1 if nd % 2 else nd - 1
+                cnt, sib_cnt = counts[a], counts[local[sib]]
+                direct[a] = cnt < sib_cnt or (cnt == sib_cnt
+                                              and bool(nd % 2))
+        keep = direct[rl]
+        idx = np.flatnonzero(sel)[keep]
+        rl_k, Xl = rl[keep], Xb[idx]
+        gl = g[idx].astype(np.float64)
+        hl = h[idx].astype(np.float64)
+        flat = ((rl_k[:, None] * f + cols[None, :]) * n_bins
+                + Xl.astype(np.int64))
+        size = act.size * f * n_bins
+        hg = np.bincount(flat.ravel(), weights=np.repeat(gl, f),
+                         minlength=size).reshape(act.size, f, n_bins)
+        hh = np.bincount(flat.ravel(), weights=np.repeat(hl, f),
+                         minlength=size).reshape(act.size, f, n_bins)
+        for a, nd in enumerate(act):
+            if direct[a]:
+                continue
+            sib = nd + 1 if nd % 2 else nd - 1
+            parent = (nd - 1) // 2
+            hg[a] = prev_hg[prev_local[parent]] - hg[local[sib]]
+            hh[a] = prev_hh[prev_local[parent]] - hh[local[sib]]
+        cg = np.cumsum(hg, axis=2)
+        ch = np.cumsum(hh, axis=2)
+        Gt = G[act][:, None, None]
+        Ht = H[act][:, None, None]
+        GR, HR = Gt - cg, Ht - ch
+        with np.errstate(invalid="ignore"):
+            gain = (cg ** 2 / (ch + lam) + GR ** 2 / (HR + lam)
+                    - Gt ** 2 / (Ht + lam))
+        ok = (ch >= min_child_weight) & (HR >= min_child_weight)
+        ok[..., n_bins - 1] = False  # the last bin sends everything left
+        # NaN gains (0/0 with lam=0 on an empty side) lose the argmax as
+        # they lose the core's `gain > best`; +inf gains win in both
+        gain = np.where(ok & ~np.isnan(gain), gain, -np.inf)
+        gflat = gain.reshape(act.size, -1)
+        best = gflat.argmax(axis=1)
+        best_gain = gflat[np.arange(act.size), best]
+        bf, bb = best // n_bins, best % n_bins
+        for a, nd in enumerate(act):
+            open_[nd] = False
+            if best_gain[a] > min_gain:  # -inf: no candidate, a leaf
+                feature[nd] = bf[a]
+                threshold[nd] = bb[a]
+                left, right = 2 * nd + 1, 2 * nd + 2
+                G[left] = cg[a, bf[a], bb[a]]
+                H[left] = ch[a, bf[a], bb[a]]
+                G[right] = G[nd] - G[left]
+                H[right] = H[nd] - H[left]
+                open_[left] = open_[right] = True
+            else:
+                value[nd] = -G[nd] / (H[nd] + lam)
+        split = feature[node_of_row] >= 0
+        at_level = (node_of_row >= level[0]) & (node_of_row <= level[-1])
+        move = split & at_level
+        nd_m = node_of_row[move]
+        go_right = (Xb[move, feature[nd_m]]
+                    > threshold[nd_m].astype(np.uint8))
+        node_of_row[move] = 2 * nd_m + 1 + go_right
+        prev_hg, prev_hh = hg, hh
+        prev_local = local
+    leaves = np.flatnonzero(open_)
+    value[leaves] = -G[leaves] / (H[leaves] + lam)
+    return feature, threshold, value
+
+
+def gbdt_predict_margins(Xb, feature, threshold, value, tree_class,
+                         n_class: int, lr: float, margins=None, *,
+                         plain: bool = False) -> np.ndarray:
+    """Accumulate forest margins: ``margins[i, tree_class[t]] += lr *
+    leaf_t(i)``.  ``feature``/``threshold``: ``(T, n_nodes)`` int32;
+    ``value``: ``(T, n_nodes)`` float64.  Returns ``(n, n_class)``
+    float64 (``margins`` itself when given).  ``plain=True`` runs the
+    numpy version: the same sums in the same order per row."""
+    Xb = np.ascontiguousarray(Xb, np.uint8)
+    feature = np.ascontiguousarray(feature, np.int32)
+    threshold = np.ascontiguousarray(threshold, np.int32)
+    value = np.ascontiguousarray(value, np.float64)
+    tree_class = np.ascontiguousarray(tree_class, np.int32)
+    n, f = Xb.shape
+    n_trees, n_nodes = feature.shape
+    if threshold.shape != (n_trees, n_nodes) or \
+            value.shape != (n_trees, n_nodes):
+        raise ValueError(f"feature/threshold/value shapes disagree: "
+                         f"{feature.shape} {threshold.shape} {value.shape}")
+    if margins is None:
+        margins = np.zeros((n, n_class), np.float64)
+    elif (not isinstance(margins, np.ndarray)
+          or margins.dtype != np.float64 or margins.shape != (n, n_class)
+          or not margins.flags.c_contiguous):
+        raise ValueError(f"margins must be C-contiguous float64 "
+                         f"({n}, {n_class})")
+    if n_trees == 0:
+        return margins
+    if tree_class.shape != (n_trees,) or (
+            tree_class.min() < 0 or tree_class.max() >= n_class):
+        raise ValueError(f"tree_class must be (n_trees,) indices in "
+                         f"[0, {n_class}); got shape {tree_class.shape}")
+    if not plain:
+        _get_lib().ce_gbdt_predict_margins(
+            Xb, n, f, feature, threshold, value, n_trees, n_nodes,
+            tree_class, n_class, lr, margins)
+        return margins
+    # heap traversal, max_depth gather steps per tree, trees in order
+    depth = int(np.log2(n_nodes + 1)) - 1
+    rows = np.arange(n)
+    for t in range(n_trees):
+        node = np.zeros(n, np.int64)
+        for _ in range(depth):
+            fcur = feature[t, node]
+            internal = fcur >= 0
+            binv = Xb[rows, np.where(internal, fcur, 0)]
+            child = 2 * node + 1 + (binv > threshold[t, node])
+            node = np.where(internal, child, node)
+        margins[:, tree_class[t]] += lr * value[t, node]
+    return margins
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    path, log = build()
+    print(f"{path}: built in {time.perf_counter() - t0:.3f} s\n{log}".rstrip())

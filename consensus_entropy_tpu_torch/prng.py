@@ -4,7 +4,8 @@ The port's counterpart of the JAX threefry implementation
 (``jax/_src/prng.py``: ``threefry_2x32``, ``_threefry_seed``,
 ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_uniform``, ``_bernoulli``) under ``jax_threefry_partitionable=True``,
+``_uniform``, ``_bernoulli``, ``_shuffle``) under
+``jax_threefry_partitionable=True``,
 the setting the JAX package runs with.  Draws depend on the key and on each
 element's flat index only, so they do not depend on the device.
 
@@ -17,6 +18,7 @@ cross between the two by reinterpreting as int32.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import operator
 from collections.abc import Sequence
@@ -38,8 +40,9 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry_2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     """The Threefry-2x32 hash of the counter pairs ``(x1, x2)`` under the
     key words ``(k1, k2)``: 20 rounds, a key injection after every four.
-    All operands are int64 tensors holding uint32 values (the keys may be
-    0-dim); returns the two output words, same dtype and shape."""
+    All operands are int64 tensors holding uint32 values (the key words
+    may be 0-dim tensors or Python ints); returns the two output words,
+    same dtype and shape."""
     ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
     x1 = (x1 + ks[0]) & _MASK
     x2 = (x2 + ks[1]) & _MASK
@@ -76,9 +79,14 @@ def _hash_iota(key: torch.Tensor, shape: tuple, device):
     if words.shape != (2,):
         raise TypeError(f"expected a single (2,) key, got {tuple(key.shape)}")
     dev = key.device if device is None else resolve_device(device)
-    words = words.to(dev)
+    if words.device == dev:
+        k1, k2 = words[0], words[1]
+    else:
+        # a key on another device enters the rounds as Python ints: a
+        # pageable copy to the card would wait for its queue to drain
+        k1, k2 = words.tolist()
     count = torch.arange(math.prod(shape), dtype=torch.int64, device=dev)
-    hi, lo = threefry_2x32(words[0], words[1], count >> 32, count & _MASK)
+    hi, lo = threefry_2x32(k1, k2, count >> 32, count & _MASK)
     return hi.reshape(shape), lo.reshape(shape)
 
 
@@ -159,3 +167,42 @@ def bernoulli(key: torch.Tensor, p=0.5, shape=None,
     shape = tuple(p.shape) if shape is None else _shape(shape)
     u = uniform(key, shape, device=device)
     return u < p.to(u.device)
+
+
+def permutation(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (JAX ``_shuffle``): rounds of
+    ``key, sub = split(key)`` and a stable sort of ``arange(n)`` by 32 random
+    bits of ``sub`` each; ``ceil(3 ln n / ln(2**32 - 1))`` rounds, one up to
+    n = 1625, two up to about 2.6 million.  int64, on the key's device or
+    on ``device``."""
+    dev = key.device if device is None else resolve_device(device)
+    x = torch.arange(n, dtype=torch.int64, device=dev)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(
+        np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        bits = random_bits(sub, (n,), dev).view(torch.int32).to(
+            torch.int64) & _MASK
+        x = x[torch.sort(bits, stable=True).indices]
+    return x
+
+
+def fold_in_static(key: torch.Tensor, *data) -> torch.Tensor:
+    """Flax's ``_fold_in_static`` (``flax/core/scope.py:110-140``): the
+    SHA-1 of the strings (UTF-8) and ints (big-endian, minimal bytes) in
+    ``data``, its first four bytes folded into ``key``.  Flax's
+    ``make_rng`` derives a module's key this way from its path and call
+    counter: ``Dropout_0``'s first draw under a ``dropout`` key ``k`` is
+    ``fold_in_static(k, "Dropout_0", 1)`` (``flax_fix_rng_separator`` off,
+    Flax's default)."""
+    if not data:
+        return key
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or string, got {x!r}")
+    return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))

@@ -36,6 +36,7 @@ FAULT_POINTS = frozenset({
     "member.retrain",     # Committee.update_host / update_host_gated
     "member.predict",     # Committee.pool_probs, per host member
     "pool.score",         # the loop's score phase (whole probs table)
+    "acquire.qbdc.masks",  # Committee._qbdc_stage, before the mask draw
     "state.save",         # al.state.ALState.save (the commit point)
     "io.write.short",     # resilience.io.write: half the payload lands
     "io.write.enospc",    # raise -> OSError(ENOSPC) before any byte

@@ -50,21 +50,17 @@ def test_conflicting_reregistration_fails_loud():
 
 
 def test_probs_plan_routes_by_probs_source():
-    class Producer:
-        def cnn_score_plan(self, store, song_ids, key, *, pad_to):
-            return ("cnn", song_ids, pad_to)
-
-        def qbdc_score_plan(self, store, song_ids, key, *, k, pad_to):
-            return ("qbdc", song_ids, k, pad_to)
-
-    cfg = ALConfig(qbdc_k=7)
-    plans = {m: acquire.get(m).probs_plan(Producer(), None, [1, 2], None,
-                                          pad_to=256, config=cfg)
-             for m in acquire.available_modes()}
-    assert plans == {"mc": ("cnn", [1, 2], 256), "hc": None,
-                     "mix": ("cnn", [1, 2], 256), "rand": None,
-                     "qbdc": ("qbdc", [1, 2], 7, 256),
-                     "wmc": ("cnn", [1, 2], 256)}
+    # the plan protocol (probs_plan) waits for the fleet scheduler
+    # (ROADMAP A9); the sequential session routes each mode's producer by
+    # probs_source: qbdc's dropout committee, the stored committee else
+    routes = {m: (acquire.get(m).needs_probs, acquire.get(m).probs_source)
+              for m in acquire.available_modes()}
+    assert routes == {"mc": (True, "committee"), "hc": (False, "committee"),
+                      "mix": (True, "committee"),
+                      "rand": (False, "committee"), "qbdc": (True, "qbdc"),
+                      "wmc": (True, "committee")}
+    assert not any(hasattr(acquire.get(m), "probs_plan")
+                   for m in acquire.available_modes())
 
 
 def test_config_checks_match_jax():

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,8 +15,10 @@ from consensus_entropy_tpu_torch import convert, prng, resolve_device
 from consensus_entropy_tpu_torch.al.acquisition import Acquirer
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer
 from consensus_entropy_tpu_torch.al.loop import ALLoop
-from consensus_entropy_tpu_torch.config import ALConfig
-from consensus_entropy_tpu_torch.models.committee import Committee
+from consensus_entropy_tpu_torch.config import ALConfig, CNNConfig
+from consensus_entropy_tpu_torch.data.audio import DeviceWaveformStore
+from consensus_entropy_tpu_torch.models import short_cnn
+from consensus_entropy_tpu_torch.models.committee import CNNMember, Committee
 
 torch.set_num_threads(1)
 
@@ -23,8 +26,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "consensus_entropy_tpu_torch")
 
 #: what the port never imports
-BANNED = ("jax", "jaxlib", "flax", "consensus_entropy_tpu", "sklearn",
-          "pandas")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
+          "consensus_entropy_tpu", "sklearn", "pandas")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -46,7 +49,7 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 42   # the walk found the modules
+    assert int(out.stdout.split()[-1]) >= 50   # the walk found the modules
 
 
 def _imported_roots(path):
@@ -67,7 +70,7 @@ def _port_sources():
 
 def test_no_jax_package_import_in_port_or_chip_smoke():
     sources = list(_port_sources())
-    assert len(sources) >= 45
+    assert len(sources) >= 52
     for path in sources:
         for name in _imported_roots(path):
             assert name.split(".")[0] not in BANNED, (path, name)
@@ -96,4 +99,13 @@ def test_default_device_is_the_card_and_never_falls_back():
     with pytest.raises(RuntimeError):
         convert.device_members_from_numpy(*[[[[0.0]]]] * 2, [[0.0]],
                                           [[[0.0]]], [[0.0]])
+    # the CNN path: its store, members' variables and committee
+    cfg = CNNConfig(n_channels=4, n_mels=32, n_layers=5, input_length=8192)
+    with pytest.raises(RuntimeError):
+        DeviceWaveformStore({"a": np.zeros(8192, np.float32)}, 8192)
+    with pytest.raises(RuntimeError):
+        short_cnn.init_variables(0, cfg)
+    member = CNNMember("c", short_cnn.init_variables(0, cfg, "cpu"), cfg)
+    with pytest.raises(RuntimeError):
+        Committee([], [member], cfg)
     assert resolve_device("cpu") == torch.device("cpu")
