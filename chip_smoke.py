@@ -58,9 +58,10 @@ Phases, one line of output each (or a few):
     then a run killed by ``CETPU_FAULTS=state.save:kill@2`` and its rerun
     reach the uninterrupted run's metrics and state; then ``-m mc`` and
     ``-m qbdc`` with 2 GBDT and 2 narrow vgg members added to the registry
-    and 4-s clips in ``npy/``, on the card and the CPU (every epoch, finite
-    F1s, state and DONE written; iteration 0's slot values within CNN_TOL,
-    near-ties counted);
+    and 4-s clips in ``npy/``, and ``-m mc --cnn-arch res --full-song-hop
+    16384`` with 2 narrow res members, on the card and the CPU (every
+    epoch, finite F1s, state and DONE written; iteration 0's slot values
+    within CNN_TOL, near-ties counted);
 12. gbdt: the GBDT host core built with g++; one tree and a forest's
     margins at DEAM pre-training scale (108,120 frames x 260 features, 256
     bins, depth 5) bit-equal to the numpy plain versions; an AL member's
@@ -77,7 +78,19 @@ Phases, one line of output each (or a few):
     + 5 vgg members for mc and qbdc (K=20), FULL_EPOCHS iterations of 100
     retrain epochs: queried songs disjoint, the pool shrinking by q, finite
     F1s, the state committed; the ``StepTimer`` medians and the busy share
-    of one mc iteration; iteration 0 at a narrow CNN against the CPU.
+    of one mc iteration; iteration 0 at a narrow CNN against the CPU;
+15. trunks: res, harm, se1d and musicnn at full width (``CNNConfig(arch=
+    a)``), each as phase 13 holds vgg: 5 members from ``init_variables``
+    x 256 crops on the card (ms per crop per member beside the trunk's FLOP
+    bound, peak device memory); 2 members x 16 crops against the CPU port
+    (inference, features and qbdc K=20), one float64 training step's
+    gradient (``bw_q``'s too, for harm) and a 1-epoch ``fit_many``; then
+    full-song scoring: 5 harm members over 64 seeded clips of 15-30 s on a
+    29,524-sample hop (up to 15 windows a song), 8 songs x 2 members
+    against the CPU, ms per song; then phase 14's user through ``ALLoop``
+    (mc) with 5 GaussianNB + 5 SGD + 2 full-width harm members scoring
+    full songs (hop 59,049), 2 iterations of 10 retrain epochs, with the
+    ``StepTimer`` medians; no hand kernel launched.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -190,11 +203,11 @@ SELECT_REPS, SELECT_ROUNDS, SELECT_WARMUP, PROFILED_SELECTS = 50, 5, 5, 10
 # the host-member committee runs, AL_EPOCHS iterations each (cut from 10:
 # at 10, and 4 iterations in phase 14, the script took 684.5 s on one
 # card machine's host and 1034.3 s on a slower one, too near its 1200 s
-# limit).
-AL_EPOCHS, TRAIN_SIZE, AL_MODES = 5, 0.85, ("mc", "hc", "mix", "rand", "wmc")
+# limit; then from 5 to 3 to pay for phase 15).
+AL_EPOCHS, TRAIN_SIZE, AL_MODES = 3, 0.85, ("mc", "hc", "mix", "rand", "wmc")
 # Labelled rows each member is fitted on (its own seeded draw), the class
-# centres' spread, and the steady iteration traced for the busy share.
-GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 3
+# centres' spread, and the iteration traced for the busy share.
+GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 1
 TIMED_PHASES = ("score", "select", "update_host", "evaluate", "checkpoint",
                 "ckpt_join")
 # The CLI (phase 11) at AMG1608's shape: songs, frames per song, annotators
@@ -211,6 +224,9 @@ CLI_CLIP_SAMPLES, CLI_XGB, CLI_CNN_MEMBERS, CLI_CNN_EPOCHS = 4 * 16000, 2, 2, 2
 CLI_CNN = {"n_channels": 8, "input_length": 32768}
 CLI_CNN_ARGS = ["-q", "10", "-e", str(CLI_CNN_EPOCHS), "-n", "150",
                 "--max-users", "1", "--retrain-epochs", "2"]
+# ... and once more with res members scoring whole songs on a grid of
+# 16,384-sample hops (2 windows of a 4-s clip)
+CLI_FULL_SONG = {"arch": "res", "hop": 16384}
 # Phase 12: the GBDT core at DEAM pre-training scale (1802 songs x 60
 # frames, 2 Hz over the annotated 15-45 s), 256 bins, depth 5; the rows an
 # AL member's fit sees (phases 12 and 14) and the rounds of the forest
@@ -248,18 +264,39 @@ FIT_SONGS, FIT_TEST_SONGS, FIT_EPOCHS = 10, 60, 3
 # Phase 14: AMG1608's 1608 songs of 30 s in the store, one user with 400
 # annotated songs of USER_FRAMES frames, 5 members of each kind, the
 # CNNs' short fit before the run, q=10 for FULL_EPOCHS[mode] iterations
-# (cut from the paper's 10 to keep the script inside its time limit;
-# widths and the 100 retrain epochs are not cut), mc's iteration 1 traced,
-# so each mode's medians stand on 3 untraced iterations; the narrow CNN
+# (cut from the paper's 10 to keep the script inside its time limit, and
+# from 4 and 3 to pay for phase 15; widths and the 100 retrain epochs are
+# not cut), mc's iteration 1 traced, so each mode's medians stand on 2
+# untraced iterations; the narrow CNN
 # of the card-vs-CPU run, one iteration with its retrain epochs cut
 # (iteration 0's selection, which it checks, comes before any retrain).
 FULL_SONGS, USER_SONGS, USER_FRAMES, FULL_MEMBERS = 1608, 400, 6, 5
-FULL_EPOCHS, FULL_PROFILED_EPOCH = {"mc": 4, "qbdc": 3}, 1
+FULL_EPOCHS, FULL_PROFILED_EPOCH = {"mc": 3, "qbdc": 2}, 1
 PRE_FIT_SONGS, PRE_FIT_EPOCHS = 20, 2
 NARROW_CNN, NARROW_EPOCHS = {"n_channels": 16, "input_length": 32768}, 1
 NARROW_RETRAIN_EPOCHS = 2
 FULL_PHASES = ("score", "select", "update_host", "retrain_cnn", "evaluate",
                "checkpoint", "ckpt_join")
+# Phase 15: the four other trunk families at full width (CNNConfig(arch=a)),
+# each as phase 13 holds vgg: CNN_MEMBERS members over one CNN_CROPS-crop
+# bucket of 30-s clips, timed over TRUNK_REPS passes; CNN_CHECK_MEMBERS x
+# CNN_CHECK_CROPS crops (inference; features and qbdc of the first) and one
+# float64 training step against the CPU port; a TRUNK_FIT_EPOCHS-epoch
+# fit_many of CNN_CHECK_MEMBERS members on FIT_SONGS songs (validated on
+# FIT_TEST_SONGS), the first held against the CPU.  Features are ReLU
+# outputs of any size: rtol 1e-4 / atol 1e-4, as the CPU tests hold them.
+TRUNK_ARCHS, TRUNK_REPS, TRUNK_FIT_EPOCHS = (
+    ("res", "harm", "se1d", "musicnn"), 2, 1)
+FEAT_TOL = {"rtol": 1e-4, "atol": 1e-4}
+# Full-song scoring: SONGS seeded clips of SONG_SECONDS s at 16 kHz, mixed
+# lengths so the validity masks bite (up to 15 windows of a half-crop hop),
+# CNN_MEMBERS harm members; SONG_CHECK songs x CNN_CHECK_MEMBERS members
+# against the CPU.
+SONGS, SONG_SECONDS, SONG_HOP, SONG_CHECK = 64, (15, 30), 29524, 8
+# The harm AL run: phase 14's user with 5 GaussianNB + 5 SGD and
+# HARM_MEMBERS full-width harm members scoring full songs at HARM_HOP;
+# HARM_EPOCHS iterations of HARM_RETRAIN retrain epochs, mc.
+HARM_MEMBERS, HARM_HOP, HARM_EPOCHS, HARM_RETRAIN = 2, 59049, 2, 10
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -1336,18 +1373,60 @@ def phase_gbdt(card):
 
 
 def cnn_work(cfg, n_crops=1):
-    """FLOP and bytes of one vgg forward over ``n_crops`` crops of
-    ``cfg``: the DFT and mel matmuls, the convolutions and dense layers
-    (2 per multiply-add), about 6 elementwise operations per
-    convolution output (BatchNorm, ReLU, pooling); bytes are the crops
-    read once, the weights read once and the scores written once."""
+    """FLOP and bytes of one forward of ``cfg``'s trunk over ``n_crops``
+    crops: the frontend's DFT and mel (or harmonic) matmuls, the
+    convolutions and dense layers (2 per multiply-add), about 6
+    elementwise operations per convolution output (BatchNorm, ReLU,
+    pooling, the residual sum); bytes are the crops read once, the weights
+    read once and the scores written once."""
     t, nf = cfg.n_frames, cfg.n_fft // 2 + 1
-    flop = 2 * t * cfg.n_fft * nf * 2 + 2 * cfg.n_mels * nf * t
-    h, w, c_in = cfg.n_mels, t, 1
-    for width in cfg.channel_widths:
-        flop += (2 * 9 * c_in + 6) * width * h * w
-        h, w, c_in = h // 2, w // 2, width
-    d = cfg.channel_widths[-1]
+    dft = 2 * t * cfg.n_fft * nf * 2
+
+    def conv(taps, c_in, c_out, n_out):
+        return (2 * taps * c_in + 6) * c_out * n_out
+
+    widths = cfg.channel_widths
+    if cfg.arch == "se1d":
+        n = (cfg.input_length - 3) // 3 + 1
+        flop = conv(3, 1, widths[0], n)
+        c_in = widths[0]
+        for w in widths:
+            flop += conv(3, c_in, w, n) + conv(3, w, w, n) + 4 * w * w
+            if c_in != w:
+                flop += conv(3, c_in, w, n)
+            c_in, n = w, n // 3
+    elif cfg.arch == "musicnn":
+        flop = dft + 2 * cfg.n_mels * nf * t
+        c = cfg.n_channels
+        for frac in short_cnn.MUSICNN_V_FRACS:
+            h = max(1, int(cfg.n_mels * frac))
+            flop += conv(h * short_cnn.MUSICNN_V_WIDTH, 1, c,
+                         (cfg.n_mels - h + 1) * t)
+        for length in short_cnn.MUSICNN_H_LENGTHS:
+            flop += conv(length, 1, c, t)
+        c_in, n = c * (len(short_cnn.MUSICNN_V_FRACS)
+                       + len(short_cnn.MUSICNN_H_LENGTHS)), t
+        for w in widths:
+            flop += conv(3, c_in, w, n)
+            c_in, n = w, n // 2
+    else:
+        if cfg.arch == "harm":
+            h, c_in = cfg.harm_level, cfg.n_harmonic
+            flop = dft + 2 * cfg.n_harmonic * h * nf * t
+        else:
+            h, c_in = cfg.n_mels, 1
+            flop = dft + 2 * cfg.n_mels * nf * t
+        w_ = t
+        for width in widths:
+            if cfg.arch == "res":
+                h, w_ = -(-h // 2), -(-w_ // 2)
+                flop += 2 * conv(9, c_in, width, h * w_) + conv(
+                    9, width, width, h * w_)
+            else:
+                flop += conv(9, c_in, width, h * w_)
+                h, w_ = h // 2, w_ // 2
+            c_in = width
+    d = widths[-1]
     flop += 2 * d * d + 2 * d * cfg.n_class
     n_weights = sum(int(np.prod(s)) for s in
                     short_cnn.variable_shapes(cfg).values())
@@ -1365,7 +1444,8 @@ def make_waves(n_songs, n_samples, seed):
 
 def train_step_grads(variables, x, y, dropout_key, cfg):
     """The loss and the flat gradient of one training step's forward and
-    backward (``CNNTrainer._epoch``'s step without the optimizer)."""
+    backward (``CNNTrainer._epoch``'s step without the optimizer), the
+    parameters in name order, float64 on the CPU."""
     params = {k: t.detach().clone().requires_grad_(True)
               for k, t in variables.items() if not short_cnn.is_stat(k)}
     stats = {k: t for k, t in variables.items() if short_cnn.is_stat(k)}
@@ -1385,7 +1465,8 @@ def phase_cnn(card):
               for d in ("cuda", "cpu")}
     ids = list(waves)
     members = [CNNMember(f"cnn.it_{i}", short_cnn.init_variables(
-        SEED + i, cfg, "cuda"), cfg) for i in range(CNN_MEMBERS)]
+        prng.key(SEED + i, "cpu"), cfg, "cuda"), cfg)
+        for i in range(CNN_MEMBERS)]
     committee = Committee([], members, cfg, tc, device="cuda")
     cpu_vars = [{k: v.cpu() for k, v in m.variables.items()}
                 for m in members[:CNN_CHECK_MEMBERS]]
@@ -1586,7 +1667,8 @@ def full_host_members(centers, seed):
 def full_cnn_members(cfg, store, pre_ids, seed, device, fit=True):
     """FULL_MEMBERS vgg members from ``init_variables``, then (``fit``) a
     short fit on seeded labels of ``pre_ids``' waveforms."""
-    variables = [short_cnn.init_variables(seed + i, cfg, device)
+    variables = [short_cnn.init_variables(prng.key(seed + i, "cpu"), cfg,
+                                          device)
                  for i in range(FULL_MEMBERS)]
     if fit:
         y = one_hot_np(np.random.default_rng(seed).integers(
@@ -1599,11 +1681,9 @@ def full_cnn_members(cfg, store, pre_ids, seed, device, fit=True):
             for i, v in enumerate(variables)]
 
 
-def phase_al_loop_full(card):
-    """The paper's committee (5 GaussianNB, 5 SGD, 5 GBDT, 5 vgg CNN) in
-    one AMG1608 user's AL loop on the card, mc and qbdc; iteration 0 at a
-    narrow CNN width against the CPU."""
-    cfg = CNNConfig()
+def amg_user_on_card():
+    """AMG1608's FULL_SONGS seeded 30-s clips in a store on the card and
+    one user of USER_SONGS annotated songs (phases 14 and 15)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     t0 = time.perf_counter()
     data_t = torch.randn((FULL_SONGS, CLIP_SAMPLES), generator=gen,
@@ -1611,10 +1691,22 @@ def phase_al_loop_full(card):
     ids = list(range(1, FULL_SONGS + 1))
     store = DeviceWaveformStore.from_padded(
         ids, data_t, torch.full((FULL_SONGS,), CLIP_SAMPLES, device="cuda"),
-        cfg.input_length)
+        CNNConfig().input_length)
     torch.cuda.synchronize()
     store_s = time.perf_counter() - t0
     pool, labels, centers = full_user(ids)
+    return {"data_t": data_t, "ids": ids, "store": store, "store_s": store_s,
+            "pool": pool, "labels": labels, "centers": centers}
+
+
+def phase_al_loop_full(card, user):
+    """The paper's committee (5 GaussianNB, 5 SGD, 5 GBDT, 5 vgg CNN) in
+    one AMG1608 user's AL loop on the card, mc and qbdc; iteration 0 at a
+    narrow CNN width against the CPU.  Returns the host members."""
+    cfg = CNNConfig()
+    data_t, ids, store, store_s = (user["data_t"], user["ids"],
+                                   user["store"], user["store_s"])
+    pool, labels, centers = user["pool"], user["labels"], user["centers"]
     pre_ids = [i for i in ids if i not in labels][:PRE_FIT_SONGS]
     t0 = time.perf_counter()
     host = full_host_members(centers, SEED + 18)
@@ -1684,7 +1776,7 @@ def phase_al_loop_full(card):
             near[mode] = _compare_slots(
                 picks0[0][0], picks0[1][0],
                 f"al-loop-full {mode} iteration 0, card vs CPU", **CNN_TOL)
-    del store, narrow_store, data_t
+    del narrow_store
     torch.cuda.empty_cache()
     print(f"[al-loop-full] {FULL_MEMBERS} GaussianNB + {FULL_MEMBERS} SGD + "
           f"{FULL_MEMBERS} GBDT + {FULL_MEMBERS} vgg CNN members (host fits "
@@ -1712,7 +1804,7 @@ def phase_al_loop_full(card):
           f"{FULL_PROFILED_EPOCH} (torch.profiler, device events only): " + (
               "not measured (no device events)" if busy is None else
               f"{busy[0]:.2%} of the iteration, {busy[1]:.3f} ms"))
-    return stats, busy
+    return host
 
 
 def write_npy_tree(amg_root, seed=SEED + 21):
@@ -1727,9 +1819,10 @@ def write_npy_tree(amg_root, seed=SEED + 21):
                 * np.float32(0.1))
 
 
-def write_cnn_registry(src_models, models_root, seed=SEED + 22):
+def write_cnn_registry(src_models, models_root, seed=SEED + 22,
+                       arch="vgg"):
     """The host registry of ``src_models`` plus CLI_XGB GBDT members and
-    CLI_CNN_MEMBERS vgg members at the CLI's narrow geometry."""
+    CLI_CNN_MEMBERS ``arch`` members at the CLI's narrow geometry."""
     pre = os.path.join(models_root, "pretrained")
     shutil.copytree(os.path.join(src_models, "pretrained"), pre)
     centers = np.random.default_rng(seed).normal(0, 0.5, (C, F)).astype(
@@ -1739,39 +1832,51 @@ def write_cnn_registry(src_models, models_root, seed=SEED + 22):
                              GBDT_FIT_ROWS)
         m = NativeGBDTMember(f"xgb.it_{i}").fit(x, y)
         m.save(os.path.join(pre, Committee.member_file(m)))
-    cfg = CNNConfig(**CLI_CNN)
+    cfg = CNNConfig(arch=arch, **CLI_CNN)
     for i in range(CLI_CNN_MEMBERS):
         m = CNNMember(f"cnn.it_{i}", short_cnn.init_variables(
-            seed + 10 + i, cfg, "cpu"), cfg)
+            prng.key(seed + 10 + i, "cpu"), cfg, "cpu"), cfg)
         m.save(os.path.join(pre, Committee.member_file(m)))
 
 
 def phase_al_cli_cnn(card, root, amg_root, host_models):
     """The CLI with xgb and CNN members in the registry, mc and qbdc, on
-    the card and on the CPU; iteration 0's selection card against CPU
-    (slot values within CNN_TOL, near-ties counted)."""
+    the card and on the CPU, then mc with res members scoring full songs
+    (CLI_FULL_SONG); iteration 0's selection card against CPU (slot values
+    within CNN_TOL, near-ties counted)."""
     t0 = time.perf_counter()
     write_npy_tree(amg_root)
     npy_s = time.perf_counter() - t0
-    base = os.path.join(root, "models_cnn")
-    write_cnn_registry(host_models, base)
+    bases = {arch: os.path.join(root, f"models_cnn_{arch}")
+             for arch in ("vgg", CLI_FULL_SONG["arch"])}
+    for arch, base in bases.items():
+        write_cnn_registry(host_models, base, arch=arch)
     near, walls = {}, {}
     n_members = 2 * REG_MEMBERS + CLI_XGB + CLI_CNN_MEMBERS
-    for mode in ("mc", "qbdc"):
+    runs = {"mc": ("vgg", []), "qbdc": ("vgg", []),
+            "mc-full-song": (CLI_FULL_SONG["arch"], [
+                "--cnn-arch", CLI_FULL_SONG["arch"], "--full-song-hop",
+                str(CLI_FULL_SONG["hop"])])}
+    for run, (arch, extra) in runs.items():
+        mode = run.split("-")[0]
         picks = {}
         for d in ("cuda", "cpu"):
-            models = os.path.join(root, f"models_cnn_{mode}_{d}")
-            shutil.copytree(os.path.join(base, "pretrained"),
+            models = os.path.join(root, f"models_cnn_{run}_{d}")
+            shutil.copytree(os.path.join(bases[arch], "pretrained"),
                             os.path.join(models, "pretrained"))
+            linear_mc.launches = 0
             t0 = time.perf_counter()
             with recorded_scoring() as picks[d]:
                 run_cli(CLI_CNN_ARGS + ["-m", mode, "--models-root", models,
                                         "--amg-root", amg_root, "--device",
                                         d, "--cnn-config-json",
-                                        json.dumps(CLI_CNN)])
-            walls[f"{mode} {d}"] = time.perf_counter() - t0
+                                        json.dumps(CLI_CNN)] + extra)
+            walls[f"{run} {d}"] = time.perf_counter() - t0
+            if linear_mc.launches:
+                raise AssertionError(f"al-cli {run} {d}: linear_mc launched "
+                                     "on a path without it")
             if len(picks[d]) != CLI_CNN_EPOCHS:
-                raise AssertionError(f"al-cli {mode} {d}: "
+                raise AssertionError(f"al-cli {run} {d}: "
                                      f"{len(picks[d])} selects")
             users = os.path.join(models, "users")
             (uid,) = os.listdir(users)
@@ -1781,28 +1886,305 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
             if (sorted(recs) != list(range(-1, CLI_CNN_EPOCHS))
                     or st.next_epoch != CLI_CNN_EPOCHS
                     or not os.path.exists(os.path.join(path, "DONE"))):
-                raise AssertionError(f"al-cli {mode} {d}: epochs "
+                raise AssertionError(f"al-cli {run} {d}: epochs "
                                      f"{sorted(recs)}, state {st.next_epoch}")
             for e, r in recs.items():
                 if (len(r["f1"]) != n_members
                         or not np.all(np.isfinite(r["f1"]))):
-                    raise AssertionError(f"al-cli {mode} {d} epoch {e}: "
+                    raise AssertionError(f"al-cli {run} {d} epoch {e}: "
                                          f"F1s {r['f1']}")
             files = sorted(os.listdir(path))
             if sum(f.startswith("classifier_") for f in files) != n_members:
-                raise AssertionError(f"al-cli {mode} {d}: members {files}")
-        near[mode] = _compare_slots(
+                raise AssertionError(f"al-cli {run} {d}: members {files}")
+            cnn_file = os.path.join(path, "classifier_cnn.cnn.it_0.npz")
+            if CNNMember.load(cnn_file, CNNConfig(**CLI_CNN),
+                              device="cpu").config.arch != arch:
+                raise AssertionError(f"al-cli {run} {d}: not {arch} members")
+        near[run] = _compare_slots(
             picks["cuda"][0], picks["cpu"][0],
-            f"al-cli {mode} iteration 0, card vs CPU", **CNN_TOL)
+            f"al-cli {run} iteration 0, card vs CPU", **CNN_TOL)
+    n_windows = ((CLI_CLIP_SAMPLES - CLI_CNN["input_length"])
+                 // CLI_FULL_SONG["hop"] + 1)
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_CNN_ARGS)} -m mc|qbdc "
           f"with {CLI_XGB} GBDT and {CLI_CNN_MEMBERS} vgg members ("
-          f"{CLI_CNN}) added to the registry, waveforms from npy/ "
-          f"({AMG_SONGS} clips of {CLI_CLIP_SAMPLES} samples, written in "
-          f"{npy_s:.1f} s): every epoch on the card and on the CPU, "
-          f"{n_members} finite F1s, state and DONE written; iteration 0 "
-          f"card vs CPU: slot values within {CNN_TOL}, slots naming another"
-          f" song {near}; wall s " +
-          ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+          f"{CLI_CNN}) added to the registry, and -m mc with "
+          f"{CLI_FULL_SONG['arch']} members and --full-song-hop "
+          f"{CLI_FULL_SONG['hop']} ({n_windows} windows a song), waveforms "
+          f"from npy/ ({AMG_SONGS} clips of {CLI_CLIP_SAMPLES} samples, "
+          f"written in {npy_s:.1f} s): every "
+          f"epoch on the card and on the CPU, {n_members} finite F1s, state "
+          f"and DONE written, linear_mc launches 0; iteration 0 card vs CPU:"
+          f" slot values within {CNN_TOL}, slots naming another song {near};"
+          f" wall s " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+
+# -- slice 6: the other trunk families and full-song scoring ---------------
+
+
+def param_slice(variables, name):
+    """Where ``name`` sits in ``train_step_grads``' flat gradient."""
+    lo = 0
+    for k in sorted(k for k in variables if not short_cnn.is_stat(k)):
+        n = variables[k].numel()
+        if k == name:
+            return slice(lo, lo + n)
+        lo += n
+    raise KeyError(name)
+
+
+def trunk_at_full_width(card, arch, stores, ids, labels, seed):
+    """One trunk family at full width on the card against the CPU port,
+    as phase 13 holds vgg."""
+    cfg, tc = CNNConfig(arch=arch), TrainConfig()
+    members = [CNNMember(f"{arch}.it_{i}", short_cnn.init_variables(
+        prng.key(seed + i, "cpu"), cfg, "cuda"), cfg)
+        for i in range(CNN_MEMBERS)]
+    committee = Committee([], members, cfg, tc, device="cuda")
+    cpu_vars = [short_cnn.init_variables(prng.key(seed + i, "cpu"), cfg,
+                                         "cpu")
+                for i in range(CNN_CHECK_MEMBERS)]
+    # the initializer's draws (Flax's, C12) are the same on both devices
+    n_diff = sum(int((members[i].variables[k].cpu() != v[k]).sum())
+                 for i, v in enumerate(cpu_vars) for k in v)
+    if n_diff:
+        raise AssertionError(f"trunks {arch}: init_variables differs in "
+                             f"{n_diff} entries between card and CPU")
+    key = prng.key(seed, "cpu")
+    rows = stores["cuda"].row_of(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p = committee.predict_songs_cnn(stores["cuda"], ids, key).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    if p.shape != (CNN_MEMBERS, CNN_CROPS, C) or not (
+            np.all(np.isfinite(p)) and p.min() > 0 and p.max() < 1):
+        raise AssertionError(f"trunks {arch}: forward scores {p.shape} out "
+                             "of (0, 1)")
+    fwd_ms = time_ms(lambda: committee.predict_songs_cnn(
+        stores["cuda"], ids, key), reps=TRUNK_REPS)
+    per_crop_ms = fwd_ms / (CNN_MEMBERS * CNN_CROPS)
+    flop, n_bytes = cnn_work(cfg, CNN_CROPS)
+    bound_ms = max(flop / PEAK_F32_FLOP_S, n_bytes / PEAK_BYTES_S) * 1e3 \
+        / CNN_CROPS
+    crops = {d: committee._bucketed_crops(stores[d], rows, key)
+             for d in ("cuda", "cpu")}
+    if not torch.equal(crops["cuda"].cpu(), crops["cpu"]):
+        raise AssertionError(f"trunks {arch}: card and CPU crops differ")
+    sub = {d: c[:CNN_CHECK_CROPS] for d, c in crops.items()}
+    ref = short_cnn.committee_infer(cpu_vars, sub["cpu"], cfg).numpy()
+    errs = {"scores": float(np.abs(p[:CNN_CHECK_MEMBERS, :CNN_CHECK_CROPS]
+                                   - ref).max())}
+    np.testing.assert_allclose(p[:CNN_CHECK_MEMBERS, :CNN_CHECK_CROPS], ref,
+                               **CNN_TOL, err_msg=f"trunks {arch}: scores")
+    with torch.no_grad():
+        f_got = short_cnn.apply_features(members[0].variables, sub["cuda"],
+                                         cfg).cpu().numpy()
+    f_ref = short_cnn.apply_features(cpu_vars[0], sub["cpu"], cfg).numpy()
+    errs["features"] = float(np.abs(f_got - f_ref).max())
+    np.testing.assert_allclose(f_got, f_ref, **FEAT_TOL,
+                               err_msg=f"trunks {arch}: features")
+    q_crops, mask_keys = committee._qbdc_stage(stores["cuda"], rows, key,
+                                               QBDC_K)
+    q_ref_crops = committee._bucketed_crops(stores["cpu"], rows,
+                                            prng.split(key)[0])
+    if not torch.equal(q_crops.cpu(), q_ref_crops):
+        raise AssertionError(f"trunks {arch}: qbdc crops differ")
+    with torch.no_grad():
+        q_got = short_cnn.qbdc_infer(members[0].variables,
+                                     q_crops[:CNN_CHECK_CROPS], mask_keys,
+                                     cfg).cpu().numpy()
+    q_ref = short_cnn.qbdc_infer(cpu_vars[0], q_ref_crops[:CNN_CHECK_CROPS],
+                                 mask_keys, cfg).numpy()
+    errs["qbdc"] = float(np.abs(q_got - q_ref).max())
+    np.testing.assert_allclose(q_got, q_ref, **CNN_TOL,
+                               err_msg=f"trunks {arch}: qbdc")
+    # one float64 training step's gradient, card against CPU
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    step_y = torch.from_numpy(one_hot_np(labels[:tc.batch_size])).double()
+    dk = prng.key(seed + 1, "cpu")
+    loss_c, g_c = train_step_grads(
+        {k: t.double() for k, t in members[0].variables.items()},
+        crops["cuda"][:tc.batch_size].double(), step_y.cuda(), dk, cfg64)
+    loss_h, g_h = train_step_grads(
+        {k: t.double() for k, t in cpu_vars[0].items()},
+        crops["cpu"][:tc.batch_size].double(), step_y, dk, cfg64)
+    errs["grad64"] = float((g_c - g_h).norm() / g_h.norm())
+    if abs(loss_c - loss_h) > 1e-5 or errs["grad64"] > GRAD64_REL_TOL:
+        raise AssertionError(f"trunks {arch}: a float64 training step, card"
+                             f" vs CPU: losses {loss_c} / {loss_h}, "
+                             f"gradient relative L2 {errs['grad64']}")
+    if arch == "harm":
+        at = param_slice(cpu_vars[0], "bw_q")
+        bw_c, bw_h = float(g_c[at]), float(g_h[at])
+        errs["bw_q_grad"] = abs(bw_c - bw_h) / abs(bw_h)
+        if bw_h == 0 or errs["bw_q_grad"] > GRAD64_REL_TOL:
+            raise AssertionError(f"trunks harm: bw_q's gradient {bw_c} "
+                                 f"(card) / {bw_h} (CPU)")
+    # fit_many, card (CNN_CHECK_MEMBERS) against CPU (the first)
+    tr, te = ids[:FIT_SONGS], ids[FIT_SONGS:FIT_SONGS + FIT_TEST_SONGS]
+    y_tr, y_te = one_hot_np(labels[tr]), one_hot_np(labels[te])
+    fkey = prng.key(seed + 2, "cpu")
+    trainers = {d: CNNTrainer(cfg, tc) for d in ("cuda", "cpu")}
+    trainers["cuda"].fit(members[0].variables, stores["cuda"], tr, y_tr, te,
+                         y_te, fkey, n_epochs=1)  # cuDNN's first calls
+    for t in trainers.values():
+        t.draws = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = trainers["cuda"].fit_many(
+        [m.variables for m in members[:CNN_CHECK_MEMBERS]], stores["cuda"],
+        tr, y_tr, te, y_te, fkey, n_epochs=TRUNK_FIT_EPOCHS)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3 / (
+        CNN_CHECK_MEMBERS * TRUNK_FIT_EPOCHS)
+    _, hist_ref = trainers["cpu"].fit_many(
+        cpu_vars[:1], stores["cpu"], tr, y_tr, te, y_te, fkey,
+        n_epochs=TRUNK_FIT_EPOCHS)
+    for a, b in zip(trainers["cuda"].draws, trainers["cpu"].draws):
+        for k in ("perm", "starts", "test_starts", "dropout_keys"):
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"trunks {arch} fit: card and CPU {k} "
+                                     "differ")
+    errs["losses"] = 0.0
+    for e, er in zip(hist[0], hist_ref[0]):
+        for k in ("train_loss", "val_loss"):
+            errs["losses"] = max(errs["losses"], abs(e[k] - er[k]))
+            np.testing.assert_allclose(e[k], er[k], **FIT_TOL,
+                                       err_msg=f"trunks {arch} fit {k}")
+    f_fwd, _ = cnn_work(cfg)
+    epoch_bound = (f_fwd * (3 * FIT_SONGS + FIT_TEST_SONGS)
+                   / PEAK_F32_FLOP_S * 1e3)
+    print(f"[trunks] {arch} at full width ({cfg.n_channels} channels, "
+          f"{cfg.n_layers} layers, {cfg.input_length}-sample crops), "
+          f"{CNN_MEMBERS} members x {CNN_CROPS} crops on the card; "
+          f"{CNN_CHECK_MEMBERS} members x {CNN_CHECK_CROPS} crops against "
+          f"the CPU port, initial variables, crops and qbdc masks equal, max "
+          f"|err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (scores and qbdc {CNN_TOL}, features {FEAT_TOL}, gradient "
+          f"<= {GRAD64_REL_TOL}, losses {FIT_TOL})")
+    print(f"[trunks] {card}: {arch} forward {per_crop_ms:.5f} ms per crop "
+          f"per member (CUDA events, median of {TRUNK_REPS} passes of "
+          f"{CNN_MEMBERS} x {CNN_CROPS}), FLOP bound {bound_ms:.5f} ms "
+          f"({flop / CNN_CROPS:.4e} FLOP a crop at {PEAK_F32_FLOP_S:.3g} "
+          f"FLOP/s float32, {bound_ms / per_crop_ms:.1%}); retrain "
+          f"{epoch_ms:.3f} ms per member-epoch (host clock, FLOP bound "
+          f"{epoch_bound:.3f} ms); peak device memory {peak / 2**30:.2f} GiB"
+          " forward")
+    return {"per_crop_ms": per_crop_ms, "bound_ms": bound_ms,
+            "epoch_ms": epoch_ms, "peak_gib": peak / 2**30}
+
+
+def full_song_scoring(card):
+    """CNN_MEMBERS harm members scoring SONGS songs of mixed lengths on the
+    window grid on the card; SONG_CHECK songs x CNN_CHECK_MEMBERS members
+    against the CPU port."""
+    cfg = CNNConfig(arch="harm")
+    rng = np.random.default_rng(SEED + 40)
+    lengths = rng.integers(SONG_SECONDS[0] * 16000,
+                           SONG_SECONDS[1] * 16000 + 1, SONGS)
+    waves = {i: rng.standard_normal(int(n), np.float32) * np.float32(0.1)
+             for i, n in enumerate(lengths)}
+    ids = list(waves)
+    store = DeviceWaveformStore(waves, cfg.input_length, "cuda")
+    members = [CNNMember(f"harm.it_{i}", short_cnn.init_variables(
+        prng.key(SEED + 41 + i, "cpu"), cfg, "cuda"), cfg)
+        for i in range(CNN_MEMBERS)]
+    committee = Committee([], members, cfg, full_song_hop=SONG_HOP,
+                          device="cuda")
+    p = committee.predict_songs_cnn(store, ids, None).cpu().numpy()
+    if p.shape != (CNN_MEMBERS, SONGS, C) or not (
+            np.all(np.isfinite(p)) and p.min() > 0 and p.max() < 1):
+        raise AssertionError(f"full-song: scores {p.shape} out of (0, 1)")
+    ms = time_ms(lambda: committee.predict_songs_cnn(store, ids, None),
+                 reps=TRUNK_REPS)
+    _, valid = store.window_batch(store.row_of(ids), SONG_HOP)
+    n_valid = valid.sum(dim=1).cpu()
+    check = ids[:SONG_CHECK]
+    cpu_store = DeviceWaveformStore({i: waves[i] for i in check},
+                                    cfg.input_length, "cpu")
+    cpu_com = Committee([], [CNNMember(m.name, {
+        k: v.cpu() for k, v in m.variables.items()}, cfg)
+        for m in members[:CNN_CHECK_MEMBERS]], cfg, full_song_hop=SONG_HOP,
+        device="cpu")
+    ref = cpu_com.predict_songs_cnn(cpu_store, check, None).numpy()
+    got = p[:CNN_CHECK_MEMBERS, :SONG_CHECK]
+    err = float(np.abs(got - ref).max())
+    np.testing.assert_allclose(got, ref, **CNN_TOL,
+                               err_msg="full-song: card vs CPU")
+    windows = int(n_valid.sum())
+    print(f"[full-song] {card}: {CNN_MEMBERS} harm members, "
+          f"full_song_hop={SONG_HOP}, {SONGS} songs of "
+          f"{SONG_SECONDS[0]}-{SONG_SECONDS[1]} s ({store.n_windows(SONG_HOP)}"
+          f" windows a song on the grid, {int(n_valid.min())}-"
+          f"{int(n_valid.max())} valid, {windows} in all): "
+          f"{ms / SONGS:.3f} ms per song ({ms / windows / CNN_MEMBERS:.5f} ms"
+          f" per valid window per member; CUDA events, median of "
+          f"{TRUNK_REPS} passes); {SONG_CHECK} songs x {CNN_CHECK_MEMBERS} "
+          f"members against the CPU port: max |err| {err:.3e} ({CNN_TOL})")
+    return {"ms_per_song": ms / SONGS}
+
+
+def harm_al_run(card, user, host):
+    """Phase 14's user through ``ALLoop`` (mc) with 5 GaussianNB + 5 SGD
+    members and HARM_MEMBERS full-width harm members scoring full songs."""
+    cfg = CNNConfig(arch="harm")
+    cnns = [CNNMember(f"cnn.it_{i}", short_cnn.init_variables(
+        prng.key(SEED + 50 + i, "cpu"), cfg, "cuda"), cfg)
+        for i in range(HARM_MEMBERS)]
+    gnb_sgd = [m for m in host if isinstance(m, (GNBMember, SGDMember))]
+    data = UserData("amg-user", user["pool"], user["labels"],
+                    store=user["store"])
+    n_train = int(round(TRAIN_SIZE * USER_SONGS))
+    committee = Committee(copy.deepcopy(gnb_sgd), cnns, cfg,
+                          full_song_hop=HARM_HOP, device="cuda")
+    timer = IterTimer(None)
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "mc")
+        picks, _ = run_al_user("mc", committee, data, path, "cuda",
+                               HARM_EPOCHS, timer, HARM_RETRAIN)
+        recs = check_al_run("mc", path, data, n_train, HARM_EPOCHS,
+                            len(gnb_sgd) + HARM_MEMBERS, what="al-harm")
+    if len(picks) != HARM_EPOCHS:
+        raise AssertionError(f"al-harm: {len(picks)} selects")
+    iters = [r for r in timer.records if r["epoch"] >= 0]
+    st = {k: statistics.median(r.get(f"{k}_s", 0.0) for r in iters) * 1e3
+          for k in FULL_PHASES + ("iteration",)}
+    n_w = (CLIP_SAMPLES - cfg.input_length) // HARM_HOP + 1
+    print(f"[al-harm] {card}: ALLoop mc, one AMG1608 user ({USER_SONGS} "
+          f"songs of {CLIP_SAMPLES} samples, {FULL_SONGS} in the store on "
+          f"the card), {len(gnb_sgd)} GaussianNB/SGD + {HARM_MEMBERS} harm "
+          f"members scoring full songs (hop {HARM_HOP}, {n_w} windows a "
+          f"song), {HARM_EPOCHS} iterations of q={Q} and {HARM_RETRAIN} "
+          f"retrain epochs: queried songs disjoint, F1s finite, state "
+          f"committed; median ms per iteration (StepTimer, host clock, over "
+          f"{len(iters)}): " + ", ".join(
+              f"{k} {st[k]:.3f}" for k in FULL_PHASES + ("iteration",))
+          + f"; final mean F1 {recs[HARM_EPOCHS - 1]['mean_f1']:.4f}")
+    return st
+
+
+def phase_trunks(card, user, host):
+    """Phase 15: res, harm, se1d and musicnn at full width against the CPU
+    port; full-song scoring with harm members; the harm AL run.  None of
+    it launches a hand kernel."""
+    waves = make_waves(CNN_CROPS, CLIP_SAMPLES, SEED + 30)
+    stores = {d: DeviceWaveformStore(waves, CNNConfig().input_length, d)
+              for d in ("cuda", "cpu")}
+    labels = np.random.default_rng(SEED + 31).integers(0, C, CNN_CROPS)
+    linear_mc.launches = 0
+    out = {arch: trunk_at_full_width(card, arch, stores, list(waves),
+                                     labels, SEED + 32 + 10 * i)
+           for i, arch in enumerate(TRUNK_ARCHS)}
+    del stores
+    torch.cuda.empty_cache()
+    out["full-song"] = full_song_scoring(card)
+    torch.cuda.empty_cache()
+    out["al-harm"] = harm_al_run(card, user, host)
+    if linear_mc.launches:
+        raise AssertionError(f"trunks: {linear_mc.launches} linear_mc "
+                             "launches on a path without the kernel")
+    print(f"[trunks] linear_mc launches over phase 15: {linear_mc.launches}")
+    return out
 
 
 def main():
@@ -1838,8 +2220,13 @@ def main():
     phase_cnn(card)
     torch.cuda.empty_cache()
     lap("13")
-    phase_al_loop_full(card)
+    user = amg_user_on_card()
+    host = phase_al_loop_full(card, user)
     lap("14")
+    phase_trunks(card, user, host)
+    del user, host
+    torch.cuda.empty_cache()
+    lap("15")
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - t0:.1f}")

@@ -116,9 +116,12 @@ def mark_done(path: str) -> None:
 
 def load_committee(path: str, config: CNNConfig = CNNConfig(),
                    train_config: TrainConfig = TrainConfig(), *,
-                   device_members: bool = False, device=None) -> Committee:
+                   device_members: bool = False,
+                   full_song_hop: int | None = None,
+                   device=None) -> Committee:
     """Load every member file of a workspace into a ``Committee`` (CNN
-    members under ``config``, honouring their files' frontend), after
+    members under ``config``, honouring their files' frontend; scoring
+    full songs with ``full_song_hop``), after
     finishing or discarding a torn checkpoint.  A member file that fails to
     parse rolls the workspace back one generation once (the last-good
     snapshot) and loads again; without a snapshot the error propagates."""
@@ -130,7 +133,7 @@ def load_committee(path: str, config: CNNConfig = CNNConfig(),
     recover_workspace(path)
     try:
         return _load_committee_once(path, config, train_config,
-                                    device_members, device)
+                                    device_members, full_song_hop, device)
     except CheckpointCorruptError as e:
         if not rollback_workspace(path):
             raise
@@ -140,11 +143,12 @@ def load_committee(path: str, config: CNNConfig = CNNConfig(),
                       "to the previous generation - one AL iteration will "
                       "be replayed")
         return _load_committee_once(path, config, train_config,
-                                    device_members, device)
+                                    device_members, full_song_hop, device)
 
 
 def _load_committee_once(path: str, config, train_config,
-                         device_members: bool, device) -> Committee:
+                         device_members: bool, full_song_hop, device
+                         ) -> Committee:
     members, cnns = [], []
     for fname in member_files(path):
         full = os.path.join(path, fname)
@@ -160,4 +164,5 @@ def _load_committee_once(path: str, config, train_config,
     if not members and not cnns:
         raise FileNotFoundError(f"no committee members in {path}")
     return Committee(members, cnns, config, train_config,
-                     device_members=device_members, device=device)
+                     device_members=device_members,
+                     full_song_hop=full_song_hop, device=device)

@@ -10,8 +10,9 @@ done (a rerun skips done users and resumes a partial one).  The registry
 holds the port's member files (``convert.registry_from_jax`` makes them
 from a JAX registry); when it holds CNN members, the waveforms come from
 ``{amg_root}/npy/{song_id}.npy`` into a store on the device, and qbdc
-runs.  The fleet, serve, fabric, mesh and distributed modes of the JAX
-CLI are not ported, nor ``--full-song-hop`` (ROADMAP A8).
+runs; ``--cnn-arch`` names the members' trunk family (any of the five)
+and ``--full-song-hop`` scores whole songs on a window grid.  The fleet,
+serve, fabric, mesh and distributed modes of the JAX CLI are not ported.
 """
 
 from __future__ import annotations
@@ -71,9 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cnn-config-json", default=None, metavar="JSON",
                    help="CNNConfig field overrides as a JSON object (must "
                         "match the pre-trained geometry)")
+    p.add_argument("--full-song-hop", type=int, default=None, metavar="HOP",
+                   help="CNN members score each song as the deterministic "
+                        "mean over stride-HOP windows covering the whole "
+                        "waveform, instead of one random crop per pass")
     p.add_argument("--cnn-arch", default=None, choices=CNN_ARCHS,
-                   help="trunk family of the pre-trained CNN committee "
-                        "(the port runs vgg; the others are ROADMAP A8)")
+                   help="trunk family of the pre-trained CNN committee")
     add_path_args(p)
     add_device_arg(p)
     return p
@@ -112,9 +116,13 @@ def main(argv=None) -> int:
         files = workspace.member_files(paths.pretrained_dir)
         cnn_cfg = resolve_cnn_config(args.cnn_config_json,
                                      arch=args.cnn_arch)
-    except (workspace.UnportedMemberError, NotImplementedError,
-            ValueError) as e:
+    except (workspace.UnportedMemberError, ValueError) as e:
         print(f"cannot personalize this registry: {e}")
+        return 1
+    if args.full_song_hop is not None and not (
+            1 <= args.full_song_hop <= cnn_cfg.input_length):
+        print(f"--full-song-hop must be in [1, input_length="
+              f"{cnn_cfg.input_length}], got {args.full_song_hop}")
         return 1
     has_cnn = any(f.startswith("classifier_cnn.") for f in files)
     if args.mode == "qbdc" and not has_cnn:
@@ -179,7 +187,7 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
             continue
         committee = workspace.load_committee(
             user_path, cnn_cfg, device_members=args.device_members,
-            device=device)
+            full_song_hop=args.full_song_hop, device=device)
         sub_pool, labels = amg.user_pool(pool, anno, u_id)
         data = UserData(u_id, sub_pool, labels,
                         hc_rows=hc_table.rows_for(sub_pool.song_ids),

@@ -3,9 +3,8 @@
 Counterpart of ``consensus_entropy_tpu/config.py``: the label codec, the
 openSMILE feature slice, ``PathsConfig``, ``ALConfig`` and
 ``ScoringConfig``, ``CNNConfig`` and ``TrainConfig``, with the same
-defaults and checks.  ``CNNConfig`` keeps every field of the JAX one, so
-its configurations load; the trunk families other than ``vgg`` wait for
-ROADMAP A8.
+defaults and checks (each trunk family's geometry check, with the JAX
+package's messages).
 """
 
 from __future__ import annotations
@@ -90,7 +89,7 @@ class PathsConfig:
         return os.path.join(self.amg_root, "anno", "1608_song_id.mat")
 
 
-#: the trunk families of the JAX package; only ``vgg`` is ported
+#: the trunk families (``models/short_cnn.py``)
 CNN_ARCHS = ("vgg", "res", "harm", "se1d", "musicnn")
 
 
@@ -116,9 +115,12 @@ class CNNConfig:
     #: float32
     compute_dtype: str = "float32"
     #: the trunk family: ``vgg`` is the paper's ShortChunkCNN (conv, BN,
-    #: ReLU, max pool blocks); the others (ROADMAP A8) are refused
+    #: ReLU, max pool blocks); ``res`` stride-2 residual blocks; ``harm``
+    #: the vgg blocks over the learnable harmonic frontend; ``se1d``
+    #: squeeze-excitation 1-D blocks on the raw waveform; ``musicnn``
+    #: multi-shape front-end and a temporal mid-end
     arch: str = "vgg"
-    #: the ``harm`` frontend's geometry, kept so its configurations load
+    #: the ``harm`` frontend's geometry
     n_harmonic: int = 6
     semitone_scale: int = 2
     bw_q_init: float = 1.0
@@ -127,22 +129,56 @@ class CNNConfig:
         if self.arch not in CNN_ARCHS:
             raise ValueError(f"arch must be one of {CNN_ARCHS}; got "
                              f"{self.arch!r}")
-        if self.arch != "vgg":
-            raise NotImplementedError(
-                f"the {self.arch!r} trunk family is not ported yet (ROADMAP "
-                "A8); the port runs arch='vgg'")
         if self.compute_dtype not in ("float32", "bfloat16", "float64"):
             raise ValueError(f"compute_dtype must be 'float32', 'bfloat16' "
                              f"or 'float64'; got {self.compute_dtype!r}")
-        # the pooling pyramid must not collapse a dimension to zero
-        f, t = self.n_mels, self.n_frames
+        if self.arch == "res":
+            return  # stride-2 convs ceil-halve dims; they never hit zero
+        if self.arch == "musicnn":
+            # the front-end keeps time; the mid-end halves it a layer
+            t = self.n_frames
+            for layer in range(self.n_layers):
+                t //= 2
+                if t == 0:
+                    raise ValueError(
+                        f"musicnn geometry collapses at mid-end layer "
+                        f"{layer + 1}: input_length={self.input_length} "
+                        f"survives only {layer} of {self.n_layers} 2x pools")
+            return
+        if self.arch == "se1d":
+            # the stride-3 stem and a 3x max pool a block divide time by 3
+            t = self.input_length // 3
+            for layer in range(self.n_layers):
+                t //= 3
+                if t == 0:
+                    raise ValueError(
+                        f"se1d geometry collapses at block {layer + 1}: "
+                        f"input_length={self.input_length} survives only "
+                        f"{layer} of {self.n_layers} 3x pools after the "
+                        f"stride-3 stem")
+            return
+        # the pooling pyramid must not collapse a dimension to zero; the
+        # harm frontend's frequency axis is its note grid, not n_mels
+        freq = self.n_mels if self.arch == "vgg" else self.harm_level
+        f, t = freq, self.n_frames
         for layer in range(self.n_layers):
             f, t = f // 2, t // 2
             if f == 0 or t == 0:
                 raise ValueError(
                     f"CNN geometry collapses at layer {layer + 1}: "
-                    f"freq={self.n_mels}, input_length={self.input_length} "
+                    f"freq={freq}, input_length={self.input_length} "
                     f"survive only {layer} of {self.n_layers} 2x2 pools")
+
+    @property
+    def harm_level(self) -> int:
+        """Frequency-axis height of the ``harm`` frontend (its note grid;
+        128 at the default rate, harmonics and scale, as n_mels)."""
+        from consensus_entropy_tpu_torch.ops.harmonic import (
+            harmonic_center_freqs,
+        )
+
+        return harmonic_center_freqs(self.sample_rate, self.n_harmonic,
+                                     self.semitone_scale)[1]
 
     @property
     def n_frames(self) -> int:

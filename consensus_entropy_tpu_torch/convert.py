@@ -6,7 +6,8 @@ Inputs are array-likes (numpy arrays, or JAX arrays, which ``np.asarray``
 reads without this module importing JAX), the JAX package's pickles of
 fitted scikit-learn estimators and boosted trees, read by attribute, and
 its ``CETPU1`` CNN checkpoints, whose msgpack payload a small reader here
-decodes (no msgpack or Flax import).
+decodes (no msgpack or Flax import), and the reference's own
+ShortChunkCNN ``state_dict``s.
 """
 
 from __future__ import annotations
@@ -268,47 +269,109 @@ def workspace_from_jax(src: str, dst: str, config=None) -> list[str]:
 def cnn_variables_from_jax(variables, config=None, device=None) -> dict:
     """A Flax ShortChunkCNN's ``{"params", "batch_stats"}`` (arrays or
     nested dicts of them, as ``flax.serialization`` restores them) -> the
-    port's variables (``models.short_cnn.variable_shapes`` names), float32
-    on ``device``: conv kernels HWIO -> OIHW, dense kernels ``(in, out)``
-    -> ``(out, in)``, BatchNorm ``scale``/``bias``/``mean``/``var`` ->
+    port's variables (``models.short_cnn.variable_shapes`` names, every
+    trunk family), float32 on ``device``: each layer read at its Flax path
+    (``short_cnn.layers``), kernels ``(*spatial, in, out)`` -> ``(out, in,
+    *spatial)``, BatchNorm ``scale``/``bias``/``mean``/``var`` ->
     ``weight``/``bias``/``running_mean``/``running_var``."""
     from consensus_entropy_tpu_torch.config import CNNConfig
-    from consensus_entropy_tpu_torch.models.short_cnn import variable_shapes
+    from consensus_entropy_tpu_torch.models import short_cnn
 
     config = CNNConfig() if config is None else config
     params, stats = variables["params"], variables["batch_stats"]
 
-    def arr(a):
-        return np.asarray(a, np.float32)
+    def at(tree, path):
+        for name in path:
+            tree = tree[name]
+        return np.asarray(tree, np.float32)
 
     out = {}
+    for layer in short_cnn.layers(config):
+        p = layer.path
+        if layer.kind == "param":
+            out[layer.name] = at(params, p)
+        elif layer.kind == "bn":
+            for ours, (tree, leaf) in zip(short_cnn.BN_FIELDS, (
+                    (params, "scale"), (params, "bias"), (stats, "mean"),
+                    (stats, "var"))):
+                out[f"{layer.name}.{ours}"] = at(tree, p + (leaf,))
+        else:
+            out[f"{layer.name}.weight"] = short_cnn.kernel_from_flax(
+                at(params, p + ("kernel",)))
+            out[f"{layer.name}.bias"] = at(params, p + ("bias",))
+    return _checked(out, config, device)
 
-    def bn(prefix, p, s):
-        out[f"{prefix}.weight"] = arr(p["scale"])
-        out[f"{prefix}.bias"] = arr(p["bias"])
-        out[f"{prefix}.running_mean"] = arr(s["mean"])
-        out[f"{prefix}.running_var"] = arr(s["var"])
 
-    bn("spec_bn", params["spec_bn"], stats["spec_bn"])
-    for i in range(config.n_layers):
-        blk = f"ConvBlock_{i}"
-        out[f"blocks.{i}.conv.weight"] = arr(
-            params[blk]["Conv_0"]["kernel"]).transpose(3, 2, 0, 1)
-        out[f"blocks.{i}.conv.bias"] = arr(params[blk]["Conv_0"]["bias"])
-        bn(f"blocks.{i}.bn", params[blk]["BatchNorm_0"],
-           stats[blk]["BatchNorm_0"])
-    for name in ("dense1", "dense2"):
-        out[f"{name}.weight"] = arr(params[name]["kernel"]).T
-        out[f"{name}.bias"] = arr(params[name]["bias"])
-    bn("head_bn", params["head_bn"], stats["head_bn"])
+def _checked(arrays: dict, config, device) -> dict:
+    """``arrays`` as float32 tensors on ``device`` in
+    ``short_cnn.variable_shapes`` order; raises unless the names and
+    shapes are those of ``config``."""
+    from consensus_entropy_tpu_torch.models.short_cnn import variable_shapes
+
     shapes = variable_shapes(config)
-    got = {k: v.shape for k, v in out.items()}
+    got = {k: tuple(v.shape) for k, v in arrays.items()}
     if got != shapes:
         raise ValueError(f"the variables do not fit {config}: "
                          f"{sorted(set(got.items()) ^ set(shapes.items()))}")
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(out[k], np.float32)).to(dev)
+    return {k: torch.from_numpy(np.array(arrays[k], np.float32)).to(dev)
             for k in shapes}
+
+
+def cnn_variables_from_reference(state, config=None, device=None) -> dict:
+    """The reference's ShortChunkCNN ``state_dict`` (torch tensors or
+    arrays: ``spec_bn``, ``layer{i}.conv``/``layer{i}.bn``, ``dense1``,
+    ``bn``, ``dense2``) -> the port's vgg variables on ``device``, names
+    mapped and no transpose (both are torch layouts); the counterpart of
+    JAX ``utils/torch_import.py::import_torch_shortchunk``, with its
+    checks.  The ``spec.*`` buffers (the mel filterbank the reference
+    ships) are dropped: the port computes it from the config, and its
+    shape must match the config's mel geometry; ``num_batches_tracked``
+    has no counterpart."""
+    from consensus_entropy_tpu_torch.config import CNNConfig
+    from consensus_entropy_tpu_torch.models.short_cnn import variable_shapes
+
+    config = CNNConfig() if config is None else config
+    if config.arch != "vgg":
+        raise ValueError("reference checkpoints are the vgg ShortChunkCNN; "
+                         f"config.arch is {config.arch!r}")
+
+    def arr(t):
+        return np.asarray(t.detach().cpu().numpy()
+                          if isinstance(t, torch.Tensor) else t, np.float32)
+
+    layers = sorted({int(k.split(".")[0][5:]) for k in state
+                     if k.startswith("layer")})
+    if layers != list(range(1, config.n_layers + 1)):
+        raise ValueError(f"checkpoint has conv layers {layers}; config "
+                         f"expects 1..{config.n_layers}")
+    fb = state.get("spec.mel_scale.fb")
+    if fb is not None:
+        want = (config.n_fft // 2 + 1, config.n_mels)
+        if tuple(fb.shape) != want:
+            raise ValueError(
+                f"checkpoint mel filterbank is {tuple(fb.shape)}; config "
+                f"(n_fft={config.n_fft}, n_mels={config.n_mels}) expects "
+                f"{want}")
+    names = {"spec_bn": "spec_bn", "dense1": "dense1", "head_bn": "bn",
+             "dense2": "dense2"}
+    for i, width in enumerate(config.channel_widths):
+        kernel = state[f"layer{i + 1}.conv.weight"]
+        if kernel.shape[0] != width:
+            raise ValueError(
+                f"layer{i + 1} has {kernel.shape[0]} output channels; "
+                f"config expects {width} (n_channels={config.n_channels})")
+        names[f"blocks.{i}.conv"] = f"layer{i + 1}.conv"
+        names[f"blocks.{i}.bn"] = f"layer{i + 1}.bn"
+    n_class = state["dense2.bias"].shape[0]
+    if n_class != config.n_class:
+        raise ValueError(f"checkpoint head has {n_class} classes; config "
+                         f"expects {config.n_class}")
+    out = {}
+    for name in variable_shapes(config):
+        prefix, field = name.rsplit(".", 1)
+        out[name] = arr(state[f"{names[prefix]}.{field}"])
+    return _checked(out, config, device)
 
 
 _CETPU_MAGIC = b"CETPU1\n"

@@ -1,12 +1,13 @@
-"""Waveform storage on the device and random-crop sampling.
+"""Waveform storage and random-crop sampling.
 
-Counterpart of ``consensus_entropy_tpu/data/audio.py:28-119``.  The pool's
+Counterpart of ``consensus_entropy_tpu/data/audio.py``.  The pool's
 waveforms sit zero-padded in one ``(n_songs, max_len)`` float32 tensor on
 the device; a crop starts at ``floor(u * (len - L))`` with ``u`` from
 ``prng.uniform`` (the reference's ``short_cnn.py:376``), so crops equal
-the JAX package's for the same key.  The stride-window grid
-(``window_batch``, ``--full-song-hop``) and ``HostWaveformStore`` wait for
-ROADMAP A8.
+the JAX package's for the same key.  ``window_batch`` cuts the stride
+grid of full-song scoring (``--full-song-hop``).  ``HostWaveformStore``
+keeps the waveforms in host memory (optionally memory-mapped) for crop
+and window scoring of pools larger than the device; it cannot train.
 """
 
 from __future__ import annotations
@@ -93,10 +94,22 @@ class DeviceWaveformStore:
         return self.crops_at(rows, crop_starts(u, self.lengths[rows],
                                                self.input_length))
 
+    def n_windows(self, hop: int) -> int:
+        """Windows of the stride grid at the store's longest song."""
+        return (self.data.shape[1] - self.input_length) // int(hop) + 1
+
     def window_batch(self, rows, hop: int):
-        raise NotImplementedError(
-            "the stride-window grid (full-song scoring) is not ported yet "
-            "(ROADMAP A8)")
+        """``(R, W, input_length)`` stride-``hop`` windows and an ``(R, W)``
+        validity mask: a window is valid when it lies inside its song, so
+        window 0 always is (the store holds no song shorter than
+        ``input_length``)."""
+        rows = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        windows = self.data[rows].unfold(1, self.input_length, int(hop))
+        starts = torch.arange(self.n_windows(hop), device=self.device) * int(
+            hop)
+        valid = (starts[None, :] + self.input_length
+                 <= self.lengths[rows][:, None])
+        return windows, valid
 
 
 def device_store_from_npy(npy_dir: str, song_ids: Sequence,
@@ -110,9 +123,62 @@ def device_store_from_npy(npy_dir: str, song_ids: Sequence,
 
 
 class HostWaveformStore:
-    """Crop scoring from host memory, for pools larger than the device."""
+    """Crop and window scoring from host memory, for pools larger than the
+    device: ``{song_id}.npy`` waveforms (memory-mapped with ``mmap``),
+    each batch assembled in numpy and moved to ``device`` in one transfer
+    (``device=None`` is the card).  It cannot train (the trainer crops on
+    the device)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HostWaveformStore is not ported yet (ROADMAP A8); use "
-            "DeviceWaveformStore")
+    def __init__(self, npy_dir: str, song_ids: Sequence, input_length: int,
+                 mmap: bool = True, device=None):
+        self.input_length = int(input_length)
+        self.ids = list(song_ids)
+        self._row = {sid: i for i, sid in enumerate(self.ids)}
+        self._device = resolve_device(device)
+        mode = "r" if mmap else None
+        self._arrays = [np.load(os.path.join(npy_dir, f"{sid}.npy"),
+                                mmap_mode=mode) for sid in self.ids]
+        for sid, a in zip(self.ids, self._arrays):
+            if len(a) < input_length:
+                raise ValueError(f"waveform {sid} shorter than {input_length}")
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def row_of(self, song_ids: Sequence) -> np.ndarray:
+        return np.array([self._row[s] for s in song_ids], np.int64)
+
+    def sample_crops(self, key: torch.Tensor, rows) -> torch.Tensor:
+        """``(len(rows), input_length)`` random crops: the device store's
+        uniform draws, the start taken in numpy as the JAX host store
+        takes it (``floor(float32 u * (len - L))``)."""
+        rows = np.asarray(rows)
+        u = prng.uniform(key, (len(rows),), device="cpu").numpy()
+        out = np.empty((len(rows), self.input_length), np.float32)
+        for j, (r, uj) in enumerate(zip(rows, u)):
+            a = self._arrays[int(r)]
+            start = int(np.floor(uj * (len(a) - self.input_length)))
+            out[j] = a[start: start + self.input_length]
+        return torch.from_numpy(out).to(self.device)
+
+    def n_windows(self, hop: int) -> int:
+        max_len = max(len(a) for a in self._arrays)
+        return (max_len - self.input_length) // int(hop) + 1
+
+    def window_batch(self, rows, hop: int):
+        """The host-assembled ``DeviceWaveformStore.window_batch``: one
+        transfer for the windows, one for the mask."""
+        rows = np.asarray(rows)
+        n_w = self.n_windows(hop)
+        out = np.zeros((len(rows), n_w, self.input_length), np.float32)
+        valid = np.zeros((len(rows), n_w), bool)
+        for j, r in enumerate(rows):
+            a = self._arrays[int(r)]
+            for w in range(n_w):
+                s = w * int(hop)
+                if s + self.input_length <= len(a):
+                    out[j, w] = a[s: s + self.input_length]
+                    valid[j, w] = True
+        return (torch.from_numpy(out).to(self.device),
+                torch.from_numpy(valid).to(self.device))

@@ -5,12 +5,13 @@ Counterpart of ``consensus_entropy_tpu/models/committee.py``:
 ``FramePool`` (``:50-121``), the closed-form device slice
 (``DeviceMemberCommittee``; ``_device_member_probs`` ``:868-918``),
 ``CNNMember`` (``:126-206``) and ``Committee`` (``:365-1120, 1236-1325``),
-sequential path: quarantine, ``pool_probs`` over the CNN block, the host
-members and, with ``device_members=True``, the device slice; the qbdc
-dropout committee; the incremental host updates and the CNN retrain; the
-checkpoint snapshot.  The full-song window grid and the sequence-parallel
-scorer wait for ROADMAP A8, the cross-user device plans and the depth dial
-for the fleet scheduler (A9), meshes for A11.
+sequential path: quarantine, ``pool_probs`` over the CNN block (one
+random crop a song, or with ``full_song_hop`` the masked mean over the
+song's stride-window grid), the host members and, with
+``device_members=True``, the device slice; the qbdc dropout committee; the
+incremental host updates and the CNN retrain; the checkpoint snapshot.
+The cross-user device plans and the depth dial wait for the fleet
+scheduler (ROADMAP A9), meshes and the sequence-parallel scorer for A11.
 """
 
 from __future__ import annotations
@@ -277,6 +278,10 @@ class Committee:
     stay on the host (``committee.py:841-866``) and training stays on the
     host either way.  CNN members score and retrain on ``device`` (their
     variables are moved there); ``device=None`` is the card.
+
+    ``full_song_hop``: CNN members score each song as the masked mean over
+    its stride-``full_song_hop`` windows (deterministic, covering the
+    whole song) instead of one random crop a pass; qbdc keeps its crops.
     """
 
     #: the crop compile bucket of the JAX package (``Acquirer.
@@ -284,12 +289,15 @@ class Committee:
     #: of it, so a song's crop does not depend on the pool's width, and
     #: forwarded in bucket-wide slices
     CROP_BUCKET = 256
+    #: songs a window-grid forward takes (the last chunk padded by
+    #: repeating its last song), bounding the ``(chunk, W, L)`` windows
+    WINDOW_CHUNK = 8
 
     def __init__(self, host_members: list[Member], cnn_members=(),
                  config: CNNConfig = CNNConfig(),
                  train_config: TrainConfig = TrainConfig(), *,
                  device_members: bool = False, min_members: int = 1,
-                 device=None):
+                 full_song_hop: int | None = None, device=None):
         self.host_members = list(host_members)
         self.cnn_members = list(cnn_members)
         self.device_members = device_members
@@ -318,6 +326,12 @@ class Committee:
                                    for k, t in m.variables.items()}
                     m.ckpt_dirty, m.ckpt_clean_path = dirty, clean
         self.config = config
+        if full_song_hop is not None and not (
+                1 <= full_song_hop <= config.input_length):
+            raise ValueError(
+                f"full_song_hop must be in [1, input_length="
+                f"{config.input_length}], got {full_song_hop}")
+        self.full_song_hop = full_song_hop
         self.trainer = CNNTrainer(config, train_config)
         #: quarantine: a member whose update or predict raises, or whose
         #: probabilities go non-finite, leaves the run; the run aborts only
@@ -521,10 +535,14 @@ class Committee:
 
     def predict_songs_cnn(self, store, song_ids, key, *,
                           pad_to: int | None = None) -> torch.Tensor:
-        """``(M_cnn, n, C)`` CNN scores of one random crop a song, or
-        ``(M_cnn, pad_to, C)`` whose tail holds the bucket padding's extra
-        crops (``committee.py:1022-1100``, crop path).  The forward runs
-        in ``CROP_BUCKET``-wide slices, one member after another."""
+        """``(M_cnn, n, C)`` CNN scores, or ``(M_cnn, pad_to, C)`` whose
+        tail columns are padding (``committee.py:1022-1119``).  By default
+        one random crop a song under ``key``: the forward runs in
+        ``CROP_BUCKET``-wide slices, one member after another, and the
+        tail holds the bucket padding's extra crops.  With
+        ``full_song_hop``: the masked mean over each song's window grid,
+        ``WINDOW_CHUNK`` songs a forward, the tail repeating the last
+        song's column."""
         rows = store.row_of(song_ids)
         if pad_to is not None and pad_to < len(rows):
             raise ValueError(f"pad_to={pad_to} < n={len(rows)}")
@@ -532,14 +550,39 @@ class Committee:
         if len(rows) == 0:
             return torch.zeros((len(active), pad_to or 0,
                                 self.config.n_class), device=self.device)
-        crops = self._bucketed_crops(store, rows, key)
         variables = [m.variables for m in active]
         with torch.no_grad():
-            out = torch.cat([
-                short_cnn.committee_infer(
-                    variables, crops[lo: lo + self.CROP_BUCKET], self.config)
-                for lo in range(0, crops.shape[0], self.CROP_BUCKET)], dim=1)
+            if self.full_song_hop is None:
+                crops = self._bucketed_crops(store, rows, key)
+                out = torch.cat([
+                    short_cnn.committee_infer(
+                        variables, crops[lo: lo + self.CROP_BUCKET],
+                        self.config)
+                    for lo in range(0, crops.shape[0], self.CROP_BUCKET)],
+                    dim=1)
+            else:
+                out = torch.cat([self._windows_forward(
+                    variables, store, rows[lo: lo + self.WINDOW_CHUNK])
+                    for lo in range(0, len(rows), self.WINDOW_CHUNK)], dim=1)
         return _keep_columns(out, len(rows) if pad_to is None else pad_to)
+
+    def _windows_forward(self, variables, store, rows) -> torch.Tensor:
+        """``(M, len(rows), C)``: each member's scores of ``rows``' windows
+        averaged over the valid ones (``committee.py:260-268``), the chunk
+        padded to ``WINDOW_CHUNK`` songs and cut back."""
+        n = len(rows)
+        pad = self.WINDOW_CHUNK - n
+        if pad:
+            rows = np.concatenate([rows, np.repeat(rows[-1:], pad)])
+        windows, valid = store.window_batch(rows, self.full_song_hop)
+        r, w, length = windows.shape
+        probs = short_cnn.committee_infer(
+            variables, windows.reshape(r * w, length), self.config)
+        probs = probs.reshape(probs.shape[0], r, w, probs.shape[-1])
+        weight = valid.to(probs.dtype)
+        out = ((probs * weight[None, :, :, None]).sum(dim=2)
+               / weight.sum(dim=1)[None, :, None])
+        return out[:, :n]
 
     def _qbdc_stage(self, store, rows, key, k: int):
         """Split the pass's key into the crop and the mask streams, fire

@@ -1,17 +1,38 @@
-"""The paper's ShortChunkCNN (the ``vgg`` trunk) in PyTorch, NCHW.
+"""ShortChunkCNN and its four other trunk families in PyTorch, NCHW.
 
-Counterpart of the vgg path of ``consensus_entropy_tpu/models/short_cnn.py``
-(``ConvBlock`` ``:47-60``, ``ShortChunkCNN`` ``:173-260``, the apply
-functions ``:263-367``): log-mel frontend -> BatchNorm over the 1-channel
-spectrogram (``spec_bn``) -> 7 x [3x3 conv (pad 1) -> BN -> ReLU -> 2x2 max
-pool] with widths 128,128,256,256,256,256,512 -> global max over (freq,
-time) -> ``dense1`` -> ``head_bn`` -> ReLU -> dropout -> ``dense2`` ->
-sigmoid (the reference trains with BCE on one-hot targets).
+Counterpart of ``consensus_entropy_tpu/models/short_cnn.py`` (``ConvBlock``
+``:47-60``, ``ResBlock`` ``:62-88``, ``SEBlock1d`` ``:91-126``,
+``MusicnnFrontEnd`` ``:129-170``, ``ShortChunkCNN`` ``:173-260``, the apply
+functions ``:263-367``).  ``config.arch`` picks the trunk:
+
+- ``vgg`` (the paper's member): log-mel -> BatchNorm over the 1-channel
+  spectrogram (``spec_bn``) -> 7 x [3x3 conv (pad 1) -> BN -> ReLU -> 2x2
+  max pool] with widths 128,128,256,256,256,256,512;
+- ``res``: the same frontend, residual blocks with stride-2 downsampling
+  (conv s2 -> BN -> ReLU -> conv -> BN, plus a projected shortcut conv s2
+  -> BN, sum -> ReLU);
+- ``harm``: the vgg blocks over the learnable harmonic frontend
+  (``ops/harmonic.py``): the harmonics are input channels and the band Q
+  factor ``bw_q`` is a trained parameter;
+- ``se1d``: the raw waveform as ``(B, 1, L, 1)`` -> ``spec_bn`` -> a
+  stride-3 stem -> squeeze-excitation residual blocks, each ending in a
+  3x1 max pool;
+- ``musicnn``: vertical convs over 40% and 70% of the mel axis (max over
+  the rest) and horizontal 1-D convs of 32 and 64 frames over the mel
+  mean, concatenated on channels, then a temporal mid-end of 3x1 convs
+  and 2x1 pools.
+
+Every trunk ends in a global max over (freq, time) -> ``dense1`` ->
+``head_bn`` -> ReLU -> dropout -> ``dense2`` -> sigmoid (the reference
+trains with BCE on one-hot targets).
 
 A member's variables are one flat dict of tensors with ``state_dict``
-names (``blocks.{i}.conv.weight``, ``head_bn.running_var``, ...); the
-forward is a function of them, so a committee runs one set of code over
-many members and the trainer owns the BatchNorm statistics.
+names (``blocks.{i}.conv.weight``, ``res_blocks.{i}.bn_proj.running_var``,
+...); :func:`layers` maps each to its Flax module path, so the
+initializer draws each kernel under Flax's key and ``convert`` reads a
+Flax tree by the same table.  The forward is a function of the dict, so
+a committee runs one set of code over many members and the trainer owns
+the BatchNorm statistics.
 
 BatchNorm follows Flax, not ``torch.nn.BatchNorm``: the batch variance is
 ``max(0, E[x^2] - E[x]^2)``, biased, and the running statistics move as
@@ -28,12 +49,16 @@ statistics stay float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.config import CNNConfig
+from consensus_entropy_tpu_torch.ops.harmonic import harmonic_spectrogram
 from consensus_entropy_tpu_torch.ops.mel import log_mel_spectrogram
 
 BN_EPS = 1e-5
@@ -41,6 +66,10 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 #: the Flax path and call count of the one dropout layer's key
 DROPOUT_RNG_PATH = ("Dropout_0", 1)
+#: musicnn's vertical kernels span these fractions of the mel axis (7
+#: frames wide), its horizontal kernels these frame counts
+MUSICNN_V_FRACS, MUSICNN_V_WIDTH = (0.4, 0.7), 7
+MUSICNN_H_LENGTHS = (32, 64)
 
 
 @contextlib.contextmanager
@@ -58,33 +87,107 @@ def exact_float32():
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
-def _bn_names(prefix: str) -> list[str]:
-    return [f"{prefix}.{k}" for k in ("weight", "bias", "running_mean",
-                                      "running_var")]
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    """One layer's variables: ``kind`` ``conv`` or ``dense`` (``.weight``
+    in torch's layout, ``(out, in, *kernel)``, and ``.bias``), ``bn``
+    (``.weight``, ``.bias``, ``.running_mean``, ``.running_var``) or
+    ``param`` (the variable ``name`` itself); ``path`` is the Flax module
+    path of the layer (of the parameter, for ``param``)."""
+
+    name: str
+    kind: str
+    path: tuple
+    shape: tuple
+
+
+def layers(config: CNNConfig) -> list[Layer]:
+    """Every layer of ``config.arch``'s network, in forward order."""
+    out: list[Layer] = []
+
+    def conv(name, path, c_out, c_in, *kernel):
+        out.append(Layer(name, "conv", path, (c_out, c_in, *kernel)))
+
+    def bn(name, path, n):
+        out.append(Layer(name, "bn", path, (n,)))
+
+    widths = config.channel_widths
+    if config.arch == "se1d":
+        bn("spec_bn", ("spec_bn",), 1)
+        conv("stem", ("stem",), widths[0], 1, 3, 1)
+        bn("stem_bn", ("stem_bn",), widths[0])
+        c_in = widths[0]
+        for i, w in enumerate(widths):
+            blk, p = f"SEBlock1d_{i}", f"se_blocks.{i}"
+            conv(f"{p}.conv1", (blk, "conv1"), w, c_in, 3, 1)
+            bn(f"{p}.bn1", (blk, "bn1"), w)
+            conv(f"{p}.conv2", (blk, "conv2"), w, w, 3, 1)
+            bn(f"{p}.bn2", (blk, "bn2"), w)
+            for d in ("se_dense1", "se_dense2"):
+                out.append(Layer(f"{p}.{d}", "dense", (blk, d), (w, w)))
+            if c_in != w:  # the projected shortcut on a width change
+                conv(f"{p}.conv_proj", (blk, "conv_proj"), w, c_in, 3, 1)
+                bn(f"{p}.bn_proj", (blk, "bn_proj"), w)
+            c_in = w
+    elif config.arch == "musicnn":
+        bn("spec_bn", ("spec_bn",), 1)
+        fe, c = "MusicnnFrontEnd_0", config.n_channels
+        for i, frac in enumerate(MUSICNN_V_FRACS):
+            conv(f"musicnn.v{i}_conv", (fe, f"v{i}_conv"), c, 1,
+                 max(1, int(config.n_mels * frac)), MUSICNN_V_WIDTH)
+            bn(f"musicnn.v{i}_bn", (fe, f"v{i}_bn"), c)
+        for i, length in enumerate(MUSICNN_H_LENGTHS):
+            conv(f"musicnn.h{i}_conv", (fe, f"h{i}_conv"), c, 1, length)
+            bn(f"musicnn.h{i}_bn", (fe, f"h{i}_bn"), c)
+        c_in = c * (len(MUSICNN_V_FRACS) + len(MUSICNN_H_LENGTHS))
+        for i, w in enumerate(widths):
+            conv(f"mid.{i}.conv", (f"mid{i}_conv",), w, c_in, 3, 1)
+            bn(f"mid.{i}.bn", (f"mid{i}_bn",), w)
+            c_in = w
+    else:
+        c_in = 1
+        if config.arch == "harm":
+            out.append(Layer("bw_q", "param", ("bw_q",), (1,)))
+            c_in = config.n_harmonic
+        bn("spec_bn", ("spec_bn",), c_in)
+        for i, w in enumerate(widths):
+            if config.arch == "res":
+                blk, p = f"ResBlock_{i}", f"res_blocks.{i}"
+                conv(f"{p}.conv1", (blk, "conv1"), w, c_in, 3, 3)
+                bn(f"{p}.bn1", (blk, "bn1"), w)
+                conv(f"{p}.conv2", (blk, "conv2"), w, w, 3, 3)
+                bn(f"{p}.bn2", (blk, "bn2"), w)
+                conv(f"{p}.conv_proj", (blk, "conv_proj"), w, c_in, 3, 3)
+                bn(f"{p}.bn_proj", (blk, "bn_proj"), w)
+            else:
+                blk = f"ConvBlock_{i}"
+                conv(f"blocks.{i}.conv", (blk, "Conv_0"), w, c_in, 3, 3)
+                bn(f"blocks.{i}.bn", (blk, "BatchNorm_0"), w)
+            c_in = w
+    d = widths[-1]
+    out.append(Layer("dense1", "dense", ("dense1",), (d, d)))
+    bn("head_bn", ("head_bn",), d)
+    out.append(Layer("dense2", "dense", ("dense2",), (config.n_class, d)))
+    return out
+
+
+BN_FIELDS = ("weight", "bias", "running_mean", "running_var")
+
+
+def layer_variables(layer: Layer) -> dict[str, tuple]:
+    """The layer's variable names and shapes."""
+    if layer.kind == "param":
+        return {layer.name: layer.shape}
+    if layer.kind == "bn":
+        return {f"{layer.name}.{f}": layer.shape for f in BN_FIELDS}
+    return {f"{layer.name}.weight": layer.shape,
+            f"{layer.name}.bias": layer.shape[:1]}
 
 
 def variable_shapes(config: CNNConfig) -> dict[str, tuple]:
     """Every variable's name and shape, in forward order."""
-    shapes = {}
-
-    def bn(prefix, n):
-        for name in _bn_names(prefix):
-            shapes[name] = (n,)
-
-    bn("spec_bn", 1)
-    c_in = 1
-    for i, width in enumerate(config.channel_widths):
-        shapes[f"blocks.{i}.conv.weight"] = (width, c_in, 3, 3)
-        shapes[f"blocks.{i}.conv.bias"] = (width,)
-        bn(f"blocks.{i}.bn", width)
-        c_in = width
-    d = config.channel_widths[-1]
-    shapes["dense1.weight"] = (d, d)
-    shapes["dense1.bias"] = (d,)
-    bn("head_bn", d)
-    shapes["dense2.weight"] = (config.n_class, d)
-    shapes["dense2.bias"] = (config.n_class,)
-    return shapes
+    return {k: v for layer in layers(config)
+            for k, v in layer_variables(layer).items()}
 
 
 def is_stat(name: str) -> bool:
@@ -93,28 +196,53 @@ def is_stat(name: str) -> bool:
     return ".running_" in name
 
 
-def init_variables(seed: int, config: CNNConfig = CNNConfig(),
+def kernel_from_flax(kernel) -> np.ndarray:
+    """A Flax kernel (``(*spatial, in, out)``: HWIO, or ``(in, out)``) in
+    torch's layout ``(out, in, *spatial)``."""
+    k = np.asarray(kernel, np.float32)
+    return np.ascontiguousarray(k.transpose(k.ndim - 1, k.ndim - 2,
+                                            *range(k.ndim - 2)))
+
+
+def _lecun_normal(key, shape: tuple, device) -> torch.Tensor:
+    """Flax's default kernel init, ``lecun_normal()`` in float32 for a
+    kernel of Flax's ``shape``: a normal truncated at two deviations,
+    times ``sqrt(1 / fan_in) / .87962566103423978``."""
+    fan_in = math.prod(shape[:-1])
+    stddev = (np.sqrt(np.float32(1.0 / fan_in))
+              / np.float32(.87962566103423978))
+    return prng.truncated_normal(key, -2, 2, shape, device) * float(
+        stddev)
+
+
+def init_variables(key: torch.Tensor, config: CNNConfig = CNNConfig(),
                    device=None) -> dict[str, torch.Tensor]:
-    """A member's variables, as Flax initializes them: LeCun-normal
-    kernels (truncated at two deviations), zero biases, BatchNorm scale 1,
-    bias 0, mean 0, variance 1; drawn from a torch generator seeded with
-    ``seed`` (not JAX's stream), on the CPU, then moved to ``device``."""
+    """A member's variables as the JAX ``init_variables(key)`` (Flax's
+    ``init``) makes them: each conv and dense kernel drawn in Flax's
+    layout under ``fold_in_static(key, *module_path, 1)`` (its module's
+    first draw), then put in torch's; biases 0, BatchNorm scale 1, bias 0,
+    mean 0, variance 1; ``bw_q`` at ``config.bw_q_init``.  ``key`` is a
+    threefry key (``prng.key(seed)``); the draws run on ``device``."""
     from consensus_entropy_tpu_torch.device import resolve_device
 
-    gen = torch.Generator().manual_seed(int(seed))
-    out = {}
-    for name, shape in variable_shapes(config).items():
-        t = torch.zeros(shape, dtype=torch.float32)
-        if name.endswith(("running_var", "bn.weight")):
-            t.fill_(1.0)
-        elif name.endswith("weight") and len(shape) > 1:
-            fan_in = int(torch.tensor(shape[1:]).prod())
-            std = (1.0 / fan_in) ** 0.5 / .87962566103423978
-            torch.nn.init.trunc_normal_(t, std=std, a=-2 * std,
-                                        b=2 * std, generator=gen)
-        out[name] = t
     dev = resolve_device(device)
-    return {k: v.to(dev) for k, v in out.items()}
+    out = {}
+    for layer in layers(config):
+        for name, shape in layer_variables(layer).items():
+            out[name] = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if layer.kind == "param":
+            out[layer.name].fill_(config.bw_q_init)
+        elif layer.kind == "bn":
+            out[f"{layer.name}.weight"].fill_(1.0)
+            out[f"{layer.name}.running_var"].fill_(1.0)
+        else:
+            flax_shape = (*layer.shape[2:], layer.shape[1], layer.shape[0])
+            kernel = _lecun_normal(
+                prng.fold_in_static(key, *layer.path, 1), flax_shape, dev)
+            n = kernel.ndim
+            out[f"{layer.name}.weight"] = kernel.permute(
+                n - 1, n - 2, *range(n - 2)).contiguous()
+    return out
 
 
 def _batch_norm(v, prefix, x, train, dtype, new_stats):
@@ -147,6 +275,89 @@ def _dense(v, prefix, x, dtype):
                     v[f"{prefix}.bias"].to(dtype))
 
 
+def _conv(v, prefix, x, dtype, **kw):
+    """A 2-D (or, for a 3-dim weight, 1-D) convolution in ``dtype``."""
+    w = v[f"{prefix}.weight"].to(dtype)
+    conv = F.conv1d if w.ndim == 3 else F.conv2d
+    return conv(x.to(dtype), w, v[f"{prefix}.bias"].to(dtype), **kw)
+
+
+class _Trunk:
+    """One forward's BatchNorm context: the variables, train mode, dtype
+    and the statistics a train-mode forward moves."""
+
+    def __init__(self, v, train, dtype):
+        self.v, self.train, self.dtype = v, train, dtype
+        self.new_stats: dict = {}
+
+    def bn(self, prefix, x):
+        return _batch_norm(self.v, prefix, x, self.train, self.dtype,
+                           self.new_stats)
+
+    def conv_bn(self, conv, bn, x, **kw):
+        """The convolution named ``conv``, then the BatchNorm ``bn``."""
+        return self.bn(bn, _conv(self.v, conv, x, self.dtype, **kw))
+
+
+def _vgg_blocks(t: _Trunk, s, config):
+    for i in range(config.n_layers):
+        s = t.conv_bn(f"blocks.{i}.conv", f"blocks.{i}.bn", s, padding=1)
+        s = F.max_pool2d(F.relu(s), 2)
+    return s
+
+
+def _res_blocks(t: _Trunk, s, config):
+    for i in range(config.n_layers):
+        p = f"res_blocks.{i}"
+        out = F.relu(t.conv_bn(f"{p}.conv1", f"{p}.bn1", s, stride=2,
+                               padding=1))
+        out = t.conv_bn(f"{p}.conv2", f"{p}.bn2", out, padding=1)
+        short = t.conv_bn(f"{p}.conv_proj", f"{p}.bn_proj", s, stride=2,
+                          padding=1)
+        s = F.relu(short + out)
+    return s
+
+
+def _se1d_trunk(t: _Trunk, x, config):
+    s = t.bn("spec_bn", x[:, None, :, None].to(t.dtype))  # (B, 1, L, 1)
+    s = F.relu(t.conv_bn("stem", "stem_bn", s, stride=(3, 1)))
+    for i in range(config.n_layers):
+        p = f"se_blocks.{i}"
+        out = F.relu(t.conv_bn(f"{p}.conv1", f"{p}.bn1", s, padding=(1, 0)))
+        out = t.conv_bn(f"{p}.conv2", f"{p}.bn2", out, padding=(1, 0))
+        se = F.relu(_dense(t.v, f"{p}.se_dense1", out.mean(dim=(2, 3)),
+                           t.dtype))
+        se = torch.sigmoid(_dense(t.v, f"{p}.se_dense2", se, t.dtype))
+        out = out * se[:, :, None, None]
+        if f"{p}.conv_proj.weight" in t.v:
+            s = t.conv_bn(f"{p}.conv_proj", f"{p}.bn_proj", s, padding=(1, 0))
+        s = F.max_pool2d(F.relu(s + out), (3, 1))
+    return s
+
+
+def _musicnn_trunk(t: _Trunk, s, config):
+    """``s``: the normalized log-mel image ``(B, 1, n_mels, T)``."""
+    branches = []
+    for i in range(len(MUSICNN_V_FRACS)):
+        v = F.relu(t.conv_bn(f"musicnn.v{i}_conv", f"musicnn.v{i}_bn", s,
+                             padding=(0, MUSICNN_V_WIDTH // 2)))
+        branches.append(v.amax(dim=2))  # max over the rest of the mel axis
+    avg = s.mean(dim=2)  # (B, 1, T)
+    for i, length in enumerate(MUSICNN_H_LENGTHS):
+        # Flax's SAME-like padding for an even kernel: one more before
+        pad = length // 2
+        h = F.pad(avg, (pad, pad - (length + 1) % 2))
+        branches.append(F.relu(t.conv_bn(f"musicnn.h{i}_conv",
+                                         f"musicnn.h{i}_bn", h)))
+    n_t = min(b.shape[-1] for b in branches)
+    s = torch.cat([b[..., :n_t] for b in branches], dim=1)[..., None]
+    for i in range(config.n_layers):  # the temporal mid-end, /2 per stage
+        s = F.relu(t.conv_bn(f"mid.{i}.conv", f"mid.{i}.bn", s,
+                             padding=(1, 0)))
+        s = F.max_pool2d(s, (2, 1))
+    return s
+
+
 def apply(variables: dict, x: torch.Tensor, config: CNNConfig = CNNConfig(),
           *, train: bool = False, dropout_key=None,
           features: bool = False):
@@ -157,24 +368,30 @@ def apply(variables: dict, x: torch.Tensor, config: CNNConfig = CNNConfig(),
     ``mutable=["batch_stats"]`` returns); in eval mode ``new_stats`` is
     empty.  Train mode draws the dropout mask from ``dropout_key`` as
     Flax's ``Dropout_0`` does."""
-    if config.arch != "vgg":
-        raise NotImplementedError(f"arch {config.arch!r} (ROADMAP A8)")
     dtype = getattr(torch, config.compute_dtype)
     v = variables
-    new_stats: dict = {}
+    t = _Trunk(v, train, dtype)
     with exact_float32():
-        s = log_mel_spectrogram(x, config)[:, None].to(dtype)
-        s = _batch_norm(v, "spec_bn", s, train, dtype, new_stats)
-        for i in range(config.n_layers):
-            s = F.conv2d(s, v[f"blocks.{i}.conv.weight"].to(dtype),
-                         v[f"blocks.{i}.conv.bias"].to(dtype), padding=1)
-            s = _batch_norm(v, f"blocks.{i}.bn", s, train, dtype, new_stats)
-            s = F.max_pool2d(F.relu(s), 2)
+        if config.arch == "se1d":
+            s = _se1d_trunk(t, x, config)
+        elif config.arch == "harm":
+            s = harmonic_spectrogram(
+                x, v["bw_q"], sample_rate=config.sample_rate,
+                n_fft=config.n_fft, hop_length=config.hop_length,
+                n_harmonic=config.n_harmonic,
+                semitone_scale=config.semitone_scale).to(dtype)
+            s = _vgg_blocks(t, t.bn("spec_bn", s), config)
+        else:
+            s = t.bn("spec_bn",
+                     log_mel_spectrogram(x, config)[:, None].to(dtype))
+            trunk = {"vgg": _vgg_blocks, "res": _res_blocks,
+                     "musicnn": _musicnn_trunk}[config.arch]
+            s = trunk(t, s, config)
         s = s.amax(dim=(2, 3))
         s = _dense(v, "dense1", s, dtype)
-        s = F.relu(_batch_norm(v, "head_bn", s, train, dtype, new_stats))
+        s = F.relu(t.bn("head_bn", s))
         if features:
-            return s, new_stats
+            return s, t.new_stats
         if train and config.dropout_rate > 0:
             keep = 1.0 - config.dropout_rate
             mask = prng.bernoulli(
@@ -182,7 +399,7 @@ def apply(variables: dict, x: torch.Tensor, config: CNNConfig = CNNConfig(),
                 tuple(s.shape), device=s.device)
             s = torch.where(mask, s / keep, torch.zeros_like(s))
         s = _dense(v, "dense2", s, dtype)
-        return torch.sigmoid(s.to(torch.float32)), new_stats
+        return torch.sigmoid(s.to(torch.float32)), t.new_stats
 
 
 def apply_infer(variables, x, config: CNNConfig = CNNConfig()):

@@ -4,10 +4,12 @@ The port's counterpart of the JAX threefry implementation
 (``jax/_src/prng.py``: ``threefry_2x32``, ``_threefry_seed``,
 ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_uniform``, ``_bernoulli``, ``_shuffle``) under
-``jax_threefry_partitionable=True``,
-the setting the JAX package runs with.  Draws depend on the key and on each
-element's flat index only, so they do not depend on the device.
+``_uniform``, ``_bernoulli``, ``_shuffle``, ``_truncated_normal``) under
+``jax_threefry_partitionable=True``, the setting the JAX package runs
+with.  Draws depend on the key and on each element's flat index only, so
+they do not depend on the device.  ``truncated_normal`` (Flax's LeCun-
+normal initialization) also reproduces XLA's float32 ``erf_inv`` on the
+CPU, with its contracted multiply-adds taken in float64.
 
 A key is a ``(2,)`` ``torch.uint32`` tensor, the same words as
 ``jax.random.key_data`` of the JAX key; a batch of keys is ``(..., 2)``.
@@ -147,16 +149,138 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape=(), dtype=torch.float32,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform`` on ``[0, 1)`` in float32: the top 23 random
-    bits as the mantissa of a float in ``[1, 2)``, minus 1 (JAX
-    ``_uniform``).  Other ranges are not ported: XLA fuses their scale and
-    shift into one multiply-add, which torch does not promise."""
+            device=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 (JAX ``_uniform``): the top 23
+    random bits as the mantissa of a float in ``[1, 2)``, minus 1, then
+    ``max(minval, floats * (maxval - minval) + minval)``.  XLA fuses that
+    multiply-add into one rounding (an FMA), so it is taken in float64 and
+    rounded once; on ``[0, 1)`` it changes nothing."""
     if dtype != torch.float32:
         raise TypeError(f"uniform draws float32 only, got {dtype}")
     hi, lo = _hash_iota(key, _shape(shape), device)
-    return ((((hi ^ lo) >> 9) | 0x3F800000).to(torch.int32)
-            .view(torch.float32) - 1.0)
+    floats = ((((hi ^ lo) >> 9) | 0x3F800000).to(torch.int32)
+              .view(torch.float32) - 1.0)
+    if (minval, maxval) == (0.0, 1.0):
+        return floats
+    lo_, span = np.float32(minval), np.float32(maxval) - np.float32(minval)
+    return torch.clamp(_fma(floats, float(span), float(lo_)),
+                       min=float(lo_))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as XLA's contracted
+    multiply-add on the CPU: float32 products are exact in float64."""
+    def f64(t):
+        return t.double() if isinstance(t, torch.Tensor) else t
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+#: Cephes' float32 log polynomial (XLA's own ``log`` on the CPU)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+#: Cephes' log1p rational approximation for ``|x| < sqrt(2) - 1``
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+#: Giles' float32 erf_inv polynomials, for ``w < 5`` and ``w >= 5``
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _f32(c: float) -> float:
+    return float(np.float32(c))
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.full_like(x, _f32(coeffs[0]))
+    for c in coeffs[1:]:
+        p = _fma(p, x, _f32(c))
+    return p
+
+
+def _log_xla(v: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` on the CPU for positive normal ``v``: the
+    mantissa shifted to ``[sqrt(1/2), sqrt(2))``, Cephes' polynomial in
+    three parts, its multiply-adds contracted as LLVM does there."""
+    bits = v.view(torch.int32)
+    e = ((bits >> 23) - 0x7E).to(torch.float32)
+    m = ((bits & 0x807FFFFF) | 0x3F000000).view(torch.float32)
+    shift = m < _f32(0.707106781186547524)
+    x = torch.where(shift, (m - 1.0) + m, m - 1.0)
+    e = torch.where(shift, e - 1.0, e)
+    x2 = x * x
+    x3 = x2 * x
+    c = [_f32(p) for p in _LOG_P]
+    y = _fma(_fma(c[0], x, c[1]), x, c[2])
+    y1 = _fma(_fma(c[3], x, c[4]), x, c[5])
+    y2 = _fma(_fma(c[6], x, c[7]), x, c[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _f32(_LOG_Q1) * e)
+    return _fma(_f32(_LOG_Q2), e, _fma(-0.5, x2, x) + y)
+
+
+def _log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log1p`` on the CPU, for ``x > -1``: Cephes'
+    rational approximation below ``|x| = sqrt(2) - 1``, ``log(1 + x)``
+    above."""
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (_horner(x, _LOG1P_NUM)
+                                         / _horner(x, _LOG1P_DEN)))
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+                       _log_xla(x + 1.0))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` on the CPU (Giles' polynomials in
+    ``w = -log1p(-x * x)``): bit for bit over truncated_normal's range
+    ``|x| <= erf(sqrt 2)``, within one ulp on the rest of (-1, 1), where
+    a float64-emulated multiply-add can round otherwise than the
+    contracted one.  ``torch.erfinv`` differs from it in two entries of
+    three."""
+    w = -_log1p_xla(-x * x)
+    lt5 = w < 5.0
+    w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt5, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, torch.where(lt5, _f32(a), _f32(b)))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+#: ``erf(bound / sqrt(2))`` in float32 as XLA computes it, for the bounds
+#: ``truncated_normal`` takes (bits 0x3F745A18 for 2; the tests pin them):
+#: ``torch.erf`` may differ from XLA's by an ulp
+ERF_OF_BOUND = {2.0: 0.9544997, -2.0: -0.9544997}
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape=(), device=None) -> torch.Tensor:
+    """``jax.random.truncated_normal`` in float32: a uniform draw between
+    ``erf(lower / sqrt 2)`` and ``erf(upper / sqrt 2)``, ``sqrt(2) *
+    erf_inv`` of it, clipped to the open interval ``(lower, upper)``.
+    The bounds are those of :data:`ERF_OF_BOUND` (LeCun-normal
+    initialization truncates at two deviations)."""
+    try:
+        a, b = ERF_OF_BOUND[float(lower)], ERF_OF_BOUND[float(upper)]
+    except KeyError:
+        raise ValueError(f"truncated_normal bounds must be among "
+                         f"{sorted(ERF_OF_BOUND)}, got ({lower}, {upper})"
+                         ) from None
+    u = uniform(key, shape, device=device, minval=a, maxval=b)
+    out = _f32(np.sqrt(2.0)) * erf_inv(u)
+    lo = np.nextafter(np.float32(lower), np.float32(np.inf))
+    hi = np.nextafter(np.float32(upper), np.float32(-np.inf))
+    return torch.clamp(out, min=float(lo), max=float(hi))
 
 
 def bernoulli(key: torch.Tensor, p=0.5, shape=None,

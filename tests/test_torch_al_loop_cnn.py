@@ -246,9 +246,13 @@ def test_cli_refuses_qbdc_without_cnn_and_unported_files(cli_trees,
              "--device", "cpu"]
     assert amg_test.main(AL + ["-m", "qbdc"] + flags) == 1
     assert "needs pre-trained CNN members" in capsys.readouterr().out
-    assert amg_test.main(AL + ["-m", "mc", "--cnn-arch", "res"]
+    assert amg_test.main(AL + ["-m", "mc", "--cnn-arch", "res",
+                               "--cnn-config-json", '{"arch": "vgg"}']
                          + flags) == 1
-    assert "ROADMAP A8" in capsys.readouterr().out
+    assert "drop one of them" in capsys.readouterr().out
+    assert amg_test.main(AL + ["-m", "mc", "--full-song-hop", "0"]
+                         + flags) == 1
+    assert "--full-song-hop must be" in capsys.readouterr().out
     open(os.path.join(models, "pretrained", "classifier_cnn.x.msgpack"),
          "wb").close()
     assert amg_test.main(AL + ["-m", "mc"] + flags) == 1

@@ -225,7 +225,7 @@ def test_module_and_init(nets):
     """``init_variables``' names and shapes; an eval-mode ``apply`` is
     ``apply_infer`` and leaves the statistics alone, a train-mode one
     returns every BatchNorm's moved statistics; the init's ranges."""
-    v = short_cnn.init_variables(3, TINY, "cpu")
+    v = short_cnn.init_variables(prng.key(3, "cpu"), TINY, "cpu")
     shapes = short_cnn.variable_shapes(TINY)
     assert {k: tuple(t.shape) for k, t in v.items()} == shapes
     x = torch.from_numpy(_x(2, 9))
@@ -239,7 +239,8 @@ def test_module_and_init(nets):
     assert sorted(stats) == sorted(k for k in shapes if short_cnn.is_stat(k))
     assert not torch.equal(v["spec_bn.running_mean"],
                            stats["spec_bn.running_mean"])
-    for k, t in short_cnn.init_variables(0, TINY, "cpu").items():
+    for k, t in short_cnn.init_variables(prng.key(0, "cpu"), TINY,
+                                         "cpu").items():
         if k.endswith(("running_var", "bn.weight")):
             assert torch.all(t == 1), k
         elif k.endswith("weight"):
@@ -256,19 +257,25 @@ def test_config_and_store_checks(waves):
           if k != "scan_mesh_phases"}
     assert dataclasses.asdict(TrainConfig()) == tc
     assert CNNConfig().channel_widths == (128, 128, 256, 256, 256, 256, 512)
-    with pytest.raises(NotImplementedError, match="A8"):
-        CNNConfig(arch="res")
-    with pytest.raises(ValueError, match="collapses"):
-        CNNConfig(n_mels=32)
+    # every trunk family is a config; each has the JAX geometry check
+    assert CNNConfig(arch="res", n_mels=32).arch == "res"
+    for arch, kw in (("vgg", {"n_mels": 32}), ("harm", {"n_harmonic": 12}),
+                     ("se1d", {"input_length": 2000}),
+                     ("musicnn", {"input_length": 2000})):
+        with pytest.raises(ValueError, match="collapses") as ours:
+            CNNConfig(arch=arch, **kw)
+        with pytest.raises(ValueError) as theirs:
+            JaxCNNConfig(arch=arch, **kw)
+        assert str(ours.value) == str(theirs.value)
     with pytest.raises(ValueError, match="shorter"):
         audio.DeviceWaveformStore({"a": np.zeros(100, np.float32)}, 8192,
                                   "cpu")
     store = audio.DeviceWaveformStore(waves, 8192, "cpu")
     assert store.row_of(["s03", "s00"]).tolist() == [3, 0]
-    with pytest.raises(NotImplementedError, match="A8"):
-        store.window_batch([0], 4096)
-    with pytest.raises(NotImplementedError, match="A8"):
-        audio.HostWaveformStore("npy", ["s00"], 8192)
+    windows, valid = store.window_batch([0], 4096)
+    assert windows.shape == (1, store.n_windows(4096), 8192) and valid[0, 0]
+    with pytest.raises(FileNotFoundError):
+        audio.HostWaveformStore("npy", ["s00"], 8192, device="cpu")
 
 
 def test_store_from_npy(waves, tmp_path):

@@ -16,7 +16,10 @@ from consensus_entropy_tpu_torch.al.acquisition import Acquirer
 from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer
 from consensus_entropy_tpu_torch.al.loop import ALLoop
 from consensus_entropy_tpu_torch.config import ALConfig, CNNConfig
-from consensus_entropy_tpu_torch.data.audio import DeviceWaveformStore
+from consensus_entropy_tpu_torch.data.audio import (
+    DeviceWaveformStore,
+    HostWaveformStore,
+)
 from consensus_entropy_tpu_torch.models import short_cnn
 from consensus_entropy_tpu_torch.models.committee import CNNMember, Committee
 
@@ -40,8 +43,14 @@ for name in names:
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in {BANNED!r}))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
+
+#: modules of the slices that must stay in the walk (slice 6: the harmonic
+#: frontend, the trunks, full-song scoring and the reference importer)
+SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
+                 "models.committee", "convert", "prng", "cli.amg_test")
 
 
 def test_every_port_module_imports_without_jax():
@@ -49,7 +58,10 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 50   # the walk found the modules
+    assert int(out.stdout.split()[-1]) >= 51   # the walk found the modules
+    walked = set(out.stdout.split())
+    for name in SLICE_MODULES:
+        assert f"consensus_entropy_tpu_torch.{name}" in walked, name
 
 
 def _imported_roots(path):
@@ -70,13 +82,14 @@ def _port_sources():
 
 def test_no_jax_package_import_in_port_or_chip_smoke():
     sources = list(_port_sources())
-    assert len(sources) >= 52
+    assert len(sources) >= 53
+    assert os.path.join(PORT, "ops", "harmonic.py") in sources
     for path in sources:
         for name in _imported_roots(path):
             assert name.split(".")[0] not in BANNED, (path, name)
 
 
-def test_default_device_is_the_card_and_never_falls_back():
+def test_default_device_is_the_card_and_never_falls_back(tmp_path):
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
@@ -104,8 +117,16 @@ def test_default_device_is_the_card_and_never_falls_back():
     with pytest.raises(RuntimeError):
         DeviceWaveformStore({"a": np.zeros(8192, np.float32)}, 8192)
     with pytest.raises(RuntimeError):
-        short_cnn.init_variables(0, cfg)
-    member = CNNMember("c", short_cnn.init_variables(0, cfg, "cpu"), cfg)
+        short_cnn.init_variables(prng.key(0, "cpu"), cfg)
+    member = CNNMember("c", short_cnn.init_variables(prng.key(0, "cpu"), cfg,
+                                                     "cpu"), cfg)
     with pytest.raises(RuntimeError):
         Committee([], [member], cfg)
+    # slice 6: the other trunks' members and the host store
+    res = CNNConfig(n_channels=4, n_mels=32, n_layers=5, input_length=8192,
+                    arch="res")
+    with pytest.raises(RuntimeError):
+        short_cnn.init_variables(prng.key(0, "cpu"), res)
+    with pytest.raises(RuntimeError):
+        HostWaveformStore(str(tmp_path), [], 8192)
     assert resolve_device("cpu") == torch.device("cpu")
