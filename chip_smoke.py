@@ -90,7 +90,32 @@ Phases, one line of output each (or a few):
     against the CPU, ms per song; then phase 14's user through ``ALLoop``
     (mc) with 5 GaussianNB + 5 SGD + 2 full-width harm members scoring
     full songs (hop 59,049), 2 iterations of 10 retrain epochs, with the
-    ``StepTimer`` medians; no hand kernel launched.
+    ``StepTimer`` medians; no hand kernel launched;
+16. fleet: the fleet engine on the card.  (a) the 16 fleet scorer keys
+    over FLEET_USERS users' configs[4]-scale tables (N=100,000, M=16, C=4,
+    q=10), each row held against that user's own call (bit-equal counted;
+    values within the entropy gate, ids equal where values > -inf except
+    near-ties), one stacked dispatch timed against FLEET_USERS single calls
+    (CUDA events, median of FLEET_REPS); (b) HOST_COHORT AMG1608 users (400
+    annotated songs of 6 frames each) with 5 GaussianNB + 5 SGD members,
+    mc, FLEET_EPOCHS iterations, through ``FleetScheduler`` with
+    FLEET_HOST_WORKERS host workers and through ``ALLoop`` one after
+    another, alternated FLEET_ROUNDS times: each user's queried songs, F1s
+    and ``al_state.json`` equal; users/s of both, mean device batch,
+    occupancy, the device busy share of a traced fleet run and the share
+    of its device time that overlaps host steps; (c)
+    FULL_COHORT users over phase 14's store with 5 GaussianNB + 5 SGD + 5
+    GBDT + 5 vgg members at full width, mc and qbdc (FULL_FLEET_EPOCHS
+    iterations of FLEET_RETRAIN retrain epochs), fleet against sequential on
+    the card (queried songs equal, F1s within CNN_TOL, bit-equality
+    reported; cuDNN held to deterministic algorithms for both), stacked
+    dispatches by plan kind, no ``dispatch_failed`` event, wall times, the
+    busy share (and host-step overlap) of the traced qbdc fleet run, and
+    ``fit_many_users`` against per-user ``fit_many``; (d) ``amg_test
+    --fleet 2`` on phase 11's tree on the card and the CPU (run inside
+    phase 11, reported here): each user's metrics equal the sequential
+    CLI's for its first FLEET_CLI_EPOCHS iterations; no hand kernel
+    launched.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -161,7 +186,16 @@ from consensus_entropy_tpu_torch.models.members import (  # noqa: E402
     GNBMember,
     SGDMember,
 )
+from consensus_entropy_tpu_torch.fleet import (  # noqa: E402
+    FleetReport,
+    FleetScheduler,
+    FleetUser,
+)
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer  # noqa: E402
+from consensus_entropy_tpu_torch.ops import scoring  # noqa: E402
+from consensus_entropy_tpu_torch.ops.entropy import (  # noqa: E402
+    shannon_entropy,
+)
 from consensus_entropy_tpu_torch.ops.mel import (  # noqa: E402
     log_mel_spectrogram,
 )
@@ -297,6 +331,22 @@ SONGS, SONG_SECONDS, SONG_HOP, SONG_CHECK = 64, (15, 30), 29524, 8
 # HARM_MEMBERS full-width harm members scoring full songs at HARM_HOP;
 # HARM_EPOCHS iterations of HARM_RETRAIN retrain epochs, mc.
 HARM_MEMBERS, HARM_HOP, HARM_EPOCHS, HARM_RETRAIN = 2, 59049, 2, 10
+# Phase 16, the fleet engine.  (a) FLEET_USERS users' configs[4]-scale
+# tables through the fleet scorers, timed over FLEET_REPS; (b) a cohort of
+# HOST_COHORT AMG1608 users with REG_MEMBERS GaussianNB + REG_MEMBERS SGD,
+# mc for FLEET_EPOCHS iterations, FLEET_HOST_WORKERS host workers, fleet
+# and sequential alternated FLEET_ROUNDS times (host-clock phases swing
+# between calls); (c) FULL_COHORT users with phase 14's committee kinds,
+# FULL_FLEET_EPOCHS iterations of FLEET_RETRAIN retrain epochs (cut from
+# 100, and from 4 users and 2 mc iterations after the whole script's
+# phase 16 took 251.1 s on a card machine, for the time limit; widths
+# are not cut); (d) the CLI's --fleet 2 for FLEET_CLI_EPOCHS iterations
+# (a prefix of phase 11's sequential run).
+FLEET_USERS, FLEET_REPS = 4, 20
+HOST_COHORT, FLEET_EPOCHS, FLEET_HOST_WORKERS, FLEET_ROUNDS = 8, 3, 4, 2
+FULL_COHORT, FULL_FLEET_EPOCHS, FLEET_RETRAIN = 3, {"mc": 1, "qbdc": 1}, 5
+FLEET_FIT_USERS, FLEET_FIT_MEMBERS, FLEET_FIT_EPOCHS = 2, 2, 2
+FLEET_CLI_EPOCHS = 3
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -1219,7 +1269,8 @@ def users_metrics(models_root):
     users = os.path.join(models_root, "users")
     return {u: (read_metrics(os.path.join(users, u, "mc")),
                 al_state.ALState.load(os.path.join(users, u, "mc")))
-            for u in sorted(os.listdir(users))}
+            for u in sorted(os.listdir(users))
+            if os.path.isdir(os.path.join(users, u))}
 
 
 def phase_al_cli(card):
@@ -1279,6 +1330,8 @@ def phase_al_cli(card):
             if m != rm or st != rst:
                 raise AssertionError(f"al-cli user {u}: the resumed run's "
                                      "metrics or state differ")
+        fleet_cli = fleet_cli_runs(root, amg_root, roots["cuda"],
+                                   {"cuda": got, "cpu": ref})
         phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
           f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
@@ -1287,6 +1340,7 @@ def phase_al_cli(card):
           f"(queried songs and F1s, every epoch) in {walls['cuda']:.1f} s / "
           f"{walls['cpu']:.1f} s; killed at state.save hit 2, the rerun "
           f"resumed to the uninterrupted run's metrics and state")
+    return fleet_cli
 
 
 # -- slice 5: the boosted slot and the CNN members -------------------------
@@ -2187,6 +2241,536 @@ def phase_trunks(card, user, host):
     return out
 
 
+# -- slice 7: the fleet engine ---------------------------------------------
+
+#: each fleet scorer key's per-user operands, by name (phase 16 (a))
+FLEET_OPERANDS = {
+    "mc": ("probs", "pool"), "mc_masked": ("probs", "pool", "members"),
+    "hc": ("hc", "hc_mask"), "hc_pre": ("hc_ent", "hc_mask"),
+    "mix": ("probs", "pool", "hc", "hc_mask"),
+    "mix_masked": ("probs", "pool", "hc", "hc_mask", "members"),
+    "rand": ("key", "pool"), "qbdc": ("probs", "pool"),
+    "wmc": ("probs", "pool", "weights"),
+    "wmc_masked": ("probs", "pool", "weights", "members"),
+    "mc_fused": ("probs", "pool"), "qbdc_fused": ("probs", "pool"),
+    "wmc_fused": ("probs", "pool", "weights"),
+    "rand_fused": ("key", "pool"),
+    "hc_pre_fused": ("hc_ent", "hc_mask", "pool"),
+    "mix_fused": ("probs", "pool", "hc", "hc_mask"),
+}
+
+
+def fleet_operands():
+    """FLEET_USERS users' operands on the card at configs[4] scale: an
+    (M, N, C) probability table, pool and hc masks with MASKED_SHARE holes,
+    an hc table and its entropies, reliability weights, a member mask
+    (one member out) and a rand key."""
+    rng = np.random.default_rng(SEED + 40)
+    users = []
+    for u in range(FLEET_USERS):
+        p = rng.random((M, N, C), dtype=np.float32) + np.float32(0.01)
+        p /= p.sum(-1, keepdims=True)
+        pool = rng.random(N) >= MASKED_SHARE
+        members = np.ones(M, bool)
+        members[u] = False
+        t = {name: torch.from_numpy(a).cuda() for name, a in (
+            ("probs", p), ("pool", pool),
+            ("hc", rng.random((N, C), dtype=np.float32)),
+            ("hc_mask", pool & (rng.random(N) >= MASKED_SHARE)),
+            ("weights", rng.uniform(0.2, 2.0, M).astype(np.float32)),
+            ("members", members))}
+        t["hc_ent"] = shannon_entropy(t["hc"])
+        t["key"] = prng.key(SEED + 41 + u, "cpu")
+        users.append(t)
+    return users
+
+
+def _single_scorers(k):
+    """The single-user call of every fleet key (the ``*_masked`` keys are
+    the scorers with their member mask)."""
+    fns = make_scoring_fns(k=k)
+    fns["mc_masked"] = lambda p, m, mm: scoring.score_mc(
+        p, m, k=k, member_mask=mm)
+    fns["mix_masked"] = lambda p, m, h, hm, mm: scoring.score_mix(
+        p, m, h, hm, k=k, member_mask=mm)
+    fns["wmc_masked"] = lambda p, m, w, mm: scoring.score_wmc(
+        p, m, w, k=k, member_mask=mm)
+    return fns
+
+
+def _stack_operand(vals):
+    if scoring.is_key_array(vals[0]):
+        return scoring.stack_user_keys(vals)
+    return torch.stack(vals)
+
+
+def _compare_row(got, ref, i, what):
+    """Row ``i`` of a stacked result against the single call: entropies and
+    values within the gate (the same -inf rows), indices equal where values
+    > -inf except near-ties, whose count is returned; the post-select masks
+    equal when no slot names another row."""
+    def host(x):
+        return x.cpu().numpy()
+
+    ge, re = host(got.entropy[i]), host(ref.entropy)
+    if not np.array_equal(np.isneginf(ge), np.isneginf(re)):
+        raise AssertionError(f"{what}: -inf rows differ")
+    live = ~np.isneginf(re)
+    np.testing.assert_allclose(ge[live], re[live], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    gv, rv = host(got.values[i]), host(ref.values)
+    valid = rv > -np.inf
+    if not np.array_equal(gv > -np.inf, valid):
+        raise AssertionError(f"{what}: valid slots differ")
+    np.testing.assert_allclose(gv[valid], rv[valid], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    near = int((valid & (host(got.indices[i]) != host(ref.indices))).sum())
+    if not near and isinstance(ref, scoring.FusedStepResult):
+        for field in ("pool_mask", "hc_mask"):
+            r = getattr(ref, field)
+            if r is not None and not torch.equal(getattr(got, field)[i], r):
+                raise AssertionError(f"{what}: {field} differs")
+    return near
+
+
+def fleet_scorer_families(card):
+    """Phase 16 (a): each of the 16 fleet keys over FLEET_USERS users'
+    configs[4]-scale operands: rows against the single calls, one stacked
+    dispatch (stacking included) timed against FLEET_USERS single calls."""
+    users = fleet_operands()
+    fleet, single = scoring.make_fleet_scoring_fns(k=Q), _single_scorers(Q)
+    bit_equal, near, times = {}, {}, {}
+    for key, names in FLEET_OPERANDS.items():
+        cols = [[u[n] for u in users] for n in names]
+        out = fleet[key](*[_stack_operand([x.clone() for x in col])
+                           for col in cols])
+        eq, nt = True, 0
+        for i, u in enumerate(users):
+            one = single[key](*[u[n].clone() for n in names])
+            eq &= all(r is None or torch.equal(g[i], r)
+                      for g, r in zip(out, one))
+            nt += _compare_row(out, one, i, f"fleet {key} user {i}")
+        bit_equal[key], near[key] = eq, nt
+
+        def stacked(cols=cols, key=key):
+            return fleet[key](*[_stack_operand(col) for col in cols])
+
+        def singles(names=names, key=key):
+            return [single[key](*[u[n] for n in names]) for u in users]
+
+        times[key] = (time_ms(stacked, FLEET_REPS),
+                      time_ms(singles, FLEET_REPS))
+    n_bytes = FLEET_USERS * M * N * C * 4
+    print(f"[fleet-scoring] 16 fleet keys over {FLEET_USERS} users x (M={M},"
+          f" N={N}, C={C}) float32 ({n_bytes / 1e6:.1f} MB stacked), q={Q}:"
+          f" every row against that user's single call, values within the "
+          f"entropy gate, ids equal where values > -inf but for near-ties "
+          f"{ {k: v for k, v in near.items() if v} or 0}; rows bit-equal "
+          f"for {sum(bit_equal.values())} of 16 keys"
+          + ("" if all(bit_equal.values()) else " (not: " + ", ".join(
+              k for k, v in bit_equal.items() if not v) + ")"))
+    print(f"[fleet-scoring] {card}: ms per stacked dispatch (stacking "
+          f"included) vs {FLEET_USERS} single calls (CUDA events, median of "
+          f"{FLEET_REPS}): " + ", ".join(
+              f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items()))
+    del users
+    torch.cuda.empty_cache()
+    return {"bit_equal": bit_equal, "near": near, "ms": times}
+
+
+def _union(spans):
+    """Sorted, disjoint ``[lo, hi]`` intervals covering ``spans``."""
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def host_overlap(prof, host_steps):
+    """The share of a stopped profile's device time (kernels and copies)
+    spent while a pooled host step ran: the fleet's host/device overlap.
+    Host steps are ``FleetReport.host_steps`` intervals, on the same
+    unix-epoch ns clock as the profiler's events; ``None`` without device
+    events or host steps."""
+    dev = _union((e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA)
+    host = _union((t0, t1) for _, t0, t1 in host_steps)
+    if not dev or not host:
+        return None
+    both, j = 0, 0
+    for lo, hi in dev:
+        while j < len(host) and host[j][1] <= lo:
+            j += 1
+        k = j
+        while k < len(host) and host[k][0] < hi:
+            both += min(hi, host[k][1]) - max(lo, host[k][0])
+            k += 1
+    return both / sum(hi - lo for lo, hi in dev)
+
+
+def _host_cohort():
+    """HOST_COHORT AMG1608 users (USER_SONGS annotated songs of USER_FRAMES
+    frames, drawn per user from the seed) and each one's REG_MEMBERS
+    GaussianNB + REG_MEMBERS SGD members fitted by the port."""
+    ids = list(range(1, FULL_SONGS + 1))
+    out = []
+    for i in range(HOST_COHORT):
+        pool, labels, centers = full_user(ids, seed=SEED + 50 + i)
+        out.append((UserData(f"u{i}", pool, labels),
+                    fit_members(centers, REG_MEMBERS, SEED + 60 + 10 * i)))
+    return out
+
+
+def _run_arm(arm, cfg, entries, root, make_committee, retrain=None,
+             trace=False):
+    """One arm over a cohort, each user in a fresh workspace under
+    ``root``: ``fleet`` through ``FleetScheduler``, ``seq`` through
+    ``ALLoop`` one user after another.  Returns (wall s, paths, fleet
+    report or None, with ``trace``: the busy share of the run and the
+    share of its device time that overlaps host steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    paths = [os.path.join(root, arm, str(d.user_id)) for d, _ in entries]
+    for path in paths:
+        os.makedirs(path)
+    committees = [make_committee(m) for _, m in entries]
+    report = None
+    prof = profile(activities=[ProfilerActivity.CUDA]) if trace else None
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    if arm == "fleet":
+        report = FleetReport()
+        recs = FleetScheduler(
+            cfg, retrain_epochs=retrain, host_workers=FLEET_HOST_WORKERS,
+            report=report, device="cuda").run(
+            [FleetUser(d.user_id, c, d, path, seed=SEED)
+             for (d, _), c, path in zip(entries, committees, paths)])
+        failed = [r["user"] for r in recs if r["error"] is not None]
+        if failed:
+            raise AssertionError(f"fleet {arm}: users {failed} failed: "
+                                 f"{[r['error'] for r in recs]}")
+    else:
+        loop = ALLoop(cfg, retrain_epochs=retrain, pad_pool_to=USER_SONGS,
+                      device="cuda")
+        for (d, _), c, path in zip(entries, committees, paths):
+            loop.run_user(c, d, path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = None
+    if prof is not None:
+        prof.stop()
+        busy = (busy_share(prof, 1, wall),
+                host_overlap(prof, report.host_steps) if report else None)
+    return wall, paths, report, busy
+
+
+def _same_runs(paths, ref_paths, what, tol=None):
+    """Each user's queried songs equal, F1s equal (or within ``tol``) and,
+    without ``tol``, ``al_state.json`` equal; returns whether every F1 and
+    state was bit-equal."""
+    exact = True
+    for path, ref in zip(paths, ref_paths):
+        m, r = read_metrics(path), read_metrics(ref)
+        if sorted(m) != sorted(r):
+            raise AssertionError(f"{what}: epochs {sorted(m)} {sorted(r)}")
+        for e in m:
+            if m[e].get("queried") != r[e].get("queried"):
+                raise AssertionError(f"{what} {path} epoch {e}: queried "
+                                     "songs differ")
+            if m[e]["f1"] != r[e]["f1"]:
+                exact = False
+                if tol is None:
+                    raise AssertionError(f"{what} {path} epoch {e}: F1s")
+                np.testing.assert_allclose(m[e]["f1"], r[e]["f1"], **tol,
+                                           err_msg=f"{what} epoch {e}")
+        with open(os.path.join(path, "al_state.json")) as f, \
+                open(os.path.join(ref, "al_state.json")) as g:
+            same = json.load(f) == json.load(g)
+        if not same and tol is None:
+            raise AssertionError(f"{what} {path}: al_state.json differs")
+        exact &= same
+    return exact
+
+
+def fleet_host_cohort(card):
+    """Phase 16 (b): HOST_COHORT users with 5 GaussianNB + 5 SGD members,
+    fleet against sequential, alternated FLEET_ROUNDS times, then a traced
+    fleet run for the busy share."""
+    entries = _host_cohort()
+    cfg = ALConfig(queries=Q, epochs=FLEET_EPOCHS, mode="mc",
+                   train_size=TRAIN_SIZE, seed=SEED, ckpt_dtype="float32")
+
+    def committee(members):
+        return Committee(copy.deepcopy(members))
+
+    walls = {"fleet": [], "seq": []}
+    summary = None
+    with tempfile.TemporaryDirectory() as root:
+        runs = {}
+        for r in range(FLEET_ROUNDS):
+            for arm in (("fleet", "seq") if r % 2 == 0 else ("seq", "fleet")):
+                wall, paths, report, _ = _run_arm(
+                    arm, cfg, entries, os.path.join(root, str(r)), committee)
+                walls[arm].append(wall)
+                runs[(r, arm)] = paths
+                if report is not None and summary is None:
+                    summary = report.summary(cohort=HOST_COHORT)
+                    if summary.get("dispatch_failures"):
+                        raise AssertionError("fleet-host: a stacked dispatch "
+                                             "failed")
+        ref = runs[(0, "seq")]
+        for key, paths in runs.items():
+            if key != (0, "seq"):
+                _same_runs(paths, ref, f"fleet-host {key}")
+        traced, _, _, (busy, overlap) = _run_arm(
+            "fleet", cfg, entries, os.path.join(root, "traced"), committee,
+            trace=True)
+    ups = {arm: [HOST_COHORT / w for w in ws] for arm, ws in walls.items()}
+    print(f"[fleet-host] {HOST_COHORT} AMG1608 users ({USER_SONGS} songs x "
+          f"{USER_FRAMES} frames x {F} features each), {REG_MEMBERS} "
+          f"GaussianNB + {REG_MEMBERS} SGD members, mc, {FLEET_EPOCHS} "
+          f"iterations of q={Q}, {FLEET_HOST_WORKERS} host workers: each "
+          f"user's queried songs, F1s and al_state.json equal in every fleet"
+          f" and sequential run ({FLEET_ROUNDS} of each, alternated); "
+          f"dispatches {summary['score_dispatches']}, mean device batch "
+          f"{summary['mean_device_batch']}, occupancy "
+          f"{summary['occupancy']}")
+    print(f"[fleet-host] {card}: users/s (host clock) fleet " + ", ".join(
+        f"{v:.4f}" for v in ups["fleet"]) + " vs sequential " + ", ".join(
+        f"{v:.4f}" for v in ups["seq"]) + " (in run order, alternated); "
+        f"device busy over a traced fleet run ({traced:.2f} s, "
+        f"torch.profiler, device events only): " + (
+            "not measured (no device events)" if busy is None else
+            f"{busy[0]:.2%}, {busy[1]:.3f} ms") + "; device time overlapping"
+        " host steps: " + ("not measured" if overlap is None
+                           else f"{overlap:.2%}"))
+    return {"users_per_s": ups, "summary": summary, "busy": busy,
+            "overlap": overlap}
+
+
+def fleet_full_cohort(card, user, host):
+    """Phase 16 (c): FULL_COHORT users over phase 14's store with the
+    paper's committee at full width, mc and qbdc, fleet against sequential
+    on the card; ``fit_many_users`` against per-user ``fit_many``.  cuDNN is
+    held to its deterministic algorithms for both arms: a backward-filter
+    algorithm summing with atomics would part two runs of one user after
+    its first retrain."""
+    cfg_cnn = CNNConfig()
+    store, ids = user["store"], user["ids"]
+    cnns = full_cnn_members(cfg_cnn, None, None, SEED + 70, "cuda",
+                            fit=False)
+    entries = []
+    for i in range(FULL_COHORT):
+        pool, labels, _ = full_user(ids, seed=SEED + 80 + i)
+        entries.append((UserData(f"u{i}", pool, labels, store=store),
+                        None))
+
+    def committee(_):
+        return Committee(copy.deepcopy(host), copy.deepcopy(cnns), cfg_cnn,
+                         device="cuda")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    walls, exact, plans, busy, overlap = {}, {}, {}, None, None
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for mode, epochs in FULL_FLEET_EPOCHS.items():
+                cfg = ALConfig(queries=Q, epochs=epochs, mode=mode,
+                               train_size=TRAIN_SIZE, seed=SEED,
+                               qbdc_k=QBDC_K, ckpt_dtype="float32")
+                order = ("seq", "fleet") if mode == "mc" else ("fleet",
+                                                               "seq")
+                paths = {}
+                for arm in order:
+                    traced = arm == "fleet" and mode == "qbdc"
+                    wall, paths[arm], report, b = _run_arm(
+                        arm, cfg, entries, os.path.join(root, mode),
+                        committee, retrain=FLEET_RETRAIN, trace=traced)
+                    walls[f"{mode} {arm}"] = wall
+                    if traced:
+                        busy, overlap = b
+                    if report is not None:
+                        summ = report.summary(cohort=FULL_COHORT)
+                        if summ.get("dispatch_failures"):
+                            raise AssertionError(f"fleet-full {mode}: a "
+                                                 "stacked dispatch failed")
+                        plans[mode] = {
+                            fn: (v["dispatches"], v["mean_batch"])
+                            for fn, v in summ["cnn"].items()
+                            if isinstance(v, dict)}
+                        if summ["cnn"]["mean_device_batch"] <= 1:
+                            raise AssertionError(f"fleet-full {mode}: no "
+                                                 "stacked CNN dispatch")
+                    torch.cuda.empty_cache()
+                exact[mode] = _same_runs(paths["fleet"], paths["seq"],
+                                         f"fleet-full {mode}", CNN_TOL)
+        fit = fleet_fit_check(cfg_cnn, store, cnns, entries)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"[fleet-full] {FULL_COHORT} AMG1608 users over phase 14's store "
+          f"({FULL_SONGS} clips on the card), {FULL_MEMBERS} GaussianNB + "
+          f"{FULL_MEMBERS} SGD + {FULL_MEMBERS} GBDT + {FULL_MEMBERS} vgg "
+          f"members at full width, {FLEET_RETRAIN} retrain epochs, "
+          f"iterations {FULL_FLEET_EPOCHS} (qbdc K={QBDC_K}), cuDNN "
+          f"deterministic: each user's fleet run equals its sequential run "
+          f"(queried songs equal, F1s within {CNN_TOL}; bit-equal F1s and "
+          f"state {exact}); stacked CNN dispatches (count, mean users) "
+          f"{plans}; dispatch_failed 0")
+    print(f"[fleet-full] {card}: wall s (host clock) " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()) + "; device busy over the"
+          " traced qbdc fleet run (torch.profiler, device events only): " + (
+              "not measured (no device events)" if busy is None else
+              f"{busy[0]:.2%}, {busy[1]:.1f} ms") + ", of it overlapping "
+          "host steps: " + ("not measured" if overlap is None
+                            else f"{overlap:.2%}"))
+    print(f"[fleet-full] {card}: fit_many_users of {FLEET_FIT_USERS} users x "
+          f"{FLEET_FIT_MEMBERS} full-width members, {FLEET_FIT_EPOCHS} epochs"
+          f" ({Q} train, 60 test songs) against per-user fit_many: "
+          f"histories and variables bit-equal {fit['exact']}, losses within "
+          f"{FIT_TOL}; {fit['wall']:.1f} s vs {fit['ref_wall']:.1f} s")
+    return {"walls": walls, "exact": exact, "plans": plans, "busy": busy,
+            "overlap": overlap, "fit": fit}
+
+
+def fleet_fit_check(cfg_cnn, store, cnns, entries):
+    """``fit_many_users`` against per-user ``fit_many`` on the card."""
+    trainer = CNNTrainer(cfg_cnn, TrainConfig())
+    users = []
+    for u, (data, _) in enumerate(entries[:FLEET_FIT_USERS]):
+        songs = list(data.pool.song_ids)
+        y = one_hot_np([data.labels[s] for s in songs])
+        users.append(dict(
+            variables_list=[m.variables for m in cnns[:FLEET_FIT_MEMBERS]],
+            store=store, train_ids=songs[:Q], train_y=y[:Q],
+            test_ids=songs[Q:Q + 60], test_y=y[Q:Q + 60],
+            key=prng.key(SEED + 90 + u, "cpu")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = trainer.fit_many_users(users, n_epochs=FLEET_FIT_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    exact = True
+    t0 = time.perf_counter()
+    for u, (best, hist) in zip(users, got):
+        rbest, rhist = trainer.fit_many(
+            u["variables_list"], store, u["train_ids"], u["train_y"],
+            u["test_ids"], u["test_y"], u["key"], n_epochs=FLEET_FIT_EPOCHS)
+        for h, rh in zip(hist, rhist):
+            for e, re_ in zip(h, rh):
+                for k in ("train_loss", "val_loss"):
+                    np.testing.assert_allclose(e[k], re_[k], **FIT_TOL,
+                                               err_msg=f"fit_many_users {k}")
+        exact &= hist == rhist and all(
+            torch.equal(b[k], rb[k]) for b, rb in zip(best, rbest)
+            for k in b)
+    torch.cuda.synchronize()
+    return {"exact": exact, "wall": wall,
+            "ref_wall": time.perf_counter() - t0}
+
+
+def fleet_cli_runs(root, amg_root, registry_root, seq):
+    """Phase 16 (d), on phase 11's tree: ``amg_test --fleet 2`` on the card
+    and the CPU for FLEET_CLI_EPOCHS iterations; each user's metrics equal
+    its sequential run's (``seq``: phase 11's per device) over those
+    iterations."""
+    args = list(CLI_ARGS)
+    args[args.index("-e") + 1] = str(FLEET_CLI_EPOCHS)
+    walls, summaries = {}, {}
+    for d in ("cuda", "cpu"):
+        models = os.path.join(root, f"models_fleet_{d}")
+        shutil.copytree(os.path.join(registry_root, "pretrained"),
+                        os.path.join(models, "pretrained"))
+        linear_mc.launches = 0
+        t0 = time.perf_counter()
+        text = run_cli(args + ["--fleet", "2", "--models-root", models,
+                               "--amg-root", amg_root, "--device", d])
+        walls[d] = time.perf_counter() - t0
+        if linear_mc.launches or "Fleet cohort of 2 users" not in text:
+            raise AssertionError(f"fleet-cli {d}: no fleet cohort, or "
+                                 f"linear_mc launched:\n{text[-2000:]}")
+        got = users_metrics(models)
+        if sorted(got) != sorted(seq[d]):
+            raise AssertionError(f"fleet-cli {d}: users {sorted(got)}")
+        for u, (m, st) in got.items():
+            ref = seq[d][u][0]
+            for e in range(-1, FLEET_CLI_EPOCHS):
+                if (m[e].get("queried") != ref[e].get("queried")
+                        or m[e]["f1"] != ref[e]["f1"]):
+                    raise AssertionError(f"fleet-cli {d} user {u} epoch "
+                                         f"{e}: differs from the sequential "
+                                         "CLI")
+            if st.next_epoch != FLEET_CLI_EPOCHS:
+                raise AssertionError(f"fleet-cli {d} user {u}: state at "
+                                     f"{st.next_epoch}")
+        with open(os.path.join(models, "users", "fleet_metrics.jsonl")) as f:
+            summaries[d] = [json.loads(line) for line in f][-1]
+        if summaries[d].get("event") != "fleet_summary":
+            raise AssertionError(f"fleet-cli {d}: no fleet summary")
+    return {"walls": walls, "summaries": summaries, "args": args}
+
+
+def fleet_cli_alone(card):
+    """Phase 16 (d) without phase 11: its tree and registry, the
+    sequential CLI for FLEET_CLI_EPOCHS iterations on each device, then the
+    fleet CLI."""
+    with tempfile.TemporaryDirectory() as root:
+        amg_root = write_amg_tree(root)
+        registry = os.path.join(root, "models_registry")
+        write_registry(registry)
+        args = list(CLI_ARGS)
+        args[args.index("-e") + 1] = str(FLEET_CLI_EPOCHS)
+        seq = {}
+        for d in ("cuda", "cpu"):
+            models = os.path.join(root, f"models_seq_{d}")
+            shutil.copytree(os.path.join(registry, "pretrained"),
+                            os.path.join(models, "pretrained"))
+            run_cli(args + ["--models-root", models, "--amg-root", amg_root,
+                            "--device", d])
+            seq[d] = users_metrics(models)
+        return fleet_cli_runs(root, amg_root, registry, seq)
+
+
+def phase_fleet(card, user=None, host=None, cli=None):
+    """Phase 16: the fleet engine on the card, (a)-(d).  ``user`` and
+    ``host`` are phase 14's (built here when absent), ``cli`` phase 11's
+    (d) result (run here when absent).  No hand kernel is launched."""
+    if user is None:
+        user = amg_user_on_card()
+        host = full_host_members(user["centers"], SEED + 18)
+    if cli is None:
+        cli = fleet_cli_alone(card)
+    linear_mc.launches = 0
+    out, walls = {"cli": cli}, {}
+    for part, run in (("scoring", lambda: fleet_scorer_families(card)),
+                      ("host", lambda: fleet_host_cohort(card)),
+                      ("full", lambda: fleet_full_cohort(card, user,
+                                                         host))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        walls[part] = time.perf_counter() - t0
+    if linear_mc.launches:
+        raise AssertionError(f"fleet: {linear_mc.launches} linear_mc "
+                             "launches on a path without the kernel")
+    summ = {d: {k: s.get(k) for k in ("mean_device_batch", "occupancy",
+                                      "score_dispatches")}
+            for d, s in cli["summaries"].items()}
+    print(f"[fleet-cli] {card}: amg_test {' '.join(cli['args'])} --fleet 2 "
+          f"on phase 11's tree, card and CPU: each user's metrics.jsonl "
+          f"equal to the sequential CLI's over those iterations, state "
+          f"committed; fleet summary {summ}; wall s " + ", ".join(
+              f"{d} {w:.1f}" for d, w in cli["walls"].items()))
+    print(f"[fleet] linear_mc launches over phase 16: {linear_mc.launches};"
+          f" host clock, s: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in walls.items()))
+    return out
+
+
 def main():
     t0 = time.perf_counter()
     walls = {}
@@ -2213,7 +2797,7 @@ def main():
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    phase_al_cli(card)
+    fleet_cli = phase_al_cli(card)
     lap("11")
     phase_gbdt(card)
     lap("12")
@@ -2224,9 +2808,12 @@ def main():
     host = phase_al_loop_full(card, user)
     lap("14")
     phase_trunks(card, user, host)
-    del user, host
     torch.cuda.empty_cache()
     lap("15")
+    phase_fleet(card, user, host, fleet_cli)
+    del user, host
+    torch.cuda.empty_cache()
+    lap("16")
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - t0:.1f}")

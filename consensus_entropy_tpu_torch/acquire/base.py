@@ -5,8 +5,9 @@ stateless singleton: per-user state (masks, the staged probs buffer,
 reliability weights) lives on the ``Acquirer`` it is handed.
 ``scoring_inputs`` stages one scoring call (a key of
 ``ops.scoring.make_scoring_fns`` and its positional inputs),
-``fused_inputs`` the fused variant over the acquirer's device masks, and
-``extract_queries`` maps the result back to song ids.
+``fused_inputs`` the fused variant over the acquirer's device masks,
+``probs_plan`` the CNN probs producer as a device plan the fleet stacks,
+and ``extract_queries`` maps the result back to song ids.
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ class AcquisitionStrategy:
         over ``acq.device_masks()``, or ``None`` for a mode without one:
         the acquirer then takes the two-call path."""
         return None
+
+    def probs_plan(self, committee, store, song_ids, key, *, pad_to,
+                   config):
+        """Stage this mode's CNN probs production as a batchable device
+        plan (``models.committee``: ``CNNScorePlan`` / ``QBDCScorePlan``)
+        that the fleet stacks across a cohort, or ``None`` for the inline
+        per-user path.  Routed by ``probs_source``."""
+        if not self.needs_probs:
+            return None
+        if self.probs_source == "qbdc":
+            return committee.qbdc_score_plan(store, song_ids, key,
+                                             k=config.qbdc_k, pad_to=pad_to)
+        return committee.cnn_score_plan(store, song_ids, key, pad_to=pad_to)
 
     def extract_queries(self, acq, res) -> list:
         """Map a scoring result to song ids and apply any mode-specific mask

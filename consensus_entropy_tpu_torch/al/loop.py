@@ -31,12 +31,17 @@ class AsyncCheckpointer:
     Each submitted job keeps the two-phase commit's order (member files ->
     state write -> promote); ``submit`` joins the previous job first, so
     jobs never overlap and a crash leaves what the synchronous order
-    would."""
+    would.  ``executor``: a shared ``ThreadPoolExecutor`` (the fleet's,
+    so concurrent sessions' writes overlap while each session's stay in
+    order); ``None`` gives the session a private one-worker pool.  A shared
+    executor is left running by ``close`` for its owner to shut down."""
 
-    def __init__(self):
+    def __init__(self, executor=None):
         from concurrent.futures import ThreadPoolExecutor
 
-        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._owns_pool = executor is None
+        self._pool = (ThreadPoolExecutor(max_workers=1)
+                      if executor is None else executor)
         self._future = None
         self._closed = False
 
@@ -57,7 +62,8 @@ class AsyncCheckpointer:
         try:
             self.wait()
         finally:
-            self._pool.shutdown(wait=False)
+            if self._owns_pool:
+                self._pool.shutdown(wait=False)
 
     def __enter__(self) -> "AsyncCheckpointer":
         return self

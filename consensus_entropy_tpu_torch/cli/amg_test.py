@@ -11,8 +11,11 @@ holds the port's member files (``convert.registry_from_jax`` makes them
 from a JAX registry); when it holds CNN members, the waveforms come from
 ``{amg_root}/npy/{song_id}.npy`` into a store on the device, and qbdc
 runs; ``--cnn-arch`` names the members' trunk family (any of the five)
-and ``--full-song-hop`` scores whole songs on a window grid.  The fleet,
-serve, fabric, mesh and distributed modes of the JAX CLI are not ported.
+and ``--full-song-hop`` scores whole songs on a window grid.  ``--fleet
+N`` runs the users in cohorts of N through ``fleet.FleetScheduler``
+(``amg_test.py:833-940`` of the JAX CLI): each user's workspace and
+result are the sequential run's.  The serve, fabric, mesh and distributed
+modes of the JAX CLI are not ported (ROADMAP A10, A11).
 """
 
 from __future__ import annotations
@@ -55,6 +58,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "keeps every weight at 1 (wmc is then mc)")
     p.add_argument("--max-users", type=int, default=None,
                    help="cap the user count (debug)")
+    p.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="run users through the fleet engine, N concurrent "
+                        "AL sessions per cohort: their scoring and CNN "
+                        "device calls stack into one dispatch and host "
+                        "retraining overlaps device work; per-user "
+                        "results are the sequential run's")
+    p.add_argument("--fleet-host-workers", type=int, default=None,
+                   help="bounded worker pool for the fleet's host-side "
+                        "retraining/evaluation (default: min(N, cpus, 8))")
+    p.add_argument("--plan-chunk", type=int, default=None, metavar="U",
+                   help="fleet mode: serve stacked CNN plan groups in "
+                        "dispatches of at most U users, holding a partial "
+                        "chunk back while host steps are in flight "
+                        "(default: whole groups)")
+    p.add_argument("--no-stack-cnn", action="store_true",
+                   help="fleet mode: run the CNN device work (probs "
+                        "forward, qbdc, retraining) inline per user "
+                        "instead of stacked across the cohort (same "
+                        "per-user results)")
     p.add_argument("--no-fuse-step", action="store_true",
                    help="score, pull the result and update the masks on "
                         "the host each iteration instead of the fused "
@@ -85,6 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.fleet is not None and args.fleet < 1:
+        print(f"--fleet must be >= 1, got {args.fleet}")
+        return 1
+    if args.no_stack_cnn and args.fleet is None:
+        print("--no-stack-cnn requires --fleet or --serve (the sequential "
+              "path never stacks)")
+        return 1
+    if args.plan_chunk is not None and (args.plan_chunk < 1
+                                        or args.fleet is None):
+        print("--plan-chunk takes a positive chunk size and requires "
+              "--fleet or --serve")
+        return 1
     if args.qbdc_k < 1:
         print(f"--qbdc-k must be >= 1, got {args.qbdc_k}")
         return 1
@@ -175,6 +209,10 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
     from consensus_entropy_tpu_torch.obs.metrics import StepTimer
     from consensus_entropy_tpu_torch.resilience.preemption import Preempted
 
+    if args.fleet is not None:
+        _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table,
+                         store, cnn_cfg, guard, device, results)
+        return
     for num_user, u_id in enumerate(users[: args.max_users]):
         if guard.requested:
             raise Preempted(f"stopping before user {u_id}")
@@ -202,6 +240,94 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
         workspace.mark_done(user_path)
         results.append(res)
         print(f"user {u_id}: final mean F1 = {res['final_mean_f1']:.4f}")
+
+
+def _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table, store,
+                     cnn_cfg, guard, device, results) -> None:
+    """The fleet path: cohorts of ``--fleet N`` users through
+    ``fleet.FleetScheduler`` on ``device``, each user's workspace and
+    result the sequential path's."""
+    import json
+
+    from consensus_entropy_tpu_torch.fleet import (
+        FleetReport,
+        FleetScheduler,
+    )
+    from consensus_entropy_tpu_torch.fleet.report import bench_line
+
+    report = FleetReport(os.path.join(paths.users_dir,
+                                      "fleet_metrics.jsonl"))
+    scheduler = FleetScheduler(
+        cfg, tie_break=args.tie_break, retrain_epochs=args.retrain_epochs,
+        host_workers=args.fleet_host_workers, preemption=guard,
+        pad_pool_to=args.pad_pool_to, report=report,
+        stack_cnn=not args.no_stack_cnn, plan_chunk=args.plan_chunk,
+        fuse_step=not args.no_fuse_step, device=device)
+    todo = list(users[: args.max_users])
+    failed = []
+    _run_fleet_cohorts(args, cfg, paths, store, pool, anno, hc_table,
+                       cnn_cfg, device, scheduler, todo, results, failed)
+    summary = report.write_summary(cohort=min(args.fleet, len(todo) or 1))
+    report.close()
+    print("fleet summary: " + json.dumps(bench_line(summary),
+                                         sort_keys=True))
+    if failed:
+        # as the sequential path crashes on a user's error, a fleet run
+        # that dropped users must not look successful
+        raise RuntimeError(
+            f"{len(failed)} fleet user(s) failed terminally after "
+            f"eviction/resume: {failed}")
+
+
+def _run_fleet_cohorts(args, cfg, paths, store, pool, anno, hc_table,
+                       cnn_cfg, device, scheduler, todo, results,
+                       failed) -> None:
+    from consensus_entropy_tpu_torch.al import workspace
+    from consensus_entropy_tpu_torch.al.loop import UserData
+    from consensus_entropy_tpu_torch.data import amg
+    from consensus_entropy_tpu_torch.fleet import FleetUser
+
+    experiment = {"seed": cfg.seed, "queries": cfg.queries,
+                  "train_size": cfg.train_size}
+    for lo in range(0, len(todo), args.fleet):
+        cohort = todo[lo: lo + args.fleet]
+        entries = []
+        for u_id in cohort:
+            user_path, skip = workspace.create_user(
+                paths.users_dir, paths.pretrained_dir, u_id, cfg.mode,
+                experiment=experiment)
+            if skip:
+                print(f"Skipping user {u_id}, already exists!")
+                continue
+
+            def factory(user_path=user_path):
+                return workspace.load_committee(
+                    user_path, cnn_cfg, device_members=args.device_members,
+                    full_song_hop=args.full_song_hop, device=device)
+
+            sub_pool, labels = amg.user_pool(pool, anno, u_id)
+            data = UserData(u_id, sub_pool, labels,
+                            hc_rows=hc_table.rows_for(sub_pool.song_ids),
+                            store=store)
+            entries.append(FleetUser(u_id, factory(), data, user_path,
+                                     seed=cfg.seed,
+                                     committee_factory=factory))
+        if not entries:
+            continue
+        print(f"Fleet cohort of {len(entries)} users "
+              f"({lo}..{lo + len(cohort) - 1} of {len(todo)})")
+        for rec in scheduler.run(entries):
+            if rec["error"] is not None:
+                print(f"user {rec['user']} FAILED: {rec['error']}")
+                failed.append(rec["user"])
+                continue
+            user_path = workspace.user_dir(paths.users_dir, rec["user"],
+                                           cfg.mode)
+            rec["committee"].save(user_path)
+            workspace.mark_done(user_path)
+            results.append(rec["result"])
+            print(f"user {rec['user']}: final mean F1 = "
+                  f"{rec['result']['final_mean_f1']:.4f}")
 
 
 if __name__ == "__main__":

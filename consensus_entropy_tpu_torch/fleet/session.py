@@ -1,28 +1,39 @@
 """The per-user AL loop as a steppable coroutine.
 
-Counterpart of ``consensus_entropy_tpu/fleet/session.py:63-940``,
-sequential path: committees of host members (scored on the host, or
-through the device slice with ``device_members``) and CNN members (the
-test-split CNN forward in the evaluation, the CNN block of the mc score,
-the qbdc producer, the ``retrain_cnn`` phase; ``:353-372, 540-560,
-630-712, 876-905``).  ``UserSession.steps`` is a generator that yields a
-:class:`ScoreStep` for the staged scoring call (``Acquirer.
-scoring_inputs``) and runs the rest inline.  The sequential runner,
-:func:`drive_inline`, answers each step with its result, so a run executes
-the statements of the JAX session in the same order with the same per-user
-key stream (one ``prng.split`` for each ``jax.random.split``), with and
-without CNN members.  The offload protocol (``HostStep``) and the
-batchable CNN device steps (``DeviceStep`` and its plans) come back with
-the fleet scheduler (ROADMAP A9); the span tracer and the multi-host
-barriers wait for A10 and A11.
+Counterpart of ``consensus_entropy_tpu/fleet/session.py``: ``UserSession.
+steps`` is a generator that yields at the points where a multi-user
+scheduler can interleave work (the JAX session's ``:549, 572, 593, 688,
+707, 749, 756, 806, 835, 850, 872, 909, 925``):
+
+- :class:`ScoreStep`: the staged scoring call (``Acquirer.
+  scoring_inputs``); the fleet stacks a cohort's same-shaped steps into
+  one call of the fleet scorers;
+- :class:`HostStep`: a block of host work (member predicts, updates and
+  evaluation, the checkpoint boundary); the fleet runs it on a bounded
+  worker pool, overlapping other users' device work;
+- :class:`DeviceStep`: a batchable CNN device call (the probs producer,
+  the evaluation forward, the retrain) staged as a ``models.committee``
+  plan; the fleet serves a group of same-signature plans with one stacked
+  dispatch, and a group of one with the step's ``single`` closure.
+
+The sequential runner, :func:`drive_inline`, answers each step at once
+(``ALLoop.run_user`` is this), so a fleet run executes the same statements
+in the same per-user order with the same key stream as the sequential one
+(one ``prng.split`` for each ``jax.random.split``).  A host step never
+touches a tensor: the values it needs from the device are pulled to numpy
+on the generator's thread before the step is yielded, and host steps are
+offered only to committees whose host members score on the host.  The
+span tracer and the multi-host barriers wait for ROADMAP A10 and A11.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
+import torch
 
 from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.al import state as al_state
@@ -39,25 +50,56 @@ from consensus_entropy_tpu_torch.resilience.retry import retry_transient
 @dataclasses.dataclass
 class ScoreStep:
     """Request: run ``session.acq``'s staged scoring call and answer with
-    its result."""
+    its result (the single call, or the user's row of a stacked one)."""
 
     session: "UserSession"
     fn_key: str
     inputs: tuple
 
 
+@dataclasses.dataclass
+class HostStep:
+    """Request: call ``fn()`` (host work, numpy in and out) and answer with
+    its return value.  ``label`` names the phase for the scheduler."""
+
+    session: "UserSession"
+    fn: Callable
+    label: str = ""
+
+
+@dataclasses.dataclass
+class DeviceStep:
+    """Request: run a batchable CNN device call.  ``plan`` is a
+    ``models.committee`` plan (its ``group_key()`` groups a cohort);
+    ``single`` is this session's own per-user path, with its retry and
+    fault wrapping, used by the sequential runner, by a group of one and
+    when a stacked dispatch fails.  The answer is the plan's result."""
+
+    session: "UserSession"
+    plan: object
+    single: Callable
+    label: str = ""
+
+
 def drive_inline(session: "UserSession") -> dict:
-    """Service a session synchronously: the sequential ``run_user``.  A
-    servicer failure is thrown into the generator, so the session's own
-    error path (checkpointer joined, report closed) runs before the error
+    """Service a session synchronously: the sequential ``run_user``.  Score
+    steps go through the session's own scorers, device steps through their
+    ``single`` closure, host steps run inline.  A servicer failure is
+    thrown into the generator, so the session's own error path
+    (checkpointer joined, report closed) runs before the error
     propagates."""
     gen = session.steps()
     try:
         step = next(gen)
         while True:
             try:
-                value = step.session.acq.run_scoring(step.fn_key,
-                                                     step.inputs)
+                if isinstance(step, ScoreStep):
+                    value = step.session.acq.run_scoring(step.fn_key,
+                                                         step.inputs)
+                elif isinstance(step, DeviceStep):
+                    value = step.single()
+                else:
+                    value = step.fn()
             except BaseException as e:
                 step = gen.throw(e)
             else:
@@ -74,18 +116,32 @@ def _split(key):
     return keys[0], keys[1]
 
 
+def _host(x):
+    """A tensor's values as numpy, pulled on the calling thread (numpy and
+    ``None`` pass through)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
 class UserSession:
     """One user's AL run, initialized as ``run_user`` would: resume state,
     split, acquirer and checkpointer; :meth:`steps` is the iteration
     generator.  ``device`` is where the acquisition runs (``None`` is the
-    card); the per-user key stream stays on the host."""
+    card); the per-user key stream stays on the host.
+
+    ``ckpt_executor``: a shared pool behind this session's checkpointer
+    (the fleet's).  ``pin_pad``: the padded pool width this user was
+    admitted at; a rebuilt session (eviction, preemption) that pads to
+    another width raises.  ``cnn_steps``: yield the CNN device work as
+    :class:`DeviceStep` plans (``False`` keeps it inline)."""
 
     def __init__(self, config: ALConfig, committee, data, user_path: str, *,
                  seed: int | None = None, tie_break: str = "fast",
                  retrain_epochs: int | None = None,
                  pad_pool_to: int | None = None, resume: bool = True,
                  timer: StepTimer | None = None, preemption=None,
-                 fuse_step: bool = True, device=None):
+                 ckpt_executor=None, pin_pad: int | None = None,
+                 cnn_steps: bool = True, fuse_step: bool = True,
+                 device=None):
         from consensus_entropy_tpu_torch.al.loop import (
             AsyncCheckpointer,
             grouped_split,
@@ -147,10 +203,32 @@ class UserSession:
                             tie_break=tie_break, seed=self.seed,
                             pad_to=pad_pool_to, fuse_step=fuse_step,
                             device=device)
+        if pin_pad is not None and self.acq.n_pad != pin_pad:
+            # a user's padded width is part of its run: a rebuild on another
+            # width would move it to another dispatch group mid-run
+            raise ValueError(
+                f"pinned pool pad drifted on resume: this run admitted "
+                f"user {data.user_id!r} at width {pin_pad}, rebuild "
+                f"padded to {self.acq.n_pad}")
         self.acq.replay(self.queried_hist)
-        self.ckpt = AsyncCheckpointer()
+        self.ckpt = AsyncCheckpointer(executor=ckpt_executor)
         #: the last finished background job's self-timed durations
         self.bg_times: dict = {}
+        #: whole iteration blocks may run on host workers only when none
+        #: touches a tensor: no CNN member and no device slice
+        self.host_offloadable = (not committee.cnn_members
+                                 and not committee.device_members)
+        #: the CNN device work is yielded as batchable DeviceSteps
+        self.cnn_steps = cnn_steps and bool(committee.cnn_members)
+        #: per step: a CNN committee's host members (scored on the host)
+        #: still ride the worker pool; their blocks take numpy only
+        self.sklearn_offloadable = self.host_offloadable or (
+            self.cnn_steps and bool(committee.host_members)
+            and not committee.device_members)
+        #: checkpoint boundaries (the previous commit's join, the staging
+        #: writes) are host work for every committee without a device
+        #: slice in its host block
+        self.boundary_offloadable = self.host_offloadable or self.cnn_steps
 
     @staticmethod
     def _rebuild_split(data, st: al_state.ALState):
@@ -198,17 +276,20 @@ class UserSession:
             w = self.member_weights.get(nm, 1.0)
             self.member_weights[nm] = (1.0 - alpha) * w + alpha * float(a)
 
-    def _evaluate(self, report: UserReport, key) -> list[float]:
+    def _evaluate(self, report: UserReport, key,
+                  cnn_probs=None) -> list[float]:
         """F1 of every active member on the test split, committee order
         (CNN members first, each on one random crop a test song under
         ``key``); a member whose predict raises or whose CNN probabilities
-        go non-finite is quarantined and left out."""
+        go non-finite is quarantined and left out.  ``cnn_probs``: the CNN
+        forward as numpy, produced already (:meth:`_eval_forward`)."""
         committee, split = self.committee, self.split
         f1s = []
         cnns = committee.active_cnn_members
         if cnns:
-            probs = committee.predict_songs_cnn(
-                self.data.store, split.test_songs, key).cpu().numpy()
+            probs = (_host(committee.predict_songs_cnn(
+                self.data.store, split.test_songs, key))
+                if cnn_probs is None else cnn_probs)
             for m, p in zip(cnns, probs):
                 if not np.all(np.isfinite(p)):
                     committee.quarantine(
@@ -280,6 +361,31 @@ class UserSession:
                 f"preempted after {boundary}; workspace committed - "
                 "rerun to resume at the next iteration")
 
+    def _host_step(self, fn, label: str, offload: bool):
+        """``fn()``'s value, computed on a host worker (a yielded
+        :class:`HostStep`) when ``offload``, else inline."""
+        if offload:
+            return (yield HostStep(self, fn, label))
+        return fn()
+
+    def _eval_forward(self, key):
+        """The evaluation's CNN forward as numpy, on the generator's
+        thread: a stacked :class:`DeviceStep` when the committee stages an
+        eval plan, else inline; ``None`` without ``cnn_steps`` (the
+        evaluation then runs its own forward)."""
+        committee, split, store = self.committee, self.split, self.data.store
+        if not (self.cnn_steps and committee.active_cnn_members):
+            return None
+        plan = committee.eval_plan(store, split.test_songs, key)
+
+        def single():
+            return committee.predict_songs_cnn(store, split.test_songs, key)
+
+        with self.timer.phase("evaluate"):
+            block = (single() if plan is None else
+                     (yield DeviceStep(self, plan, single, plan.fn_key)))
+            return _host(block)
+
     def steps(self):
         """The iteration generator; returns the ``run_user`` result dict
         through ``StopIteration.value``."""
@@ -301,20 +407,38 @@ class UserSession:
                     report.quarantine_event(epoch, ev)
                 return events
 
+            def finish(epoch, f1s, **summary):
+                """Close an evaluation: the quarantine events, the epoch's
+                summary and the trajectory; returns the host members' F1s
+                (``None`` when the member set shifted)."""
+                f1_prev = (None if drain_events(epoch) else
+                           f1s[len(committee.active_cnn_members):])
+                report.epoch_summary(epoch, f1s, **summary)
+                trajectory.append(float(np.mean(f1s)))
+                return f1_prev
+
             if self._fresh:
                 # epoch 0: baseline evaluation (amg_test.py:398-418)
                 report.epoch_header(-1)
                 self.key, sub = _split(self.key)
-                with timer.phase("evaluate"):
-                    f1s = self._evaluate(report, sub)
-                last_host_f1s = (None if drain_events(-1) else
-                                 f1s[len(committee.active_cnn_members):])
-                report.epoch_summary(-1, f1s)
-                trajectory.append(float(np.mean(f1s)))
-                self._join_and_drain()
-                with timer.phase("checkpoint"):
-                    self._checkpoint(0, self.key)
-                timer.flush(user=str(data.user_id), epoch=-1)
+                eval_block = yield from self._eval_forward(sub)
+
+                def baseline(sub=sub, block=eval_block):
+                    with timer.phase("evaluate"):
+                        f1s = self._evaluate(report, sub, cnn_probs=block)
+                    return finish(-1, f1s)
+
+                last_host_f1s = yield from self._host_step(
+                    baseline, "baseline", self.sklearn_offloadable)
+
+                def boundary0():
+                    self._join_and_drain()
+                    with timer.phase("checkpoint"):
+                        self._checkpoint(0, self.key)
+                    timer.flush(user=str(data.user_id), epoch=-1)
+
+                yield from self._host_step(boundary0, "checkpoint",
+                                           self.boundary_offloadable)
                 self._preempt_check("baseline evaluation")
 
             for epoch in range(self.start_epoch, cfg.epochs):
@@ -323,91 +447,180 @@ class UserSession:
                 if len(live) == 0:
                     break
                 member_probs = None
+                block = plan = None
                 strat = acq.strategy
                 if strat.needs_probs:
                     self.key, sub = _split(self.key)
                     if strat.uses_weights:
                         acq.member_weights = self._weights_vector()
+                    width = acq.staging_width(len(live))
 
                     # a pure pass (fixed crop and mask keys): a transient
                     # error retries it; the producer is the strategy's
-                    def produce(live=live, sub=sub):
+                    def produce(live=live, sub=sub, cnn_only=False):
                         if strat.probs_source == "qbdc":
                             return committee.qbdc_pool_probs(
                                 data.store, live, sub, k=cfg.qbdc_k,
-                                pad_to=acq.staging_width(len(live)))
+                                pad_to=width)
+                        if cnn_only:
+                            return committee.predict_songs_cnn(
+                                data.store, live, sub, pad_to=width)
                         return committee.pool_probs(
-                            data.pool, live,
-                            pad_to=acq.staging_width(len(live)),
-                            store=data.store, key=sub)
+                            data.pool, live, pad_to=width, store=data.store,
+                            key=sub)
 
-                    with timer.phase("score"):
-                        member_probs = retry_transient(
-                            lambda: faults.fire("pool.score",
-                                                payload=produce()),
+                    def score(epoch=epoch, cnn_only=False):
+                        return retry_transient(
+                            lambda: faults.fire(
+                                "pool.score", payload=produce(
+                                    cnn_only=cnn_only)),
                             attempts=cfg.retry_attempts,
                             base_delay=cfg.retry_base_delay,
                             seed=seed + epoch, what="pool.score")
-                # a member quarantined during this pass keeps its (NaN'd,
-                # then sanitized) probs row: zero its weight so it cannot
-                # re-enter the weighted consensus
-                if strat.uses_weights and committee.quarantined:
+
+                    if self.cnn_steps:
+                        plan = strat.probs_plan(committee, data.store, live,
+                                                sub, pad_to=width, config=cfg)
+                    with timer.phase("score"):
+                        if plan is not None:
+                            # the CNN block; the host members' block and
+                            # the merge follow in the select phase
+                            block = yield DeviceStep(
+                                self, plan, lambda: score(cnn_only=True),
+                                plan.fn_key)
+                        else:
+                            member_probs = yield from self._host_step(
+                                score, "score", self.host_offloadable)
+
+                def weight_fixup():
+                    # a member quarantined during this pass keeps its
+                    # (NaN'd, then sanitized) probs row: zero its weight so
+                    # it cannot re-enter the weighted consensus
+                    if not (strat.uses_weights and committee.quarantined):
+                        return
                     w = np.asarray(acq.member_weights, np.float32).copy()
                     for i, nm in enumerate(self._scoring_member_names or []):
                         if nm in committee.quarantined:
                             w[i] = 0.0
                     acq.member_weights = w
+
+                if plan is None:
+                    weight_fixup()
                 self.key, sub = _split(self.key)
                 with timer.phase("select"):
+                    if plan is not None:
+                        if strat.probs_source == "qbdc":
+                            member_probs = block
+                        else:
+                            # the host members' predicts (numpy) ride the
+                            # pool; the merge stays on this thread
+                            host_block = yield from self._host_step(
+                                lambda live=live, w=plan.pad_to:
+                                committee.host_block(data.pool, live, w),
+                                "select", self.sklearn_offloadable)
+                            member_probs = committee.merge_blocks(
+                                block, host_block)
+                        weight_fixup()
                     fn_key, inputs = acq.scoring_inputs(member_probs,
                                                         rand_key=sub)
                     res = yield ScoreStep(self, fn_key, inputs)
                     q_songs = acq.finish_select(res)
 
-                # reveal the labels, build the batch (amg_test.py:491-493)
-                X_batch, y_batch = query_batch(data.pool, data.labels,
-                                               q_songs)
-                if strat.uses_weights:
-                    self._update_member_weights(member_probs, live, q_songs)
-                with timer.phase("update_host"):
-                    if cfg.gate_host_updates and len(split.X_test):
-                        committee.update_host_gated(
-                            X_batch, y_batch, split.X_test,
-                            split.y_test_frames, before_scores=last_host_f1s)
-                    else:
-                        committee.update_host(X_batch, y_batch)
-                if committee.active_cnn_members:
-                    y_q = one_hot_np([data.labels[s] for s in q_songs])
-                    y_t = one_hot_np(split.y_test_songs)
+                # only wmc reads the probs table after the select
+                weight_probs = (_host(member_probs) if strat.uses_weights
+                                else None)
+                del member_probs, block
+
+                def reveal_update(q_songs=q_songs, before=last_host_f1s,
+                                  probs=weight_probs, live=live):
+                    # reveal the labels, build the batch
+                    # (amg_test.py:491-493)
+                    X_batch, y_batch = query_batch(data.pool, data.labels,
+                                                   q_songs)
+                    if strat.uses_weights:
+                        self._update_member_weights(probs, live, q_songs)
+                    with timer.phase("update_host"):
+                        if cfg.gate_host_updates and len(split.X_test):
+                            committee.update_host_gated(
+                                X_batch, y_batch, split.X_test,
+                                split.y_test_frames, before_scores=before)
+                        else:
+                            committee.update_host(X_batch, y_batch)
+
+                y_q = one_hot_np([data.labels[s] for s in q_songs])
+                y_t = one_hot_np(split.y_test_songs)
+
+                def retrain(sub, q_songs=q_songs, y_q=y_q, epoch=epoch):
+                    # fit_many rebinds the members' variables only on
+                    # return, so a retry replays the identical fit
+                    return retry_transient(
+                        lambda: committee.retrain_cnns(
+                            data.store, q_songs, y_q, split.test_songs, y_t,
+                            sub, n_epochs=self.retrain_epochs),
+                        attempts=cfg.retry_attempts,
+                        base_delay=cfg.retry_base_delay,
+                        seed=seed + 7919 * (epoch + 1),
+                        what="member.retrain")
+
+                summary = dict(queried=q_songs,
+                               pool_size=len(acq.remaining_songs))
+                if self.cnn_steps:
+                    yield from self._host_step(
+                        reveal_update, "update_host",
+                        self.sklearn_offloadable
+                        and bool(committee.active_host_members))
+                    if committee.active_cnn_members:
+                        self.key, sub = _split(self.key)
+                        rplan = committee.retrain_plan(
+                            data.store, q_songs, y_q, split.test_songs, y_t,
+                            sub, n_epochs=self.retrain_epochs)
+                        with timer.phase("retrain_cnn"):
+                            if rplan is None:
+                                retrain(sub)
+                            else:
+                                yield DeviceStep(self, rplan,
+                                                 lambda sub=sub: retrain(sub),
+                                                 rplan.fn_key)
                     self.key, sub = _split(self.key)
-                    with timer.phase("retrain_cnn"):
-                        # fit_many rebinds the members' variables only on
-                        # return, so a retry replays the identical fit
-                        retry_transient(
-                            lambda sub=sub, y_q=y_q, y_t=y_t, q=q_songs:
-                            committee.retrain_cnns(
-                                data.store, q, y_q, split.test_songs, y_t,
-                                sub, n_epochs=self.retrain_epochs),
-                            attempts=cfg.retry_attempts,
-                            base_delay=cfg.retry_base_delay,
-                            seed=seed + 7919 * (epoch + 1),
-                            what="member.retrain")
-                self.key, sub = _split(self.key)
-                with timer.phase("evaluate"):
-                    f1s = self._evaluate(report, sub)
-                last_host_f1s = (None if drain_events(epoch) else
-                                 f1s[len(committee.active_cnn_members):])
-                report.epoch_summary(epoch, f1s, queried=q_songs,
-                                     pool_size=len(acq.remaining_songs))
-                trajectory.append(float(np.mean(f1s)))
+                    eval_block = yield from self._eval_forward(sub)
+
+                    def eval_epoch(sub=sub, block=eval_block,
+                                   epoch=epoch, summary=summary):
+                        with timer.phase("evaluate"):
+                            f1s = self._evaluate(report, sub,
+                                                 cnn_probs=block)
+                        return finish(epoch, f1s, **summary)
+
+                    last_host_f1s = yield from self._host_step(
+                        eval_epoch, "evaluate", self.sklearn_offloadable)
+                else:
+                    def update_and_eval(epoch=epoch, summary=summary):
+                        reveal_update()
+                        if committee.active_cnn_members:
+                            self.key, sub = _split(self.key)
+                            with timer.phase("retrain_cnn"):
+                                retrain(sub)
+                        self.key, sub = _split(self.key)
+                        with timer.phase("evaluate"):
+                            f1s = self._evaluate(report, sub)
+                        return finish(epoch, f1s, **summary)
+
+                    last_host_f1s = yield from self._host_step(
+                        update_and_eval, "update_eval",
+                        self.host_offloadable)
 
                 # per-iteration persistence (amg_test.py:511) + resume state
                 queried_hist.append(q_songs)
-                self._join_and_drain()
-                with timer.phase("checkpoint"):
-                    self._checkpoint(epoch + 1, self.key)
-                timer.flush(user=str(data.user_id), epoch=epoch,
-                            queried=len(q_songs))
+
+                def boundary(epoch=epoch, q_songs=q_songs):
+                    self._join_and_drain()
+                    with timer.phase("checkpoint"):
+                        self._checkpoint(epoch + 1, self.key)
+                    timer.flush(user=str(data.user_id), epoch=epoch,
+                                queried=len(q_songs))
+
+                yield from self._host_step(boundary, "checkpoint",
+                                           self.boundary_offloadable)
                 self._preempt_check(f"iteration {epoch}")
 
             result = {"user": data.user_id, "mode": cfg.mode,

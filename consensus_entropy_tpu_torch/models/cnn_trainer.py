@@ -25,8 +25,9 @@ float32 rounding.
 
 ``fit_many`` trains member ``i`` under ``fold_in(key, i)``, one member
 after another: the schedule depends on the epoch only, so the loop is the
-JAX lockstep's math.  There is no mesh and no cross-user lockstep
-(ROADMAP A9, A11).
+JAX lockstep's math.  ``fit_many_users`` (``:880-995``) does the same for
+a cohort of users, one user after another (the JAX user lockstep is the
+same math), each under its own key.  There is no mesh (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -252,3 +253,30 @@ class CNNTrainer:
             histories.append(h)
         return best, histories
 
+
+    def fit_many_users(self, users: list[dict], *,
+                       n_epochs: int | None = None) -> list[tuple]:
+        """Train U users' committees: the fleet's ``cnn_retrain`` stacked
+        dispatch (``committee.CNNRetrainPlan``).  ``users``: one dict per
+        user with ``variables_list``, ``store``, ``train_ids`` /
+        ``train_y`` / ``test_ids`` / ``test_y`` and the user's ``key``;
+        member ``i`` of user ``u`` trains under ``fold_in(users[u]["key"],
+        i)``, the stream of that user's own :meth:`fit_many`.  The cohort
+        must agree in member count, split sizes and store geometry (the
+        plans' group key); a ragged one raises.  Returns ``[(best_variables
+        _list, histories), ...]``, one :meth:`fit_many` result per user."""
+        u0 = users[0]
+        shape = (len(u0["variables_list"]), len(u0["train_ids"]),
+                 len(u0["test_ids"]), tuple(u0["store"].data.shape))
+        for u in users:
+            if (len(u["variables_list"]), len(u["train_ids"]),
+                    len(u["test_ids"]), tuple(u["store"].data.shape)) \
+                    != shape:
+                raise ValueError(
+                    "fit_many_users cohort is not homogeneous (member "
+                    "count / split sizes / store geometry must match; "
+                    "group plans by their group_key)")
+        return [self.fit_many(u["variables_list"], u["store"],
+                              u["train_ids"], u["train_y"], u["test_ids"],
+                              u["test_y"], u["key"], n_epochs=n_epochs)
+                for u in users]

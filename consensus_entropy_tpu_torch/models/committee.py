@@ -5,13 +5,16 @@ Counterpart of ``consensus_entropy_tpu/models/committee.py``:
 ``FramePool`` (``:50-121``), the closed-form device slice
 (``DeviceMemberCommittee``; ``_device_member_probs`` ``:868-918``),
 ``CNNMember`` (``:126-206``) and ``Committee`` (``:365-1120, 1236-1325``),
-sequential path: quarantine, ``pool_probs`` over the CNN block (one
-random crop a song, or with ``full_song_hop`` the masked mean over the
-song's stride-window grid), the host members and, with
+quarantine and the depth dial (``depth_cap``), ``pool_probs`` over the
+CNN block (one random crop a song, or with ``full_song_hop`` the masked
+mean over the song's stride-window grid), the host members and, with
 ``device_members=True``, the device slice; the qbdc dropout committee; the
-incremental host updates and the CNN retrain; the checkpoint snapshot.
-The cross-user device plans and the depth dial wait for the fleet
-scheduler (ROADMAP A9), meshes and the sequence-parallel scorer for A11.
+incremental host updates and the CNN retrain; the checkpoint snapshot; and
+the cross-user device plans the fleet scheduler stacks (``:1168-1240,
+1342-1554``: ``CNNScorePlan``, ``CNNEvalPlan``, ``QBDCScorePlan``,
+``CNNRetrainPlan``, ``stage_device_plans`` / ``commit_device_plans`` /
+``run_device_plans``).  Meshes and the sequence-parallel scorer wait for
+ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from consensus_entropy_tpu_torch.ops.device_members import (
     make_device_committee_scorer,
 )
 from consensus_entropy_tpu_torch.resilience import faults
+from consensus_entropy_tpu_torch.utils import round_up
 
 
 class FramePool:
@@ -339,6 +343,11 @@ class Committee:
         self.min_members = min_members
         self.quarantined: dict[str, str] = {}
         self._pending_events: list[dict] = []
+        #: the depth dial (``FleetScheduler.set_depth``): ``None`` is the
+        #: full committee; an int caps how many active members score, CNN
+        #: members keeping their seats first, floored at ``min_members``.
+        #: Volatile: nothing checkpointed reads it
+        self.depth_cap: int | None = None
 
     @property
     def member_names(self) -> list[str]:
@@ -349,11 +358,19 @@ class Committee:
     # -- quarantine --------------------------------------------------------
 
     def _active_pair(self) -> tuple[list, list]:
-        """``(cnn, host)`` members still in the run."""
-        return ([m for m in self.cnn_members
-                 if m.name not in self.quarantined],
-                [m for m in self.host_members
-                 if m.name not in self.quarantined])
+        """``(cnn, host)`` members still in the run, with the depth dial
+        applied: CNN members first, host members fill what the cap
+        leaves."""
+        cnn = [m for m in self.cnn_members if m.name not in self.quarantined]
+        host = [m for m in self.host_members
+                if m.name not in self.quarantined]
+        if self.depth_cap is None:
+            return cnn, host
+        cap = max(int(self.depth_cap), int(self.min_members), 1)
+        if len(cnn) + len(host) <= cap:
+            return cnn, host
+        kept = cnn[:cap]
+        return kept, host[:cap - len(kept)]
 
     @property
     def active_host_members(self) -> list[Member]:
@@ -388,11 +405,13 @@ class Committee:
     # -- scoring -----------------------------------------------------------
 
     def pool_probs(self, pool: FramePool, song_ids: Sequence,
-                   pad_to: int | None = None, *, store=None, key=None):
+                   pad_to: int | None = None, *, store=None, key=None,
+                   cnn_block=None):
         """Stacked member probabilities ``(M, N, C)`` over ``song_ids`` in
         committee order (CNN members first), ``(M, pad_to, C)`` with a
         staging tail the acquirer drops.  The CNN block scores one random
-        crop a song from ``store`` under ``key`` (:meth:`predict_songs_cnn`).
+        crop a song from ``store`` under ``key`` (:meth:`predict_songs_cnn`),
+        or is ``cnn_block``, produced already (a stacked plan dispatch).
         A committee with CNN members or a device slice returns a tensor on
         its device; a host-only one returns numpy."""
         n_live = len(song_ids)
@@ -401,17 +420,31 @@ class Committee:
         active_cnn, active = self._active_pair()
         if pad_to is not None and n_live == 0 and active:
             raise ValueError("pad_to requires at least one live song")
-        cnn_block = None
-        if active_cnn:
+        if active_cnn and cnn_block is None:
             if store is None or key is None:
                 raise ValueError("CNN members score audio: pass the "
                                  "waveform store and the pass's key")
             # queued first: the host members below compute meanwhile
             cnn_block = self.predict_songs_cnn(store, song_ids, key,
                                                pad_to=pad_to)
-        if not active:
+        return self.merge_blocks(cnn_block,
+                                 self.host_block(pool, song_ids, pad_to))
+
+    def host_block(self, pool: FramePool, song_ids: Sequence,
+                   pad_to: int | None = None):
+        """The host members' part of :meth:`pool_probs`, or ``None`` when
+        no host member is active.  Without a device slice it is numpy and
+        touches no tensor, so the fleet runs it on a host worker."""
+        if not self.active_host_members:
+            return None
+        return self._host_probs(pool, song_ids, pad_to)
+
+    @staticmethod
+    def merge_blocks(cnn_block, host_block):
+        """``(M_cnn + M_host, W, C)``: the CNN block then the host block,
+        on the CNN block's device (either may be ``None``)."""
+        if host_block is None:
             return cnn_block
-        host_block = self._host_probs(pool, song_ids, pad_to)
         if cnn_block is None:
             return host_block
         return torch.cat([cnn_block, torch.as_tensor(host_block).to(
@@ -642,6 +675,58 @@ class Committee:
                 m.variables = b
         return histories
 
+    # -- cross-user device plans (the fleet's stacked dispatch) ------------
+
+    def _stackable(self, store, song_ids) -> bool:
+        return bool(self.active_cnn_members) and store is not None \
+            and len(song_ids) > 0
+
+    def cnn_score_plan(self, store, song_ids, key, *,
+                       pad_to: int) -> "CNNScorePlan | None":
+        """Stage this committee's CNN scoring pass as a batchable plan
+        (:func:`run_device_plans`); ``None`` (no active CNN member, no
+        store, no song, window-grid scoring) keeps the per-user path."""
+        if not self._stackable(store, song_ids) \
+                or self.full_song_hop is not None:
+            return None
+        return CNNScorePlan(self, store, tuple(song_ids), key, pad_to,
+                            len(self.active_cnn_members))
+
+    def eval_plan(self, store, song_ids, key) -> "CNNEvalPlan | None":
+        """Stage the evaluation's CNN forward over the test split (no
+        staging pad), eligible as :meth:`cnn_score_plan` is."""
+        if not self._stackable(store, song_ids) \
+                or self.full_song_hop is not None:
+            return None
+        return CNNEvalPlan(self, store, tuple(song_ids), key, len(song_ids),
+                           len(self.active_cnn_members))
+
+    def qbdc_score_plan(self, store, song_ids, key, *, k: int,
+                        pad_to: int) -> "QBDCScorePlan | None":
+        """qbdc's plan: the first active CNN member under ``k`` dropout
+        masks.  ``None`` routes the caller to :meth:`qbdc_pool_probs`,
+        whose checks raise the proper errors."""
+        if not self._stackable(store, song_ids) or k < 1:
+            return None
+        return QBDCScorePlan(self, store, tuple(song_ids), key, int(k),
+                             pad_to)
+
+    def retrain_plan(self, store, train_ids, train_y, test_ids, test_y, key,
+                     *, n_epochs: int | None = None
+                     ) -> "CNNRetrainPlan | None":
+        """Stage :meth:`retrain_cnns` as a batchable plan (the cohort
+        trains through ``CNNTrainer.fit_many_users``); ``None`` (a host
+        store, no active member, an empty split) keeps the per-user path."""
+        if (not self.active_cnn_members or store is None
+                or not hasattr(store, "data")
+                or not len(train_ids) or not len(test_ids)):
+            return None
+        return CNNRetrainPlan(
+            self, tuple(self.active_cnn_members), store, tuple(train_ids),
+            np.asarray(train_y), tuple(test_ids), np.asarray(test_y), key,
+            (self.trainer.train_config.n_epochs_retrain
+             if n_epochs is None else int(n_epochs)))
+
     # -- updates -----------------------------------------------------------
 
     def update_host(self, X_batch: np.ndarray, y_batch: np.ndarray):
@@ -750,3 +835,203 @@ class Committee:
             return {"fetch_s": t1 - t0, "write_s": time.perf_counter() - t1}
 
         return finish
+
+
+# -- cross-user device plans ---------------------------------------------
+#
+# A session whose committee can stack yields one of these instead of running
+# its CNN forward or retrain inline; the fleet scheduler groups them by
+# ``group_key()`` and serves each group of two or more with one stacked
+# dispatch (:func:`run_device_plans`).  The JAX body is a ``lax.map`` over
+# users, which runs them one after another; here that is a loop over users
+# of the single-user program, so each user's rows are those of its own call.
+
+
+def committee_infer_users(user_variables: list, x,
+                          config: CNNConfig) -> torch.Tensor:
+    """The cross-user committee forward (JAX ``_user_infer_fn``):
+    ``(U, M, B, C)`` from one member-variables list per user and ``(U, B,
+    L)`` crops."""
+    with torch.no_grad():
+        return short_cnn.committee_infer_users(user_variables, x, config)
+
+
+def qbdc_infer_users(user_variables: list, x, mask_keys,
+                     config: CNNConfig) -> torch.Tensor:
+    """The cross-user qbdc forward (JAX ``_user_qbdc_infer_fn``): ``(U,
+    K, B, C)``."""
+    with torch.no_grad():
+        return short_cnn.qbdc_infer_users(user_variables, x, mask_keys,
+                                          config)
+
+
+def _bucket_slices(crops: torch.Tensor):
+    """``(U, n, L)`` crops in ``CROP_BUCKET``-wide slices along the song
+    axis, the slices the single path forwards."""
+    bucket = Committee.CROP_BUCKET
+    return [crops[:, lo: lo + bucket]
+            for lo in range(0, crops.shape[1], bucket)]
+
+
+@dataclasses.dataclass
+class CNNScorePlan:
+    """One user's staged stored-committee CNN scoring pass (the mc, mix
+    and wmc producer).  Crops are drawn at dispatch by the helper the
+    single path uses (``Committee._bucketed_crops``), so the crop stream
+    is the same on both paths."""
+
+    committee: Committee
+    store: object
+    song_ids: tuple
+    key: object
+    pad_to: int
+    n_members: int
+
+    fn_key = "cnn_probs"
+    #: fired per plan on the stacked path, as the single closure fires it
+    fault_point = "pool.score"
+
+    def group_key(self):
+        return (self.fn_key, self.committee.config, self.n_members,
+                round_up(len(self.song_ids), Committee.CROP_BUCKET),
+                self.pad_to, str(self.store.device))
+
+    @staticmethod
+    def run_many(plans: list) -> list:
+        config = plans[0].committee.config
+        crops = torch.stack([
+            p.committee._bucketed_crops(p.store, p.store.row_of(p.song_ids),
+                                        p.key) for p in plans])
+        variables = [[m.variables for m in p.committee.active_cnn_members]
+                     for p in plans]
+        out = torch.cat([committee_infer_users(variables, x, config)
+                         for x in _bucket_slices(crops)], dim=2)
+        res = [_keep_columns(out[i], p.pad_to) for i, p in enumerate(plans)]
+        if plans[0].fault_point:
+            res = [faults.fire(plans[0].fault_point, payload=r)
+                   for r in res]
+        return res
+
+
+class CNNEvalPlan(CNNScorePlan):
+    """One user's staged evaluation forward over the test split; the single
+    path's evaluation fires no fault point, so neither does this."""
+
+    fn_key = "cnn_eval"
+    fault_point = None
+
+
+@dataclasses.dataclass
+class QBDCScorePlan:
+    """One user's staged qbdc pass: one CNN under ``k`` dropout masks.  The
+    key split, the mask keys and the ``acquire.qbdc.masks`` fault point run
+    per user through ``Committee._qbdc_stage``, as on the single path."""
+
+    committee: Committee
+    store: object
+    song_ids: tuple
+    key: object
+    k: int
+    pad_to: int
+
+    fn_key = "qbdc_probs"
+
+    def group_key(self):
+        return (self.fn_key, self.committee.config, self.k,
+                round_up(len(self.song_ids), Committee.CROP_BUCKET),
+                self.pad_to, str(self.store.device))
+
+    @staticmethod
+    def run_many(plans: list) -> list:
+        config = plans[0].committee.config
+        staged = [p.committee._qbdc_stage(
+            p.store, p.store.row_of(p.song_ids), p.key, p.k) for p in plans]
+        crops = torch.stack([c for c, _ in staged])
+        mask_keys = torch.stack([mk for _, mk in staged])
+        variables = [p.committee.active_cnn_members[0].variables
+                     for p in plans]
+        out = torch.cat([qbdc_infer_users(variables, x, mask_keys, config)
+                         for x in _bucket_slices(crops)], dim=2)
+        return [faults.fire("pool.score",
+                            payload=_keep_columns(out[i], p.pad_to))
+                for i, p in enumerate(plans)]
+
+
+@dataclasses.dataclass
+class CNNRetrainPlan:
+    """One user's staged committee retrain (``Committee.retrain_cnns``).
+    The cohort trains through ``CNNTrainer.fit_many_users``; each member's
+    best-checkpoint gate and rebinding apply per user in
+    :meth:`apply_many`."""
+
+    committee: Committee
+    members: tuple
+    store: object
+    train_ids: tuple
+    train_y: np.ndarray
+    test_ids: tuple
+    test_y: np.ndarray
+    key: object
+    n_epochs: int
+
+    fn_key = "cnn_retrain"
+
+    def group_key(self):
+        return (self.fn_key, self.committee.config,
+                self.committee.trainer.train_config, len(self.members),
+                len(self.train_ids), len(self.test_ids), self.n_epochs,
+                tuple(self.store.data.shape), str(self.store.device))
+
+    @staticmethod
+    def run_many(plans: list) -> list:
+        """Pure: fit the cohort, rebind nothing.  The fault point fires
+        once per user, as ``retrain_cnns`` fires it on the single path."""
+        for _ in plans:
+            faults.fire("member.retrain", member="__cnn_stack__")
+        return plans[0].committee.trainer.fit_many_users(
+            [dict(variables_list=[m.variables for m in p.members],
+                  store=p.store, train_ids=list(p.train_ids),
+                  train_y=p.train_y, test_ids=list(p.test_ids),
+                  test_y=p.test_y, key=p.key)
+             for p in plans],
+            n_epochs=plans[0].n_epochs)
+
+    @staticmethod
+    def apply_many(plans: list, fitted) -> list:
+        """Commit :meth:`run_many`'s result: a member with an improved
+        epoch takes its best variables (``retrain_cnns``' gate)."""
+        out = []
+        for p, (best, histories) in zip(plans, fitted):
+            for m, b, h in zip(p.members, best, histories):
+                if any(e["improved"] for e in h):
+                    m.variables = b
+            out.append(histories)
+        return out
+
+
+def _check_plan_group(plans: list) -> type:
+    kind = type(plans[0])
+    keys = {p.group_key() for p in plans}
+    if any(type(p) is not kind for p in plans) or len(keys) != 1:
+        raise ValueError(
+            f"device-plan group is not homogeneous: {sorted(map(str, keys))}")
+    return kind
+
+
+def stage_device_plans(plans: list):
+    """The pure half of a stacked plan dispatch: compute the group's
+    result, changing nothing."""
+    return _check_plan_group(plans).run_many(plans)
+
+
+def commit_device_plans(plans: list, computed) -> list:
+    """The commit half: apply the member changes of the computed result
+    (a retrain's rebinding) and return the per-plan results in order."""
+    apply = getattr(_check_plan_group(plans), "apply_many", None)
+    return apply(plans, computed) if apply is not None else computed
+
+
+def run_device_plans(plans: list) -> list:
+    """Serve one group of same-signature plans as one stacked dispatch;
+    per-plan results in order."""
+    return commit_device_plans(plans, stage_device_plans(plans))

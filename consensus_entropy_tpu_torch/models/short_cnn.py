@@ -446,3 +446,22 @@ def committee_infer(member_variables: list, x,
     after another (the JAX ``lax.map``)."""
     return torch.stack([apply_infer(v, x, config) for v in member_variables])
 
+
+
+def committee_infer_users(user_variables: list, x,
+                          config: CNNConfig = CNNConfig()):
+    """Cross-user committee forward: ``(U, M, B, C)`` from one
+    member-variables list per user and ``(U, B, L)`` crops, one user after
+    another through :func:`committee_infer` (the JAX ``lax.map`` over
+    users), so each user's rows are its own call's."""
+    return torch.stack([committee_infer(v, x[u], config)
+                        for u, v in enumerate(user_variables)])
+
+
+def qbdc_infer_users(user_variables: list, x, mask_keys,
+                     config: CNNConfig = CNNConfig()):
+    """Cross-user qbdc forward: ``(U, K, B, C)`` from one member's
+    variables per user, ``(U, B, L)`` crops and ``(U, K, 2)`` mask keys,
+    one user after another through :func:`qbdc_infer`."""
+    return torch.stack([qbdc_infer(v, x[u], mask_keys[u], config)
+                        for u, v in enumerate(user_variables)])

@@ -14,6 +14,10 @@ raises.  The numpy plain versions (the same algorithm with the same double
 accumulation order, so the trees are identical) run only when the caller
 passes ``plain=True``, as the tests do.
 
+Concurrent callers (the fleet's host workers) each cap their own OpenMP
+team with :func:`limit_threads`, so four fits at once share the cores
+instead of each taking all of them; the trees do not depend on it.
+
     python -m consensus_entropy_tpu_torch.native   # build the core
 """
 
@@ -23,6 +27,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -40,6 +45,9 @@ _u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _int64 = ctypes.c_int64
 
 _lib = None
+#: per thread: the OpenMP team size wanted (``limit``) and the one set in
+#: the library for this thread (``applied``)
+_threads = threading.local()
 
 
 def library_path() -> str:
@@ -83,8 +91,21 @@ def _get_lib() -> ctypes.CDLL:
             _u8, _int64, _int64, _i32, _i32, _f64, _int64, _int64, _i32,
             _int64, ctypes.c_double, _f64]
         lib.ce_gbdt_predict_margins.restype = None
+        lib.ce_gbdt_set_threads.argtypes = [ctypes.c_int]
+        lib.ce_gbdt_set_threads.restype = None
         _lib = lib
+    limit = getattr(_threads, "limit", 0)
+    if limit and getattr(_threads, "applied", 0) != limit:
+        _lib.ce_gbdt_set_threads(limit)
+        _threads.applied = limit
     return _lib
+
+
+def limit_threads(n: int) -> None:
+    """Cap the OpenMP team of this thread's later calls at ``n`` (``0``:
+    the OpenMP default).  Builds nothing: it takes effect at the thread's
+    next call into the core."""
+    _threads.limit = max(0, int(n))
 
 
 def gbdt_build_tree(Xb, g, h, *, max_depth: int, n_bins: int,

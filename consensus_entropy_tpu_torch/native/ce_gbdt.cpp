@@ -248,6 +248,19 @@ void ce_gbdt_build_tree(const uint8_t* Xb, int64_t n, int64_t f,
   delete[] prev_local;
 }
 
+// OpenMP team size of this calling thread's later parallel regions (an
+// ICV of the calling thread: each host worker of the fleet sets its own
+// share of the cores).  n <= 0 leaves the default.  Every loop above gives
+// each output to one thread in a fixed order, so the team size changes no
+// result.
+void ce_gbdt_set_threads(int n) {
+#if defined(_OPENMP)
+  if (n > 0) omp_set_num_threads(n);
+#else
+  (void)n;
+#endif
+}
+
 // Accumulate a forest's margins:
 //   margins[i, tree_class[t]] += lr * leaf_t(row i)   for every tree t.
 // Trees are packed contiguously: feature/threshold (n_trees, n_nodes) int32,

@@ -1,1 +1,2 @@
-"""Observability of the port: the AL loop's phase timer."""
+"""Observability of the port: phase timers, the metrics registry and
+event writer, dispatch scopes and the null tracer."""

@@ -1,7 +1,7 @@
 """The acquisition step of every mode: consensus -> entropy -> top-k -> mask.
 
-Counterpart of ``consensus_entropy_tpu/ops/scoring.py`` (the single-user
-scorers; the fleet families come with the fleet):
+Counterpart of ``consensus_entropy_tpu/ops/scoring.py``: the single-user
+scorers and the fleet families over a leading user axis:
 
 - **mc** (``amg_test.py:425-447``): mean of the committee's probabilities,
   entropy, top-k; **qbdc** is the same reduction over K dropout forwards;
@@ -15,6 +15,12 @@ The pool axis keeps a fixed ``N`` and a boolean ``pool_mask``; shrinking the
 pool only clears mask bits.  The ``fused_*`` steps clear the selected rows of
 the masks they are given IN PLACE (where the JAX package donates the mask
 buffers) and return those same tensors.
+
+Every scorer is written over the trailing axes (members ``-3``, songs
+``-2``/``-1``, classes ``-1``), so the same function takes one user's
+``(M, N, C)`` table or a cohort's ``(U, M, N, C)`` stack: the fleet families
+(:func:`make_fleet_scoring_fns`) are these functions, and each row of a
+stacked call is computed by the same ops as that user's single call.
 """
 
 from __future__ import annotations
@@ -54,12 +60,13 @@ class FusedStepResult(NamedTuple):
 
 def consensus_mean(member_probs: torch.Tensor,
                    member_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean class distribution over the committee axis of ``(M, N, C)``
-    probabilities; ``member_mask`` ``(M,)`` drops members from the mean."""
+    """Mean class distribution over the committee axis of ``(..., M, N,
+    C)`` probabilities; ``member_mask`` ``(..., M)`` drops members from the
+    mean."""
     if member_mask is None:
-        return member_probs.mean(dim=0)
-    w = member_mask.to(member_probs.dtype)[:, None, None]
-    return (member_probs * w).sum(dim=0) / w.sum()
+        return member_probs.mean(dim=-3)
+    w = member_mask.to(member_probs.dtype)[..., None, None]
+    return (member_probs * w).sum(dim=-3) / w.sum(dim=-3)
 
 
 def weighted_consensus_mean(member_probs: torch.Tensor,
@@ -78,9 +85,9 @@ def weighted_consensus_mean(member_probs: torch.Tensor,
     w = member_weights.to(p.dtype)
     if member_mask is not None:
         w = w * member_mask.to(p.dtype)
-    w = torch.where(w.sum() > 0, w, torch.ones_like(w))
-    scale = w * (p.shape[0] / w.sum())
-    return (p * scale[:, None, None]).mean(dim=0)
+    w = torch.where(w.sum(dim=-1, keepdim=True) > 0, w, torch.ones_like(w))
+    scale = w * (p.shape[-3] / w.sum(dim=-1, keepdim=True))
+    return (p * scale[..., None, None]).mean(dim=-3)
 
 
 def score_mc(member_probs: torch.Tensor, pool_mask: torch.Tensor, *, k: int,
@@ -132,8 +139,9 @@ def score_mix(member_probs: torch.Tensor, pool_mask: torch.Tensor,
               tie_break: str = "fast") -> ScoreResult:
     """Hybrid acquisition: entropy over stacked ``[mc consensus; hc rows]``.
     A song can surface from both blocks, as in the reference."""
-    stacked = torch.cat([consensus_mean(member_probs, member_mask), hc_freq])
-    stacked_mask = torch.cat([pool_mask, hc_mask])
+    stacked = torch.cat([consensus_mean(member_probs, member_mask), hc_freq],
+                        dim=-2)
+    stacked_mask = torch.cat([pool_mask, hc_mask], dim=-1)
     ent = masked_entropy(stacked, stacked_mask)
     values, indices = masked_top_k(ent, stacked_mask, k, tie_break)
     return ScoreResult(ent, values, indices)
@@ -156,9 +164,14 @@ def selection_scalars(x) -> np.ndarray:
 def score_rand(key: torch.Tensor, pool_mask: torch.Tensor, *,
                k: int) -> ScoreResult:
     """Random baseline: top-k over threefry uniform scores (the same draws
-    as ``jax.random.uniform``), drawn on the mask's device."""
-    scores = prng.uniform(key, tuple(pool_mask.shape),
-                          device=pool_mask.device)
+    as ``jax.random.uniform``), drawn on the mask's device.  A ``(U, 2)``
+    key batch with ``(U, N)`` masks draws each row under its own key."""
+    if key.dim() == 2:
+        scores = prng.uniform_rows(key, pool_mask.shape[-1],
+                                   device=pool_mask.device)
+    else:
+        scores = prng.uniform(key, tuple(pool_mask.shape),
+                              device=pool_mask.device)
     values, indices = masked_top_k(scores, pool_mask, k, "fast")
     return ScoreResult(scores, values, indices)
 
@@ -222,6 +235,15 @@ def fused_rand(key: torch.Tensor, pool_mask: torch.Tensor, *,
                            reveal_mask_update(pool_mask, r.values, r.indices))
 
 
+#: fn key -> (pool-mask position, hc-mask position or None) of a fused
+#: step's inputs: the masks it updates in place (the operands the JAX
+#: ``FUSED_DONATE`` donates), which its result's ``pool_mask`` /
+#: ``hc_mask`` are.  After a stacked call the scheduler copies each user's
+#: row back into that user's own mask tensors.
+FUSED_MASKS = {"mc_fused": (1, None), "qbdc_fused": (1, None),
+               "wmc_fused": (1, None), "rand_fused": (1, None),
+               "hc_pre_fused": (2, 1), "mix_fused": (1, 3)}
+
 _UNFUSED = {"mc": score_mc, "hc": score_hc, "hc_pre": score_hc_precomputed,
             "mix": score_mix, "qbdc": score_qbdc, "wmc": score_wmc}
 _FUSED = {"mc_fused": fused_mc, "qbdc_fused": fused_qbdc,
@@ -239,3 +261,82 @@ def make_scoring_fns(*, k: int,
     fns["rand"] = functools.partial(score_rand, k=k)
     fns["rand_fused"] = functools.partial(fused_rand, k=k)
     return fns
+
+
+def make_fleet_scoring_fns(*, k: int,
+                           tie_break: str = "fast") -> dict[str, Callable]:
+    """The scorers over a leading USER axis (the JAX
+    ``make_fleet_scoring_fns``): mc ``(U, M, N, C), (U, N)``; hc / hc_pre
+    ``(U, N[, C]), (U, N)``; mix ``(U, M, N, C), (U, N), (U, N, C), (U,
+    N)``; rand ``(U, 2)`` keys (:func:`stack_user_keys`), ``(U, N)``; the
+    ``*_masked`` variants also take a ``(U, M)`` member mask.  One call
+    scores a cohort of same-shaped pools; each row is that user's single
+    call (the functions are the same, see the module docstring), and the
+    fused keys clear the selected rows of the stacked masks in place."""
+    def mc(probs, pool_mask):
+        return score_mc(probs, pool_mask, k=k, tie_break=tie_break)
+
+    def mc_masked(probs, pool_mask, member_mask):
+        return score_mc(probs, pool_mask, k=k, member_mask=member_mask,
+                        tie_break=tie_break)
+
+    def mix(probs, pool_mask, hc_freq, hc_mask):
+        return score_mix(probs, pool_mask, hc_freq, hc_mask, k=k,
+                         tie_break=tie_break)
+
+    def mix_masked(probs, pool_mask, hc_freq, hc_mask, member_mask):
+        return score_mix(probs, pool_mask, hc_freq, hc_mask, k=k,
+                         member_mask=member_mask, tie_break=tie_break)
+
+    def wmc_masked(probs, pool_mask, weights, member_mask):
+        return score_wmc(probs, pool_mask, weights, k=k,
+                         member_mask=member_mask, tie_break=tie_break)
+
+    fns = make_scoring_fns(k=k, tie_break=tie_break)
+    fns.update(mc=mc, mc_masked=mc_masked, mix=mix, mix_masked=mix_masked,
+               wmc_masked=wmc_masked)
+    return fns
+
+
+#: which positional operand of each fleet scorer carries the ``(U, N)``
+#: pool mask, whose trailing axis is the padded pool width
+_POOL_MASK_POS = {"mc": 1, "mc_masked": 1, "hc": 1, "hc_pre": 1,
+                  "mix": 1, "mix_masked": 1, "rand": 1, "qbdc": 1,
+                  "wmc": 1, "wmc_masked": 1, "mc_fused": 1,
+                  "qbdc_fused": 1, "wmc_fused": 1, "rand_fused": 1,
+                  "hc_pre_fused": 1, "mix_fused": 1}
+
+
+def fleet_scoring_fns_for_width(*, k: int, tie_break: str = "fast",
+                                width: int) -> dict[str, Callable]:
+    """The fleet scorers for one padded pool ``width`` (a serve bucket):
+    every call checks that the pool-mask operand's trailing axis is
+    ``width``, so a session routed to the wrong bucket fails at dispatch
+    instead of being scored in another bucket's cohort."""
+    def guarded(fn_key, fn):
+        pos = _POOL_MASK_POS[fn_key]
+
+        def call(*args):
+            got = args[pos].shape[-1]
+            if got != width:
+                raise ValueError(
+                    f"bucket routing error: {fn_key!r} scorer for pool "
+                    f"width {width} got inputs of width {got}")
+            return fn(*args)
+
+        return call
+
+    return {key: guarded(key, fn) for key, fn in make_fleet_scoring_fns(
+        k=k, tie_break=tie_break).items()}
+
+
+def stack_user_keys(keys) -> torch.Tensor:
+    """Per-user ``(2,)`` keys -> one ``(U, 2)`` key batch for the fleet
+    ``rand`` scorers."""
+    return torch.stack([prng.key_data(k) for k in keys])
+
+
+def is_key_array(x) -> bool:
+    """True for a port key (batch): ``(..., 2)`` uint32 words."""
+    return (isinstance(x, torch.Tensor) and x.dtype == torch.uint32
+            and x.shape[-1:] == (2,))

@@ -19,7 +19,8 @@ import torch
 def masked_top_k(scores: torch.Tensor, valid_mask: torch.Tensor, k: int,
                  tie_break: str = "fast"):
     """Top-``k`` ``(values, indices)`` of ``scores`` restricted to
-    ``valid_mask``.
+    ``valid_mask``, along the last axis (leading axes, such as the fleet's
+    user axis, are independent rows).
 
     Masked entries count as ``-inf`` and rank last; with fewer than ``k``
     valid entries the trailing values are ``-inf`` and their indices carry
@@ -27,13 +28,14 @@ def masked_top_k(scores: torch.Tensor, valid_mask: torch.Tensor, k: int,
     """
     masked = torch.where(valid_mask, scores, float("-inf"))
     if tie_break == "fast":
-        order = torch.sort(masked, descending=True, stable=True).indices
+        order = torch.sort(masked, dim=-1, descending=True,
+                           stable=True).indices
     elif tie_break == "numpy":
-        order = torch.sort(masked, stable=True).indices.flip(0)
+        order = torch.sort(masked, dim=-1, stable=True).indices.flip(-1)
     else:
         raise ValueError(f"unknown tie_break: {tie_break!r}")
-    idx = order[:k]
-    return masked[idx], idx
+    idx = order[..., :k]
+    return masked.gather(-1, idx), idx
 
 
 def valid_count(values: torch.Tensor) -> torch.Tensor:
@@ -48,7 +50,9 @@ def reveal_mask_update(mask: torch.Tensor, values: torch.Tensor,
     The JAX version returns a new array that reuses the donated input
     buffer; here the caller's tensor itself changes.  Slots whose value is
     ``-inf`` (fewer than k valid rows remained) carry meaningless indices
-    and are ignored.  Clearing an already-False row is idempotent.
+    and are ignored.  Clearing an already-False row is idempotent.  Leading
+    axes are rows, each clearing its own indices.
     """
-    mask[indices[values > float("-inf")]] = False
+    live = (values > float("-inf")).nonzero(as_tuple=True)
+    mask[live[:-1] + (indices[live],)] = False
     return mask

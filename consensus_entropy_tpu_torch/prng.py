@@ -65,6 +65,13 @@ def _words(key: torch.Tensor) -> torch.Tensor:
     return key.view(torch.int32).to(torch.int64) & _MASK
 
 
+def _floats(bits: torch.Tensor) -> torch.Tensor:
+    """int64 random bits -> float32 in ``[0, 1)``: the top 23 bits as the
+    mantissa of a float in ``[1, 2)``, minus 1 (JAX ``_uniform``)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
 def _to_uint32(words: torch.Tensor) -> torch.Tensor:
     """int64 words in ``[0, 2**32)`` -> uint32 (through int32's wrap)."""
     return words.to(torch.int32).view(torch.uint32)
@@ -159,13 +166,28 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float32,
     if dtype != torch.float32:
         raise TypeError(f"uniform draws float32 only, got {dtype}")
     hi, lo = _hash_iota(key, _shape(shape), device)
-    floats = ((((hi ^ lo) >> 9) | 0x3F800000).to(torch.int32)
-              .view(torch.float32) - 1.0)
+    floats = _floats(hi ^ lo)
     if (minval, maxval) == (0.0, 1.0):
         return floats
     lo_, span = np.float32(minval), np.float32(maxval) - np.float32(minval)
     return torch.clamp(_fma(floats, float(span), float(lo_)),
                        min=float(lo_))
+
+
+def uniform_rows(keys: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """``(U, n)`` float32: row ``u`` is ``uniform(keys[u], (n,))`` bit for
+    bit (``jax.vmap`` of the draw over a ``(U, 2)`` key batch), drawn in
+    one pass on the keys' device or on ``device``."""
+    words = _words(keys)
+    if words.dim() != 2:
+        raise TypeError(f"expected a (U, 2) key batch, got "
+                        f"{tuple(keys.shape)}")
+    dev = keys.device if device is None else resolve_device(device)
+    words = words.to(dev)
+    count = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    hi, lo = threefry_2x32(words[:, :1], words[:, 1:], count >> 32,
+                           count & _MASK)
+    return _floats(hi ^ lo)
 
 
 def _fma(a, b, c) -> torch.Tensor:

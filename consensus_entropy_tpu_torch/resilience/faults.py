@@ -17,8 +17,9 @@ Actions:
   first row to NaN;
 - ``delay`` sleeps ``delay_s`` (``delay=0.5``).
 
-The serve and fabric points, and the gray ``stall``/``slow`` actions, wait
-for the serving layer (ROADMAP A10).
+Of the serve points only ``serve.dispatch`` (the fleet scheduler's device
+dispatches) is here; the others, the fabric points and the gray
+``stall``/``slow`` actions wait for the serving layer (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ FAULT_POINTS = frozenset({
     "io.write.eio",       # raise -> OSError(EIO) before any byte
     "io.fsync",           # raise -> the fsync is dropped
     "io.rename",          # raise -> the atomic rename fails with EIO
+    "serve.dispatch",     # FleetScheduler, each device dispatch
 })
 
 ACTIONS = ("kill", "raise", "transient", "corrupt", "delay")

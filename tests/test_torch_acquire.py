@@ -50,17 +50,29 @@ def test_conflicting_reregistration_fails_loud():
 
 
 def test_probs_plan_routes_by_probs_source():
-    # the plan protocol (probs_plan) waits for the fleet scheduler
-    # (ROADMAP A9); the sequential session routes each mode's producer by
-    # probs_source: qbdc's dropout committee, the stored committee else
+    # each mode's producer is routed by probs_source: qbdc's dropout
+    # committee, the stored committee else; probs_plan (the fleet's
+    # stacked producer) follows the same routing, None without probs
     routes = {m: (acquire.get(m).needs_probs, acquire.get(m).probs_source)
               for m in acquire.available_modes()}
     assert routes == {"mc": (True, "committee"), "hc": (False, "committee"),
                       "mix": (True, "committee"),
                       "rand": (False, "committee"), "qbdc": (True, "qbdc"),
                       "wmc": (True, "committee")}
-    assert not any(hasattr(acquire.get(m), "probs_plan")
-                   for m in acquire.available_modes())
+
+    class Recorder:
+        def cnn_score_plan(self, store, song_ids, key, *, pad_to):
+            return ("cnn", pad_to)
+
+        def qbdc_score_plan(self, store, song_ids, key, *, k, pad_to):
+            return ("qbdc", k, pad_to)
+
+    plans = {m: acquire.get(m).probs_plan(Recorder(), None, [1], None,
+                                          pad_to=8, config=ALConfig())
+             for m in acquire.available_modes()}
+    assert plans == {"mc": ("cnn", 8), "hc": None, "mix": ("cnn", 8),
+                     "rand": None, "qbdc": ("qbdc", ALConfig().qbdc_k, 8),
+                     "wmc": ("cnn", 8)}
 
 
 def test_config_checks_match_jax():

@@ -49,6 +49,8 @@ def _user_metrics(models_root, mode):
     users = os.path.join(models_root, "users")
     out = {}
     for u in sorted(os.listdir(users)):
+        if not os.path.isdir(os.path.join(users, u)):
+            continue  # the fleet's fleet_metrics.jsonl
         with open(os.path.join(users, u, mode, "metrics.jsonl")) as f:
             out[u] = [json.loads(line) for line in f]
     return out
@@ -108,3 +110,52 @@ def test_qbdc_and_missing_registry_exit_cleanly(trees, tmp_path, capsys):
     assert amg_test.main(AL + ["-m", "mc"]
                          + _port_flags(roots, str(tmp_path / "none"))) == 1
     assert "No pre-trained models" in capsys.readouterr().out
+
+
+def test_fleet_cli_matches_the_sequential_cli(trees, tmp_path, capsys):
+    """``--fleet 2`` runs the two users as one cohort: each user's
+    ``metrics.jsonl`` equals the sequential CLI's (tolerance 0), and the
+    cohort's ``fleet_metrics.jsonl`` ends with its summary."""
+    roots, _, port_models = trees
+    runs = {}
+    for name, extra in (("seq", []), ("fleet", ["--fleet", "2",
+                                                 "--fleet-host-workers",
+                                                 "2"])):
+        models = str(tmp_path / name)
+        shutil.copytree(os.path.join(port_models, "pretrained"),
+                        os.path.join(models, "pretrained"))
+        assert amg_test.main(AL + ["-m", "mix"] + extra
+                             + _port_flags(roots, models)) == 0
+        runs[name] = models
+    assert "Fleet cohort of 2 users" in capsys.readouterr().out
+    ours = _user_metrics(runs["fleet"], "mix")
+    assert len(ours) == 2 and ours == _user_metrics(runs["seq"], "mix")
+    for u in ours:
+        assert os.path.exists(os.path.join(runs["fleet"], "users", u,
+                                           "mix", "DONE"))
+    with open(os.path.join(runs["fleet"], "users",
+                           "fleet_metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    assert [e["event"] for e in events].count("user_done") == 2
+    assert events[-1]["event"] == "fleet_summary"
+    # how many users share a dispatch depends on host timing; the stacked
+    # path itself is held in test_torch_fleet.py
+    assert events[-1]["score_dispatches"] >= 1
+    assert 0 < events[-1]["occupancy"] <= 1.0
+
+
+@pytest.mark.parametrize("extra", [
+    ["--fleet", "0"],
+    ["--no-stack-cnn"],
+    ["--plan-chunk", "2"],
+    ["--plan-chunk", "0", "--fleet", "2"],
+], ids=["fleet-0", "no-stack-cnn-alone", "plan-chunk-alone",
+        "plan-chunk-0"])
+def test_fleet_flag_errors_are_the_jax_clis(trees, capsys, extra):
+    roots, jax_flags, port_models = trees
+    assert jax_amg_test.main(AL + ["-m", "mc"] + extra + jax_flags) == 1
+    theirs = capsys.readouterr().out
+    assert amg_test.main(AL + ["-m", "mc"] + extra
+                         + _port_flags(roots, port_models)) == 1
+    assert capsys.readouterr().out == theirs
+    assert "--" in theirs

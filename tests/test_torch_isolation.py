@@ -20,6 +20,7 @@ from consensus_entropy_tpu_torch.data.audio import (
     DeviceWaveformStore,
     HostWaveformStore,
 )
+from consensus_entropy_tpu_torch.fleet import FleetScheduler
 from consensus_entropy_tpu_torch.models import short_cnn
 from consensus_entropy_tpu_torch.models.committee import CNNMember, Committee
 
@@ -48,9 +49,13 @@ print(len(names))
 """
 
 #: modules of the slices that must stay in the walk (slice 6: the harmonic
-#: frontend, the trunks, full-song scoring and the reference importer)
+#: frontend, the trunks, full-song scoring and the reference importer;
+#: slice 7: the fleet engine and the obs pieces it imports)
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
-                 "models.committee", "convert", "prng", "cli.amg_test")
+                 "models.committee", "convert", "prng", "cli.amg_test",
+                 "fleet.scheduler", "fleet.report", "fleet.session",
+                 "obs.trace", "obs.jit_telemetry", "obs.metrics",
+                 "ops.scoring", "models.cnn_trainer")
 
 
 def test_every_port_module_imports_without_jax():
@@ -58,7 +63,7 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 51   # the walk found the modules
+    assert int(out.stdout.split()[-1]) >= 55   # the walk found the modules
     walked = set(out.stdout.split())
     for name in SLICE_MODULES:
         assert f"consensus_entropy_tpu_torch.{name}" in walked, name
@@ -82,8 +87,9 @@ def _port_sources():
 
 def test_no_jax_package_import_in_port_or_chip_smoke():
     sources = list(_port_sources())
-    assert len(sources) >= 53
+    assert len(sources) >= 57
     assert os.path.join(PORT, "ops", "harmonic.py") in sources
+    assert os.path.join(PORT, "fleet", "scheduler.py") in sources
     for path in sources:
         for name in _imported_roots(path):
             assert name.split(".")[0] not in BANNED, (path, name)
@@ -107,6 +113,8 @@ def test_default_device_is_the_card_and_never_falls_back(tmp_path):
         Committee([], device_members=True)
     with pytest.raises(RuntimeError):
         ALLoop(ALConfig())
+    with pytest.raises(RuntimeError):
+        FleetScheduler(ALConfig())
     with pytest.raises(RuntimeError):
         convert.key_from_jax([0, 1])
     with pytest.raises(RuntimeError):
