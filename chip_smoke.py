@@ -2,6 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sgd-fold   # one measurement, outside the phases
+
+``--sgd-fold`` times one DEAM-scale SGD fold (``-cv 1``) through the host
+core and through its Python plain version, members bit-equal, and stops.
 
 Phases, one line of output each (or a few):
 
@@ -115,7 +119,24 @@ Phases, one line of output each (or a few):
     --fleet 2`` on phase 11's tree on the card and the CPU (run inside
     phase 11, reported here): each user's metrics equal the sequential
     CLI's for its first FLEET_CLI_EPOCHS iterations; no hand kernel
-    launched.
+    launched;
+17. pretrain: DEAM pre-training and the evidence experiment at DEAM's
+    scale (DEAM_SONGS seeded songs of DEAM_FRAMES frames x 260 feature
+    columns, annotation tables with NaN tails and length mismatches,
+    DEAM_CLIP_S-s clips in ``npy/``, 5.19 GB in the card's store): (a)
+    ``load_dataset`` cold (the cache written) and warm, tables equal; (b)
+    ``deam_classifier -cv PRE_CV -m gnb`` and ``-m sgd --n-jobs PRE_CV``,
+    and the SGD member's host core bit-equal to its Python plain version on
+    one one-vs-all problem over every frame (SGD_CHECK_EPOCHS epochs); (c) ``-cv 1 -m xgb`` (100 rounds), the member reloaded from its
+    ``.npz`` predicting bit-equal probabilities; (d) ``-cv 1 -m cnn_jax
+    --epochs PRE_CNN_EPOCHS`` at full vgg width, ms per epoch and per
+    step, the fold F1, then the same fold with ``resume=True``: skipped,
+    its file unchanged; (e) ``amg_test`` (PIPELINE_ARGS) on that registry
+    over phase 11's tree; (f) ``evidence sweep`` (EVIDENCE_ARGS) on the
+    card and on the CPU, every scoring call's slots within the gate,
+    trajectories equal (a split only behind a near-tie), then ``evidence
+    analyze`` over the card's workdir equal to the sweep's tests; no hand
+    kernel launched.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -299,13 +320,13 @@ FIT_SONGS, FIT_TEST_SONGS, FIT_EPOCHS = 10, 60, 3
 # annotated songs of USER_FRAMES frames, 5 members of each kind, the
 # CNNs' short fit before the run, q=10 for FULL_EPOCHS[mode] iterations
 # (cut from the paper's 10 to keep the script inside its time limit, and
-# from 4 and 3 to pay for phase 15; widths and the 100 retrain epochs are
-# not cut), mc's iteration 1 traced, so each mode's medians stand on 2
-# untraced iterations; the narrow CNN
+# from 4 and 3 to pay for phase 15, then to 2 and 1 for phase 17; widths
+# and the 100 retrain epochs are not cut), mc's iteration 1 traced, so
+# each mode's medians stand on 1 untraced iteration; the narrow CNN
 # of the card-vs-CPU run, one iteration with its retrain epochs cut
 # (iteration 0's selection, which it checks, comes before any retrain).
 FULL_SONGS, USER_SONGS, USER_FRAMES, FULL_MEMBERS = 1608, 400, 6, 5
-FULL_EPOCHS, FULL_PROFILED_EPOCH = {"mc": 3, "qbdc": 2}, 1
+FULL_EPOCHS, FULL_PROFILED_EPOCH = {"mc": 2, "qbdc": 1}, 1
 PRE_FIT_SONGS, PRE_FIT_EPOCHS = 20, 2
 NARROW_CNN, NARROW_EPOCHS = {"n_channels": 16, "input_length": 32768}, 1
 NARROW_RETRAIN_EPOCHS = 2
@@ -347,6 +368,19 @@ HOST_COHORT, FLEET_EPOCHS, FLEET_HOST_WORKERS, FLEET_ROUNDS = 8, 3, 4, 2
 FULL_COHORT, FULL_FLEET_EPOCHS, FLEET_RETRAIN = 3, {"mc": 1, "qbdc": 1}, 5
 FLEET_FIT_USERS, FLEET_FIT_MEMBERS, FLEET_FIT_EPOCHS = 2, 2, 2
 FLEET_CLI_EPOCHS = 3
+# Phase 17: DEAM pre-training at the dataset's scale (DEAM_SONGS songs of
+# DEAM_FRAMES frames, DEAM_CLIP_S-s clips at 16 kHz on the card): PRE_CV
+# folds of gnb and sgd, one 100-round xgb fold, one vgg fold of
+# PRE_CNN_EPOCHS epochs at full width; the registry through amg_test
+# (PIPELINE_ARGS) on phase 11's tree; the evidence sweep (GaussianNB
+# committees; mc, hc, mix, rand) on the card and the CPU.
+DEAM_CLIP_S, PRE_CV, PRE_CNN_EPOCHS = 45, 5, 2
+# the SGD core against its Python plain version in (b): one one-vs-all
+# problem over every DEAM frame, with the fit's stopping rule tracked
+SGD_CHECK_EPOCHS = 2
+PIPELINE_ARGS = ["-q", "10", "-n", "150", "--max-users", "1", "-e", "1",
+                 "-m", "mc", "--retrain-epochs", "2"]
+EVIDENCE_ARGS = ["sweep", "--seeds", "2", "--epochs", "4"]
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -1950,7 +1984,8 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
             files = sorted(os.listdir(path))
             if sum(f.startswith("classifier_") for f in files) != n_members:
                 raise AssertionError(f"al-cli {run} {d}: members {files}")
-            cnn_file = os.path.join(path, "classifier_cnn.cnn.it_0.npz")
+            cnn_file = os.path.join(path, "classifier_"
+                                    f"{CNNMember.file_stem(arch)}.cnn.it_0.npz")
             if CNNMember.load(cnn_file, CNNConfig(**CLI_CNN),
                               device="cpu").config.arch != arch:
                 raise AssertionError(f"al-cli {run} {d}: not {arch} members")
@@ -2771,6 +2806,426 @@ def phase_fleet(card, user=None, host=None, cli=None):
     return out
 
 
+# -- slice 8: DEAM pre-training and the evidence experiment ----------------
+
+
+def write_deam_tree(root, seed=SEED + 30):
+    """A DEAM tree at the dataset's scale: DEAM_SONGS per-song openSMILE
+    CSVs (``;``, frameTime and the F feature columns, DEAM_FRAMES frames
+    at 0.5 s from 15.0 s), ``arousal.csv`` / ``valence.csv`` with
+    ``sample_{ms}ms`` columns to 45 s (most rows end in a NaN, a few songs
+    lose 1-3 more frames in one table: length mismatches), and a seeded
+    DEAM_CLIP_S-s clip a song in ``npy/``.  Features are multiples of 1/256
+    (short decimals, as openSMILE prints few); songs are class-separable by
+    their annotation quadrant."""
+    rng = np.random.default_rng(seed)
+    deam_root = os.path.join(root, "deam")
+    feats = os.path.join(deam_root, "features")
+    anno = os.path.join(deam_root, "annotations")
+    npy = os.path.join(deam_root, "npy")
+    for d in (feats, anno, npy):
+        os.makedirs(d)
+    middle = [f"feat_{i}" for i in range(F - 2)]
+    header = ";".join(["frameTime", FEATURE_SLICE_START, *middle,
+                       FEATURE_SLICE_STOP])
+    cells = np.array([repr(c / 256) for c in range(-32768, 32768)])
+    song_ids = np.sort(rng.choice(np.arange(2, 2059), DEAM_SONGS,
+                                  replace=False))
+    target = rng.integers(0, C, DEAM_SONGS)
+    centers = rng.normal(0, 2.0, (C, F)) + rng.uniform(-5, 5, F)
+    times = 15.0 + 0.5 * np.arange(DEAM_FRAMES)
+    n_cols = DEAM_FRAMES + 1  # to 45.0 s: most rows' last value is NaN
+    a_rows, v_rows = [], []
+    for sid, c in zip(song_ids, target):
+        x = centers[c] + rng.standard_normal((DEAM_FRAMES, F)) * 3.0
+        codes = np.clip(np.rint(x * 256), -32768, 32767).astype(np.int64)
+        lines = [f"{t:.1f};" + ";".join(r) for t, r in
+                 zip(times, cells[codes + 32768].tolist())]
+        with open(os.path.join(feats, f"{sid}.csv"), "w") as f:
+            f.write(header + "\n" + "\n".join(lines) + "\n")
+        a_sign = 1.0 if c in (0, 1) else -1.0  # the DEAM geometry
+        v_sign = 1.0 if c in (0, 3) else -1.0
+        a = np.round(a_sign * rng.uniform(0.05, 1.0, n_cols), 4)
+        v = np.round(v_sign * rng.uniform(0.05, 1.0, n_cols), 4)
+        flip = rng.random(n_cols) < 0.08  # some frames cross an axis
+        a[flip] *= -1
+        if rng.random() < 0.9:
+            a[-1] = v[-1] = np.nan
+        if rng.random() < 0.03:  # a length mismatch
+            (a if rng.random() < 0.5 else v)[-int(rng.integers(2, 5)):] = \
+                np.nan
+        a_rows.append((sid, a))
+        v_rows.append((sid, v))
+    cols = ",".join(["song_id"] + [f"sample_{int(t * 1000)}ms" for t in
+                                   15.0 + 0.5 * np.arange(n_cols)])
+    for name, rows in (("arousal", a_rows), ("valence", v_rows)):
+        with open(os.path.join(anno, f"{name}.csv"), "w") as f:
+            f.write(cols + "\n")
+            for sid, vals in rows:
+                f.write(f"{sid}," + ",".join(
+                    "" if np.isnan(x) else repr(float(x)) for x in vals)
+                    + "\n")
+    # each clip: its class's tone plus a window of one seeded noise bank
+    n = DEAM_CLIP_S * 16000
+    t = np.arange(n, dtype=np.float32) / np.float32(16000)
+    tones = [np.sin(2 * np.pi * f0 * t).astype(np.float32) * 0.5
+             for f0 in (220.0, 440.0, 784.0, 831.0)]
+    bank = rng.standard_normal(4 * n, np.float32) * np.float32(0.1)
+    for sid, c, off in zip(song_ids, target,
+                           rng.integers(0, 3 * n, DEAM_SONGS)):
+        np.save(os.path.join(npy, f"{sid}.npy"), tones[c] + bank[off:off + n])
+    return deam_root, [int(s) for s in song_ids]
+
+
+def run_pretrain_cli(args):
+    """``deam_classifier.main`` in this process, its chatter kept off
+    stdout; returns its output."""
+    from consensus_entropy_tpu_torch.cli import deam_classifier
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = deam_classifier.main(args)
+    if rc != 0:
+        raise AssertionError(f"pretrain: main({args}) exited {rc}:\n"
+                             f"{out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def last_pretrain_record(pre):
+    with open(os.path.join(pre, "pretrain_metrics.jsonl")) as f:
+        return json.loads(f.readlines()[-1])
+
+
+@contextlib.contextmanager
+def captured(owner, name, sink):
+    """Wraps ``owner.name`` so each call's (self or first argument, result)
+    lands in ``sink`` while the block runs."""
+    real = getattr(owner, name)
+
+    def wrapper(*a, **kw):
+        out = real(*a, **kw)
+        sink.append((a[0] if a else None, out))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield sink
+    finally:
+        setattr(owner, name, real)
+
+
+def sgd_core_vs_plain(X, y):
+    """(b): one of the SGD member's one-vs-all problems (class 0 against
+    the rest, from zero weights) over every row of ``X``, SGD_CHECK_EPOCHS
+    epochs, through the host core and through its Python plain version;
+    weights, intercept and epochs must be bit-equal.  Returns the host-
+    clock seconds of each."""
+    from consensus_entropy_tpu_torch.models.members import plain_sgd
+
+    y0 = (y == 0).astype(X.dtype)
+    out, secs = {}, {}
+    for route in ("core", "plain"):
+        w = np.zeros(X.shape[1], X.dtype)
+        t0 = time.perf_counter()
+        r = plain_sgd(w, 0.0, X, y0, seed=SEED, max_iter=SGD_CHECK_EPOCHS,
+                      t=1.0, alpha=1e-4, tol=1e-3, n_iter_no_change=5,
+                      plain=route == "plain")
+        secs[route] = time.perf_counter() - t0
+        out[route] = (w, r)
+    (w_core, r_core), (w_plain, r_plain) = out["core"], out["plain"]
+    if r_core != r_plain or not np.array_equal(w_core, w_plain):
+        raise AssertionError(
+            f"pretrain: the SGD core differs from its plain version "
+            f"(intercept, epochs {r_core} vs {r_plain}, max |dw| "
+            f"{np.abs(w_core - w_plain).max():.3e})")
+    return secs
+
+
+def phase_sgd_fold(card):
+    """``chip_smoke.py --sgd-fold``, not part of the default run: one
+    DEAM-scale SGD fold (``pretrain_classic``, ``-cv 1``) through the host
+    core, then with every one-vs-all problem in the Python plain version;
+    the fold members' coefficients, intercepts and epochs must be
+    bit-equal; then (b)'s one-problem check.  Prints the host-clock
+    seconds of each."""
+    import functools
+
+    from consensus_entropy_tpu_torch.data import deam
+    from consensus_entropy_tpu_torch.models import members
+    from consensus_entropy_tpu_torch.train import pretrain
+
+    native.build()
+    real = members.plain_sgd
+    with tempfile.TemporaryDirectory() as root:
+        deam_root, _ = write_deam_tree(root)
+        X, y, sids = deam.training_arrays(
+            deam.load_dataset(*deam_paths(deam_root)))
+        ova = sgd_core_vs_plain(X, y)
+        secs, fitted = {}, {}
+        for route in ("core", "plain"):
+            out = os.path.join(root, route)
+            if route == "plain":
+                members.plain_sgd = functools.partial(real, plain=True)
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    pretrain.pretrain_classic("sgd", X, y, sids, cv=1,
+                                              out_dir=out)
+                secs[route] = time.perf_counter() - t0
+            finally:
+                members.plain_sgd = real
+            fitted[route] = members.SGDMember.load(
+                os.path.join(out, "classifier_sgd.it_0.npz"))
+    core, plain = fitted["core"], fitted["plain"]
+    if not (np.array_equal(core.coef_, plain.coef_)
+            and np.array_equal(core.intercept_, plain.intercept_)
+            and core.n_iter_ == plain.n_iter_):
+        raise AssertionError("sgd-fold: the core's fold member differs "
+                             "from the plain version's")
+    print(f"[sgd-fold] {card}: -cv 1 -m sgd fold at DEAM scale ({len(X)} "
+          f"frames x {X.shape[1]} features, 4 one-vs-all problems, n_iter_ "
+          f"{core.n_iter_}; pretrain_classic, host clock, data load "
+          f"excluded): core {secs['core']:.3f} s, plain {secs['plain']:.3f} "
+          f"s, members bit-equal; one one-vs-all problem over all frames, "
+          f"{SGD_CHECK_EPOCHS} epochs: core {ova['core']:.3f} s, plain "
+          f"{ova['plain']:.3f} s, bit-equal")
+
+
+def pretrain_cnn_fold(deam_root, models, flags, pre):
+    """(d): ``-cv 1 -m cnn_jax --epochs PRE_CNN_EPOCHS`` at full width,
+    each epoch timed; then the same fold with ``resume=True`` on the CLI's
+    own store: skipped, the file unchanged."""
+    from consensus_entropy_tpu_torch.data import audio, deam
+    from consensus_entropy_tpu_torch.train import pretrain
+
+    epochs, stores, real = [], [], CNNTrainer._epoch
+
+    def timed_epoch(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t0, len(a[2])))  # train rows
+        return out
+
+    CNNTrainer._epoch = timed_epoch
+    try:
+        with captured(audio, "device_store_from_npy", stores):
+            t0 = time.perf_counter()
+            run_pretrain_cli(["-cv", "1", "-m", "cnn_jax", "--epochs",
+                              str(PRE_CNN_EPOCHS)] + flags)
+            cnn_s = time.perf_counter() - t0
+    finally:
+        CNNTrainer._epoch = real
+    if len(epochs) != PRE_CNN_EPOCHS:
+        raise AssertionError(f"pretrain cnn: {len(epochs)} epochs")
+    f1 = last_pretrain_record(pre)["fold_f1"][0]
+    fold = os.path.join(pre, "classifier_cnn.it_0.npz")
+    with open(fold, "rb") as f:
+        before = f.read()
+    store = stores[0][1]
+    table = deam.load_dataset(*deam_paths(deam_root))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pretrain.pretrain_cnn(deam.song_labels(table), store, cv=1,
+                              out_dir=pre, config=CNNConfig(),
+                              n_epochs=PRE_CNN_EPOCHS, seed=SEED,
+                              resume=True)
+    with open(fold, "rb") as f:
+        same = f.read() == before
+    if "fold 0: resuming from" not in out.getvalue() or not same:
+        raise AssertionError("pretrain cnn: the resumed fold was not "
+                             "skipped, or its file changed")
+    resumed_f1 = last_pretrain_record(pre)["fold_f1"][0]
+    del store, stores
+    torch.cuda.empty_cache()
+    ms = [1000 * s for s, _ in epochs]
+    steps = -(-epochs[0][1] // TrainConfig().batch_size)
+    return {"cnn_s": cnn_s, "epoch_ms": ms, "steps": steps,
+            "step_ms": statistics.median(ms) / steps,
+            "n_train": epochs[0][1], "f1": f1, "resumed_f1": resumed_f1}
+
+
+def deam_paths(deam_root):
+    anno = os.path.join(deam_root, "annotations")
+    return (os.path.join(deam_root, "features"),
+            os.path.join(anno, "arousal.csv"),
+            os.path.join(anno, "valence.csv"),
+            os.path.join(deam_root, "dataset_quads.csv"))
+
+
+def evidence_card_vs_cpu(root):
+    """(f): ``evidence sweep`` on the card and on the CPU, every scoring
+    result recorded; then ``evidence analyze`` over the card's workdir."""
+    from consensus_entropy_tpu_torch.cli import evidence as evidence_cli
+
+    runs, walls = {}, {}
+    for d in ("cuda", "cpu"):
+        out = os.path.join(root, f"evidence_{d}.json")
+        t0 = time.perf_counter()
+        with recorded_scoring() as picks, \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = evidence_cli.main(EVIDENCE_ARGS + [
+                "--workdir", os.path.join(root, f"ev_{d}"), "--out", out,
+                "--device", d])
+        walls[d] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"evidence sweep on {d} exited {rc}")
+        with open(out) as f:
+            runs[d] = (json.load(f), picks)
+    (card, card_picks), (host, host_picks) = runs["cuda"], runs["cpu"]
+    if len(card_picks) != len(host_picks):
+        raise AssertionError(f"evidence: {len(card_picks)} card scoring "
+                             f"calls, {len(host_picks)} on the CPU")
+    near = sum(_compare_slots(a, b, f"evidence scoring call {i}")
+               for i, (a, b) in enumerate(zip(card_picks, host_picks)))
+    split = [(m, s) for m in card["raw"] for s in card["raw"][m]
+             if card["raw"][m][s] != host["raw"][m][s]]
+    if split and not near:
+        raise AssertionError(f"evidence: trajectories {split} differ with "
+                             "no near-tie split")
+    if not split and card != host:
+        raise AssertionError("evidence: card and CPU reports differ")
+    out = os.path.join(root, "analyze.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = evidence_cli.main(["analyze", os.path.join(root, "ev_cuda"),
+                                "--out", out, "--device", "cuda"])
+    with open(out) as f:
+        analysis = json.load(f)
+    for name, t in card["tests"].items():
+        if analysis["tests"][name]["per_member_final"] != \
+                t["per_member_final"]:
+            raise AssertionError(f"evidence analyze {name}: "
+                                 f"{analysis['tests'][name]} vs {t}")
+    return {"walls": walls, "near": near, "split": split,
+            "calls": len(card_picks), "tests": card["tests"],
+            "trajectories": card["trajectories"]}
+
+
+def phase_pretrain(card):
+    """Phase 17: DEAM pre-training and the evidence experiment, (a)-(f).
+    No hand kernel is launched."""
+    from consensus_entropy_tpu_torch.data import deam
+
+    linear_mc.launches = 0
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        deam_root, song_ids = write_deam_tree(root)
+        tree_s = time.perf_counter() - t0
+        models = os.path.join(root, "models")
+        pre = os.path.join(models, "pretrained")
+        flags = ["--models-root", models, "--deam-root", deam_root]
+        paths = deam_paths(deam_root)
+        # (a) the join, cold (writes the cache), then warm
+        times, tables = {}, []
+        for what in ("cold", "warm"):
+            t0 = time.perf_counter()
+            tables.append(deam.load_dataset(*paths))
+            times[what] = time.perf_counter() - t0
+        cold, warm = tables
+        if not warm.equals(cold) or len(cold) < DEAM_SONGS * (
+                DEAM_FRAMES - 1):
+            raise AssertionError(f"pretrain: the warm table differs from "
+                                 f"the cold one ({len(cold)} rows)")
+        X, y, _ = deam.training_arrays(cold)
+        n_rows, n_songs = len(cold), len(np.unique(cold.song_id))
+        del tables, cold, warm
+        sgd_secs = sgd_core_vs_plain(X, y)
+        # (b) gnb and sgd, CV folds; (c) one 100-round xgb fold
+        walls = {}
+        for model, cv, extra in (("gnb", PRE_CV, []),
+                                 ("sgd", PRE_CV, ["--n-jobs",
+                                                  str(PRE_CV)])):
+            t0 = time.perf_counter()
+            run_pretrain_cli(["-cv", str(PRE_CV), "-m", model] + extra
+                             + flags + ["--device", "cuda"])
+            walls[model] = time.perf_counter() - t0
+            rec = last_pretrain_record(pre)
+            if rec["model"] != model or len(rec["fold_f1"]) != cv:
+                raise AssertionError(f"pretrain {model}: {rec}")
+        saved = []
+        with captured(NativeGBDTMember, "save", saved):
+            t0 = time.perf_counter()
+            run_pretrain_cli(["-cv", "1", "-m", "xgb"] + flags
+                             + ["--device", "cuda"])
+            walls["xgb"] = time.perf_counter() - t0
+        xgb_rec = last_pretrain_record(pre)
+        member = saved[0][0]
+        reloaded = NativeGBDTMember.load(
+            os.path.join(pre, "classifier_xgb.it_0.npz"))
+        probe = X[:: max(1, len(X) // 20000)]
+        if member.model.n_trees != 100 * C or not np.array_equal(
+                reloaded.predict_proba(probe), member.predict_proba(probe)):
+            raise AssertionError("pretrain xgb: the reloaded member's "
+                                 "probabilities differ, or not 100 rounds")
+        del saved, member, reloaded, X, y
+        # (d) one CNN fold at full vgg width, then resume
+        cnn = pretrain_cnn_fold(deam_root, models,
+                                flags + ["--device", "cuda"], pre)
+        files = sorted(f for f in os.listdir(pre) if f.endswith(".npz"))
+        want = ([f"classifier_gnb.it_{i}.npz" for i in range(PRE_CV)]
+                + [f"classifier_sgd.it_{i}.npz" for i in range(PRE_CV)]
+                + ["classifier_xgb.it_0.npz", "classifier_cnn.it_0.npz"])
+        if files != sorted(want):
+            raise AssertionError(f"pretrain: registry {files}")
+        # (e) the registry personalized by amg_test on phase 11's tree
+        t0 = time.perf_counter()
+        amg_root = write_amg_tree(root)
+        write_npy_tree(amg_root)
+        run_cli(PIPELINE_ARGS + ["--models-root", models, "--amg-root",
+                                 amg_root, "--device", "cuda"])
+        walls["amg_test"] = time.perf_counter() - t0
+        users = os.path.join(models, "users")
+        (uid,) = [u for u in os.listdir(users)
+                  if os.path.isdir(os.path.join(users, u))]
+        recs = read_metrics(os.path.join(users, uid, "mc"))
+        if sorted(recs) != [-1, 0] or any(
+                len(r["f1"]) != len(want) or not np.all(np.isfinite(r["f1"]))
+                for r in recs.values()):
+            raise AssertionError(f"pipeline: metrics {recs}")
+        # (f) the evidence sweep, card against CPU, and its analysis
+        ev = evidence_card_vs_cpu(root)
+    total = time.perf_counter() - t17
+    if linear_mc.launches:
+        raise AssertionError(f"pretrain: {linear_mc.launches} linear_mc "
+                             "launches on a path without the kernel")
+    print(f"[pretrain] {card}: DEAM tree of {n_songs} songs ({n_rows} "
+          f"frames x {F} features, {DEAM_CLIP_S}-s clips) written in "
+          f"{tree_s:.1f} s; load_dataset cold {times['cold']:.2f} s (cache "
+          f"written), warm {times['warm']:.2f} s, tables equal; -cv "
+          f"{PRE_CV} gnb {walls['gnb']:.1f} s, sgd (--n-jobs {PRE_CV}) "
+          f"{walls['sgd']:.1f} s; the SGD core on one one-vs-all problem "
+          f"over all {n_rows} frames, {SGD_CHECK_EPOCHS} epochs, "
+          f"bit-equal to its plain version: core {sgd_secs['core']:.3f} s, "
+          f"plain {sgd_secs['plain']:.3f} s; -cv 1 xgb (100 rounds x {C} "
+          f"classes) "
+          f"{walls['xgb']:.1f} s, fold F1 {xgb_rec['fold_f1'][0]}, the "
+          f"reloaded member's probabilities bit-equal")
+    print(f"[pretrain-cnn] {card}: -cv 1 -m cnn_jax --epochs "
+          f"{PRE_CNN_EPOCHS} at full vgg width, {cnn['n_train']} train "
+          f"songs ({cnn['steps']} steps of {TrainConfig().batch_size}): "
+          f"ms per epoch " + ", ".join(f"{m:.1f}" for m in cnn["epoch_ms"])
+          + f", ms per step {cnn['step_ms']:.2f} (validation included); "
+          f"CLI {cnn['cnn_s']:.1f} s; fold F1 {cnn['f1']}; resume skipped "
+          f"the fold (file unchanged, F1 {cnn['resumed_f1']})")
+    print(f"[pipeline] {card}: amg_test {' '.join(PIPELINE_ARGS)} on the "
+          f"pretrained registry ({len(want)} members) over phase 11's tree "
+          f"in {walls['amg_test']:.1f} s, final F1s "
+          f"{[round(v, 4) for v in recs[0]['f1']]}")
+    print(f"[evidence] {card}: evidence {' '.join(EVIDENCE_ARGS)} on the "
+          f"card {ev['walls']['cuda']:.1f} s and the CPU "
+          f"{ev['walls']['cpu']:.1f} s: {ev['calls']} scoring calls within "
+          f"the gate, {ev['near']} slots split by near-ties, trajectories "
+          + ("equal" if not ev["split"] else f"split at {ev['split']}")
+          + "; analyze equals the sweep's tests; mean trajectories "
+          + json.dumps(ev["trajectories"]) + "; per-member p "
+          + ", ".join(f"{k} {v['per_member_final']['p']:.4f}"
+                      for k, v in ev["tests"].items()))
+    print(f"[pretrain] linear_mc launches over phase 17: "
+          f"{linear_mc.launches}; phase 17 {total:.1f} s")
+
+
 def main():
     t0 = time.perf_counter()
     walls = {}
@@ -2779,6 +3234,9 @@ def main():
         walls[name] = time.perf_counter() - t0 - sum(walls.values())
 
     card = phase_device()
+    if sys.argv[1:] == ["--sgd-fold"]:
+        phase_sgd_fold(card)
+        return
     phase_build()
     phase_small()
     x, w, b = make_inputs(M, N, K, F, C, SEED)
@@ -2814,6 +3272,8 @@ def main():
     del user, host
     torch.cuda.empty_cache()
     lap("16")
+    phase_pretrain(card)
+    lap("17")
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - t0:.1f}")

@@ -35,6 +35,12 @@ Ported so far:
   and the CNN half of ``models.committee`` — the vgg ShortChunkCNN members:
   log-mel frontend, device waveform store and crops, forward, qbdc's
   dropout committee and the retraining schedule;
+- ``data.deam``, ``train.pretrain``, ``cli.deam_classifier`` — DEAM
+  pre-training without pandas or scikit-learn: the frame join and its
+  cache, grouped CV folds of every ported member kind and the CNN trunks;
+  ``native/ce_sgd.cpp`` — the SGD member's epoch loop in the host core;
+- ``al.evidence``, ``cli.evidence`` — the matched-budget mode sweep and the
+  paper's paired t-tests;
 - ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
   and JAX-layout weights, members (CNN checkpoints included), workspaces
   and keys carried across.

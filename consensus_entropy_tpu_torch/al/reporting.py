@@ -1,8 +1,9 @@
 """Reporting: reference-style text reports and ``metrics.jsonl``.
 
-Counterpart of ``consensus_entropy_tpu/al/reporting.py``, with the two
-scikit-learn metrics it calls computed here in numpy: ``weighted_f1`` is
-``f1_score(average="weighted", zero_division=0)`` and ``classification_
+Counterpart of ``consensus_entropy_tpu/al/reporting.py``, with the
+scikit-learn metrics it and the pre-trainer call computed here in numpy:
+``weighted_prf`` is ``precision_score``, ``recall_score`` and ``f1_score``
+with ``average="weighted", zero_division=0``, and ``classification_
 report`` prints scikit-learn's text (``zero_division=0``, two digits)
 for the same inputs.  The labels are the sorted union of the true and
 predicted ones.
@@ -63,12 +64,19 @@ def _average(values, weights=None) -> float:
         return float(np.average(values))
 
 
-def weighted_f1(y_true, y_pred) -> float:
-    """``f1_score(y_true, y_pred, average="weighted", zero_division=0)``."""
+def weighted_prf(y_true, y_pred) -> tuple[float, float, float]:
+    """``(precision, recall, f1)`` as scikit-learn's ``precision_score``,
+    ``recall_score`` and ``f1_score`` give them with ``average="weighted",
+    zero_division=0``."""
     _, tp, pred, true = _per_label(y_true, y_pred)
     if len(tp) == 0:
-        return float("nan")
-    return _average(_prf(tp, pred, true)[2], weights=true)
+        return (float("nan"),) * 3
+    return tuple(_average(v, weights=true) for v in _prf(tp, pred, true))
+
+
+def weighted_f1(y_true, y_pred) -> float:
+    """``f1_score(y_true, y_pred, average="weighted", zero_division=0)``."""
+    return weighted_prf(y_true, y_pred)[2]
 
 
 def classification_report(y_true, y_pred, digits: int = 2) -> str:

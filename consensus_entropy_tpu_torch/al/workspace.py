@@ -6,7 +6,8 @@ member file (``amg_test.py:146-171``); a ``DONE`` marker, written last,
 marks the user complete, and a partial directory whose ``al_state.json``
 belongs to the same experiment resumes at its next iteration.
 
-Member files are the port's (``classifier_{gnb,sgd,xgb,cnn}.{name}.npz``).
+Member files are the port's (``classifier_{gnb,sgd,xgb,cnn}.{name}.npz``,
+and ``classifier_cnn_{arch}.{name}.npz`` from the pre-trainer).
 A registry or workspace holding JAX files (scikit-learn and boosted-tree
 pickles, ``.msgpack`` CNN checkpoints) raises an error naming them and
 ``convert.registry_from_jax``, which converts them: nothing is skipped
@@ -37,9 +38,9 @@ _CONVERT = ("convert it with "
 
 
 def _member_kind(fname: str) -> str | None:
-    """``gnb``/``sgd``/``xgb``/``cnn`` for the port's member files,
-    ``None`` for files that are not members; raises for member files the
-    port cannot load."""
+    """``gnb``/``sgd``/``xgb``/``cnn`` for the port's member files (``cnn``
+    for ``classifier_cnn_{arch}`` too), ``None`` for files that are not
+    members; raises for member files the port cannot load."""
     if fname.endswith(".msgpack"):
         raise UnportedMemberError(
             f"{fname}: a JAX CNN checkpoint; {_CONVERT}")
@@ -53,8 +54,10 @@ def _member_kind(fname: str) -> str | None:
         raise UnportedMemberError(
             f"{fname}: a JAX {_PICKLED[kind]} pickle; {_CONVERT}")
     if fname.endswith(".npz"):
-        if kind == CNNMember.kind:
-            return kind
+        if CNNMember.stem_of(fname) is not None:
+            # the pre-trainer tags a non-vgg trunk's folds
+            # ``classifier_cnn_{arch}``; the file's header names its trunk
+            return CNNMember.kind
         if kind not in MEMBER_TYPES:
             raise UnportedMemberError(
                 f"{fname}: no port member of kind {kind!r}")

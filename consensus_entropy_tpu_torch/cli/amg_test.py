@@ -129,6 +129,7 @@ def main(argv=None) -> int:
     from consensus_entropy_tpu_torch.config import ALConfig, PathsConfig
     from consensus_entropy_tpu_torch.data import amg
     from consensus_entropy_tpu_torch.device import resolve_device
+    from consensus_entropy_tpu_torch.models.committee import CNNMember
     from consensus_entropy_tpu_torch.resilience.preemption import (
         EXIT_PREEMPTED,
         Preempted,
@@ -158,7 +159,7 @@ def main(argv=None) -> int:
         print(f"--full-song-hop must be in [1, input_length="
               f"{cnn_cfg.input_length}], got {args.full_song_hop}")
         return 1
-    has_cnn = any(f.startswith("classifier_cnn.") for f in files)
+    has_cnn = any(CNNMember.stem_of(f) for f in files)
     if args.mode == "qbdc" and not has_cnn:
         # the dropout committee is K masked forwards of a CNN member
         print("--al-mode qbdc needs pre-trained CNN members (no "

@@ -68,6 +68,20 @@ class PathsConfig:
         return os.path.join(self.models_root, "users")
 
     @property
+    def deam_features_dir(self) -> str:
+        return os.path.join(self.deam_root, "features")
+
+    @property
+    def deam_dataset_csv(self) -> str:
+        """The joined frame table's cache (``data/deam.py``)."""
+        return os.path.join(self.deam_root, "dataset_quads.csv")
+
+    @property
+    def deam_npy_dir(self) -> str:
+        """One ``{song_id}.npy`` waveform a song (CNN pre-training)."""
+        return os.path.join(self.deam_root, "npy")
+
+    @property
     def amg_features_dir(self) -> str:
         return os.path.join(self.amg_root, "feats")
 

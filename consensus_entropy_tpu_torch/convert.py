@@ -210,8 +210,10 @@ def _member_from_pickle(path: str):
 
 def _convert_members(src: str, dst: str, config=None) -> list[str]:
     """Write the port's file for every ``classifier_*.pkl`` and
-    ``classifier_cnn.*.msgpack`` in ``src`` into ``dst``, CNN members
-    (geometry ``config``, default ``CNNConfig()``) in float32."""
+    ``classifier_cnn*.msgpack`` in ``src`` into ``dst``, CNN members
+    (geometry ``config``, default ``CNNConfig()``) in float32, each under
+    the name its committee checkpoints it by (a CNN member keeps its
+    source's stem, ``cnn_res`` or ``cnn``)."""
     from consensus_entropy_tpu_torch.models.committee import Committee
 
     written = []
@@ -485,9 +487,10 @@ def read_cetpu_checkpoint(path: str) -> tuple[dict, dict]:
 
 
 def cnn_member_from_jax(path: str, config=None, device="cpu"):
-    """A JAX ``classifier_cnn.*.msgpack`` member -> the port's
+    """A JAX ``classifier_cnn*.msgpack`` member -> the port's
     ``CNNMember`` (float32 variables on ``device``), its frontend fields
-    taken from the file's header as the JAX loader does."""
+    taken from the file's header as the JAX loader does, its file stem
+    from the file's name."""
     import dataclasses
 
     from consensus_entropy_tpu_torch.config import CNNConfig
@@ -501,4 +504,4 @@ def cnn_member_from_jax(path: str, config=None, device="cpu"):
         config = dataclasses.replace(config, **override)
     name = meta.get("name", os.path.basename(path))
     return CNNMember(name, cnn_variables_from_jax(variables, config, device),
-                     config)
+                     config, CNNMember.stem_of(path))

@@ -142,14 +142,15 @@ def _assemble_feature_csvs(features_dir: str):
     return header + ["s_id"], rows
 
 
-def _write_cache(dataset_csv: str, header, rows) -> None:
+def _write_cache(dataset_csv: str, header, rows, delimiter: str = ";"
+                 ) -> None:
     """Write the concatenated table atomically: a reader never sees a torn
     cache, and concurrent writers produce the same bytes."""
     fd, tmp = tempfile.mkstemp(
         dir=os.path.dirname(os.path.abspath(dataset_csv)), suffix=".tmp")
     try:
         with os.fdopen(fd, "w", newline="") as f:
-            w = csv.writer(f, delimiter=";", lineterminator="\n")
+            w = csv.writer(f, delimiter=delimiter, lineterminator="\n")
             w.writerow(header)
             w.writerows(rows)
         os.replace(tmp, dataset_csv)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import abc
 import io
 import json
+import os
 import zlib
 
 import numpy as np
@@ -58,12 +59,17 @@ def _require_all_classes(y):
 def _write_npz(path: str, meta: dict, arrays: dict) -> None:
     """An ``.npz`` archive (the arrays and a JSON header) followed by the
     CRC32 of its bytes, so bit-rot anywhere in the file is caught on
-    load."""
+    load.  Written to ``path + ".tmp"`` and renamed over ``path``, as the
+    JAX checkpoint writer does: a file under ``path`` is whole, and a
+    process killed mid-write leaves only the ``.tmp``, which no reader
+    takes for a member."""
     buf = io.BytesIO()
     np.savez(buf, meta=np.array(json.dumps(meta)), **arrays)
     body = buf.getvalue()
-    with open(path, "wb") as f:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
         f.write(body + zlib.crc32(body).to_bytes(4, "little"))
+    os.replace(tmp, path)
 
 
 def _read_npz(path: str) -> tuple[dict, dict]:

@@ -190,13 +190,16 @@ class CNNTrainer:
         return torch.stack(losses).mean(), val_loss, val_f1, improved
 
     def fit(self, variables: dict, store, train_ids, train_y, test_ids,
-            test_y, key, *, n_epochs: int | None = None):
+            test_y, key, *, n_epochs: int | None = None,
+            adam_patience: int | None = None):
         """Train one member with the adam -> sgd best-reload schedule;
         returns ``(best_variables, history)``.  ``train_y``/``test_y``:
         one-hot rows aligned with the id lists.  ``variables`` is copied,
-        never changed."""
+        never changed.  ``adam_patience`` overrides the config's (pre-
+        training passes 40); ``None`` or 0 keep it, as in JAX."""
         cfg = self.train_config
         n_epochs = cfg.n_epochs if n_epochs is None else n_epochs
+        adam_patience = adam_patience or cfg.adam_patience
         batch_size = max(1, min(cfg.batch_size, len(train_ids)))
         dev = store.device
         train_rows = torch.as_tensor(store.row_of(train_ids), device=dev)
@@ -229,7 +232,7 @@ class CNNTrainer:
             st["stats"] = {k: st["best"][k].clone() for k in stats}
             st["opt"] = make_optimizer(phase, list(params.values()), cfg)
 
-        run_schedule(n_epochs, cfg.adam_patience, cfg.sgd_patience,
+        run_schedule(n_epochs, adam_patience, cfg.sgd_patience,
                      run_epoch, reload_best)
         # one host transfer for the whole history
         vals = torch.stack([torch.stack([tl, vl, f1, imp.to(tl.dtype)])

@@ -29,6 +29,7 @@ import torch
 
 from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.config import (
+    CNN_ARCHS,
     NUM_CLASSES,
     CNNConfig,
     TrainConfig,
@@ -194,10 +195,30 @@ class CNNMember(Member):
                      "n_fft", "hop_length", "f_min", "f_max", "sample_rate")
 
     def __init__(self, name: str, variables: dict,
-                 config: CNNConfig = CNNConfig()):
+                 config: CNNConfig = CNNConfig(), stem: str | None = None):
         super().__init__(name)
         self.variables = variables
         self.config = config
+        #: the kind its file is named by (``Committee.member_file``): the
+        #: one it was loaded or converted under, else its trunk's
+        self.stem = stem or self.file_stem(config.arch)
+
+    @staticmethod
+    def file_stem(arch: str) -> str:
+        """The member-file kind of trunk family ``arch``: ``cnn`` for vgg,
+        ``cnn_{arch}`` for the others, as the pre-trainer names its folds
+        (``pretrain.py:175``)."""
+        return "cnn" if arch == "vgg" else f"cnn_{arch}"
+
+    @classmethod
+    def stem_of(cls, fname: str) -> str | None:
+        """The CNN stem ``fname`` (``classifier_{stem}.{name}.*``) is
+        named by, ``None`` when it names no CNN member."""
+        base = os.path.basename(fname)
+        if not base.startswith("classifier_"):
+            return None
+        stem = base[len("classifier_"):].split(".")[0]
+        return stem if stem in _CNN_STEMS else None
 
     @property
     def variables(self) -> dict:
@@ -220,9 +241,10 @@ class CNNMember(Member):
         raise TypeError("CNNMember retrains via Committee.retrain_cnns")
 
     def save(self, path: str, variables: dict | None = None,
-             dtype: str | None = None) -> None:
+             dtype: str | None = None, meta: dict | None = None) -> None:
         """Write ``variables`` (default the member's own) as float32, or
-        as bfloat16 bits (``dtype="bfloat16"``)."""
+        as bfloat16 bits (``dtype="bfloat16"``); ``meta`` adds fields to
+        the header (the pre-trainer's resume fingerprint)."""
         variables = self.variables if variables is None else variables
         dtype = dtype or "float32"
         if dtype == "bfloat16":
@@ -233,9 +255,10 @@ class CNNMember(Member):
                       for k, t in variables.items()}
         else:
             raise ValueError(f"unsupported checkpoint dtype {dtype!r}")
-        meta = {"kind": self.kind, "name": self.name, "dtype": dtype,
-                **{k: getattr(self.config, k) for k in self.FRONTEND_META}}
-        _write_npz(path, meta, arrays)
+        header = {**(meta or {}), "kind": self.kind, "name": self.name,
+                  "dtype": dtype,
+                  **{k: getattr(self.config, k) for k in self.FRONTEND_META}}
+        _write_npz(path, header, arrays)
 
     @classmethod
     def load(cls, path: str, config: CNNConfig = CNNConfig(),
@@ -252,11 +275,15 @@ class CNNMember(Member):
         else:
             variables = {k: torch.from_numpy(v) for k, v in a.items()}
         member = cls(meta["name"], {k: v.to(dev) for k, v in
-                                    variables.items()}, config)
+                                    variables.items()}, config,
+                     cls.stem_of(path))
         # loaded == the file's content: the member is clean against it
         member.ckpt_dirty = False
         member.ckpt_clean_path = os.path.abspath(path)
         return member
+
+
+_CNN_STEMS = frozenset(CNNMember.file_stem(a) for a in CNN_ARCHS)
 
 
 def _keep_columns(out: torch.Tensor, keep: int) -> torch.Tensor:
@@ -778,8 +805,14 @@ class Committee:
 
     @staticmethod
     def member_file(m: Member) -> str:
-        """``classifier_{kind}.{name}.npz`` in the port's member format."""
-        return f"classifier_{m.kind}.{m.name}.npz"
+        """``classifier_{kind}.{name}.npz`` in the port's member format; a
+        CNN member is named by its ``stem``, the one its file had, so a
+        checkpoint replaces the file the member came from: one file a
+        member, whether the workspace came from a registry with
+        ``classifier_cnn_res`` folds or from one that saved every trunk as
+        ``classifier_cnn``."""
+        kind = m.stem if isinstance(m, CNNMember) else m.kind
+        return f"classifier_{kind}.{m.name}.npz"
 
     def save(self, directory: str) -> None:
         self.begin_save(directory)()

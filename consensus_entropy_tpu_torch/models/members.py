@@ -299,9 +299,11 @@ def _dloss(y: float, p: float) -> float:
 def plain_sgd(w: np.ndarray, intercept: float, X: np.ndarray,
               y: np.ndarray, *, seed: int, max_iter: int, t: float,
               alpha: float, tol: float, n_iter_no_change: int,
-              shuffle: bool = True) -> tuple[float, int]:
+              shuffle: bool = True, plain: bool = False) -> tuple[float, int]:
     """``_plain_sgd`` for the log loss, L2 penalty and the ``optimal``
-    schedule, no averaging or early stopping, unit weights.
+    schedule, no averaging or early stopping, unit weights.  It runs in
+    the host core (``native.plain_sgd``, the same arithmetic in C++);
+    ``plain=True`` runs this Python loop, its plain version.
 
     ``w`` (float32 or float64) is updated in place, with that dtype's
     arithmetic where the Cython code has it: each product of a weight and
@@ -311,6 +313,13 @@ def plain_sgd(w: np.ndarray, intercept: float, X: np.ndarray,
     and adds in double.  ``y`` holds 0/1.
     Returns ``(intercept, epochs run)``.
     """
+    if not plain:
+        from consensus_entropy_tpu_torch import native
+
+        return native.plain_sgd(
+            w, intercept, X, y, seed=seed, max_iter=max_iter, t=t,
+            alpha=alpha, tol=tol, n_iter_no_change=n_iter_no_change,
+            shuffle=shuffle)
     dt = w.dtype.type
     n = X.shape[0]
     x64 = X.astype(np.float64)

@@ -1,17 +1,22 @@
-"""The boosted slot's host core: tree build and forest predict in C++.
+"""The host core: the boosted slot's tree build and forest predict, and
+the SGD member's epoch loop, in C++.
 
 Counterpart of the GBDT half of ``consensus_entropy_tpu/native/__init__.py``
 (``gbdt_build_tree`` ``:199-240``, ``_gbdt_build_tree_np`` ``:242-350``,
 ``gbdt_predict_margins`` ``:352-402``) and of ``native/build.py:41-75``.
-``native/ce_gbdt.cpp`` (the port's own copy of the source) is compiled with
-the host compiler (``g++ -O3 -fopenmp -shared -fPIC -std=c++17``) at first
-use into ``consensus_entropy_tpu_torch/_build/``, named after a hash of the
-source and the flags; each process builds under its own temporary name and
-moves the library into place with ``os.replace``.
+``native/ce_gbdt.cpp`` (the port's own copy of the source) and
+``native/ce_sgd.cpp`` (scikit-learn's ``_plain_sgd`` loop, which the JAX
+package takes from scikit-learn's Cython) are compiled with the host
+compiler (``g++ -O3 -fopenmp -ffp-contract=off -shared -fPIC -std=c++17``)
+at first use into one library in ``consensus_entropy_tpu_torch/_build/``,
+named after a hash of the sources and the flags; each process builds under
+its own temporary name and moves the library into place with
+``os.replace``.
 
 Unlike the JAX package there is no silent fallback: a failed build or load
-raises.  The numpy plain versions (the same algorithm with the same double
-accumulation order, so the trees are identical) run only when the caller
+raises.  The plain versions (numpy for the trees, the same algorithm with
+the same double accumulation order, so the trees are identical; Python for
+the SGD loop, ``models/members.py::plain_sgd``) run only when the caller
 passes ``plain=True``, as the tests do.
 
 Concurrent callers (the fleet's host workers) each cap their own OpenMP
@@ -35,8 +40,11 @@ from numpy.ctypeslib import ndpointer
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "native", "ce_gbdt.cpp")
+SGD_SOURCE = os.path.join(_PKG, "native", "ce_sgd.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
-CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+# no contracted multiply-adds: the plain versions round each product
+CXX_FLAGS = ("-O3", "-fopenmp", "-ffp-contract=off", "-shared", "-fPIC",
+             "-std=c++17")
 
 _f32 = ndpointer(np.float32, flags="C_CONTIGUOUS")
 _f64 = ndpointer(np.float64, flags="C_CONTIGUOUS")
@@ -51,11 +59,12 @@ _threads = threading.local()
 
 
 def library_path() -> str:
-    """Where the library for the current source and flags lives."""
+    """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"ce_gbdt-{digest.hexdigest()[:16]}.so")
+    for source in (SOURCE, SGD_SOURCE):
+        with open(source, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"ce_host-{digest.hexdigest()[:16]}.so")
 
 
 def build() -> tuple[str, str]:
@@ -66,7 +75,7 @@ def build() -> tuple[str, str]:
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, SOURCE, "-o", tmp]
+    cmd = ["g++", *CXX_FLAGS, SOURCE, SGD_SOURCE, "-o", tmp]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         if os.path.exists(tmp):
@@ -93,6 +102,15 @@ def _get_lib() -> ctypes.CDLL:
         lib.ce_gbdt_predict_margins.restype = None
         lib.ce_gbdt_set_threads.argtypes = [ctypes.c_int]
         lib.ce_gbdt_set_threads.restype = None
+        for name, ptr in (("ce_sgd_plain_f32", _f32),
+                          ("ce_sgd_plain_f64", _f64)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ctypes.POINTER(ctypes.c_double), ptr, ptr,
+                           _int64, _int64, ctypes.c_uint32, ctypes.c_int,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_double, _i32,
+                           ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
         _lib = lib
     limit = getattr(_threads, "limit", 0)
     if limit and getattr(_threads, "applied", 0) != limit:
@@ -306,6 +324,41 @@ def gbdt_predict_margins(Xb, feature, threshold, value, tree_class,
             node = np.where(internal, child, node)
         margins[:, tree_class[t]] += lr * value[t, node]
     return margins
+
+
+def plain_sgd(w: np.ndarray, intercept: float, X: np.ndarray,
+              y: np.ndarray, *, seed: int, max_iter: int, t: float,
+              alpha: float, tol: float, n_iter_no_change: int,
+              shuffle: bool = True) -> tuple[float, int]:
+    """``models/members.py::plain_sgd`` in the core: ``w`` (C-contiguous
+    float32 or float64) updated in place, ``X``/``y`` in its dtype.
+    Returns ``(intercept, epochs run)``; raises ``ValueError`` as the plain
+    version does when the weights stop being finite."""
+    dt = w.dtype
+    if dt not in (np.float32, np.float64) or not w.flags.c_contiguous:
+        raise ValueError(f"w must be C-contiguous float32 or float64, got "
+                         f"{dt}")
+    X = np.ascontiguousarray(X, dt)
+    y = np.ascontiguousarray(y, dt)
+    n, f = X.shape
+    if w.shape != (f,) or y.shape != (n,):
+        raise ValueError(f"shape mismatch: w {w.shape} X {X.shape} "
+                         f"y {y.shape}")
+    fn = _get_lib().ce_sgd_plain_f32 if dt == np.float32 \
+        else _get_lib().ce_sgd_plain_f64
+    icpt = ctypes.c_double(intercept)
+    epochs = ctypes.c_int(0)
+    index = np.empty(n, np.int32)
+    status = fn(w, ctypes.byref(icpt), X, y, n, f, int(seed) & 0xFFFFFFFF,
+                int(max_iter), float(t), float(alpha), float(tol),
+                int(n_iter_no_change), int(bool(shuffle)),
+                float(np.dot(w, w)), index, ctypes.byref(epochs))
+    if status:
+        raise ValueError(
+            f"Floating-point under-/overflow occurred at epoch "
+            f"#{epochs.value}. Scaling input data with StandardScaler or "
+            "MinMaxScaler might help.")
+    return icpt.value, epochs.value
 
 
 if __name__ == "__main__":

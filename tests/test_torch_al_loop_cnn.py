@@ -8,11 +8,13 @@ iterations with one retrain epoch: the queried songs are equal, the host
 members' F1s equal exactly and the CNN members' within 1e-6 (argmax of
 scores within atol 1e-5), and the per-user key stream ends equal.  A run
 killed at its second state commit resumes to the uninterrupted end state
-(float32 CNN checkpoints).  The CLI personalizes a ``tests/synth_data.py``
+(float32 CNN checkpoints); a converted JAX workspace with a res member
+resumes twice with one file a member.  The CLI personalizes a ``tests/synth_data.py``
 tree from a JAX registry (pickles and a ``.msgpack`` CNN member) converted
 by ``convert.registry_from_jax``, as the JAX CLI does from the original."""
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -180,6 +182,37 @@ def test_killed_run_resumes_to_the_uninterrupted_state(user, tmp_path):
               ckpt_dtype="float32")
     assert _metrics(path) == _metrics(whole)
     assert _state(path) == _state(whole)
+
+
+@pytest.mark.parametrize("source", [
+    "classifier_cnn.it_0.msgpack",  # the JAX committee's checkpoint name
+    "classifier_cnn_res.it_0.msgpack",  # the JAX pre-trainer's fold name
+])
+def test_converted_res_workspace_resumes_with_one_file_a_member(
+        user, tmp_path, source):
+    """A JAX user workspace whose res member has either name, converted by
+    ``workspace_from_jax``, resumes twice: each checkpoint replaces the
+    file the member came from, so the committee keeps one CNN member."""
+    jax_res = dataclasses.replace(JAX_TINY, arch="res")
+    src = tmp_path / "jax"
+    src.mkdir()
+    JaxCNN("it_0", jax_cnn.init_variables(jax.random.key(3), jax_res),
+           jax_res, JAX_TC).save(str(src / source))
+    for m in user[4]:
+        m.save(str(src / f"classifier_{m.kind}.{m.name}.pkl"))
+    path = str(tmp_path / "port")
+    convert.workspace_from_jax(str(src), path, TINY)
+    cnn_files = [source.replace(".msgpack", ".npz")]
+    for epochs in (1, 2, None):  # run one iteration, resume for one more
+        assert sorted(f for f in os.listdir(path)
+                      if f.startswith("classifier_cnn")) == cnn_files
+        committee = workspace.load_committee(path, TINY, TC, device="cpu")
+        assert [(m.name, m.config.arch) for m in committee.cnn_members] == [
+            ("it_0", "res")]
+        if epochs is not None:
+            _port_run(user, path, "mc", epochs=epochs, committee=committee,
+                      ckpt_dtype="float32")
+    assert al_state.ALState.load(path).next_epoch == 2
 
 
 @pytest.fixture(scope="module")

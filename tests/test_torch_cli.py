@@ -5,7 +5,10 @@ DEAM tree; ``convert.registry_from_jax`` carries them across; both AL CLIs
 personalize the same synthetic AMG1608 users and write equal
 ``metrics.jsonl`` files (queried songs equal, F1s equal exactly: tolerance
 0).  A rerun skips completed users; a registry the port cannot load yet
-exits 1 with the reason."""
+exits 1 with the reason.  The port's own pre-training CLI writes the
+registry the JAX CLI writes (the same files, metrics and members), which
+personalizes to the same users; the evidence CLI's sweep and analyze
+reports equal the JAX CLI's."""
 
 import json
 import os
@@ -17,8 +20,12 @@ import torch
 
 from consensus_entropy_tpu.cli import amg_test as jax_amg_test
 from consensus_entropy_tpu.cli import deam_classifier
+from consensus_entropy_tpu.cli import evidence as jax_evidence_cli
 from consensus_entropy_tpu_torch import convert
+from consensus_entropy_tpu_torch.al import evidence
 from consensus_entropy_tpu_torch.cli import amg_test
+from consensus_entropy_tpu_torch.cli import deam_classifier as port_deam
+from consensus_entropy_tpu_torch.cli import evidence as evidence_cli
 from tests.synth_data import build_synth_roots
 
 torch.set_num_threads(1)
@@ -159,3 +166,66 @@ def test_fleet_flag_errors_are_the_jax_clis(trees, capsys, extra):
                          + _port_flags(roots, port_models)) == 1
     assert capsys.readouterr().out == theirs
     assert "--" in theirs
+
+
+def test_pretraining_cli_then_amg_test_match_jax(trees, tmp_path, capsys):
+    """``deam_classifier -cv 2`` for gnb, sgd and xgb, then ``amg_test -m
+    mc`` and ``-m rand`` on the registry, in both packages: equal
+    pre-training metrics and file names, equal users' metrics, and
+    ``evidence analyze`` over the users directory equal."""
+    roots, _, _ = trees
+    models = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    for model in ("gnb", "sgd", "xgb"):
+        for name, cli in (("jax", deam_classifier), ("port", port_deam)):
+            assert cli.main(["-cv", "2", "-m", model, "--models-root",
+                             models[name], "--deam-root", roots["deam"],
+                             "--device", "cpu"]) == 0
+    pre = {k: os.path.join(v, "pretrained") for k, v in models.items()}
+    with open(os.path.join(pre["jax"], "pretrain_metrics.jsonl")) as a, \
+            open(os.path.join(pre["port"], "pretrain_metrics.jsonl")) as b:
+        assert a.read() == b.read()
+    converted = convert.registry_from_jax(pre["jax"], str(tmp_path / "conv"))
+    assert sorted(converted) == sorted(
+        f for f in os.listdir(pre["port"]) if f.endswith(".npz")) == [
+        f"classifier_{m}.it_{i}.npz" for m in ("gnb", "sgd", "xgb")
+        for i in (0, 1)]
+    flags = ["--amg-root", roots["amg"], "--device", "cpu"]
+    for mode in ("mc", "rand"):
+        assert jax_amg_test.main(AL + ["-m", mode, "--models-root",
+                                       models["jax"]] + flags) == 0
+        assert amg_test.main(AL + ["-m", mode, "--models-root",
+                                   models["port"]] + flags) == 0
+        ours, theirs = (_user_metrics(models[k], mode)
+                        for k in ("port", "jax"))
+        assert len(ours) == 2
+        for u in ours:
+            assert [(r.get("queried"), r["f1"]) for r in ours[u]] == \
+                [(r.get("queried"), r["f1"]) for r in theirs[u]]
+    capsys.readouterr()
+    users = os.path.join(models["port"], "users")
+    out = {}
+    for name, cli in (("jax", jax_evidence_cli), ("port", evidence_cli)):
+        path = str(tmp_path / f"{name}_analyze.json")
+        assert cli.main(["analyze", users, "--out", path,
+                         "--device", "cpu"]) == 0
+        with open(path) as f:
+            out[name] = json.load(f)
+    assert out["port"] == out["jax"]
+    assert out["port"]["tests"]["mc>rand"]["n_users_paired"] == 2
+    assert out["port"] == evidence.analyze_users(users)
+
+
+def test_evidence_sweep_cli_matches_jax(tmp_path, capsys):
+    reports = {}
+    for name, cli in (("jax", jax_evidence_cli), ("port", evidence_cli)):
+        out = str(tmp_path / f"{name}.json")
+        assert cli.main(["sweep", "--seeds", "2", "--epochs", "2",
+                         "--songs", "80", "--sgd-members", "1", "--out", out,
+                         "--workdir", str(tmp_path / name),
+                         "--device", "cpu"]) == 0
+        with open(out) as f:
+            reports[name] = json.load(f)
+        capsys.readouterr()
+    assert reports["port"] == reports["jax"]
+    assert set(reports["port"]["tests"]) == {"mc>rand", "hc>rand",
+                                             "mix>rand"}

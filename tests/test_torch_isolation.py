@@ -31,7 +31,7 @@ PORT = os.path.join(REPO, "consensus_entropy_tpu_torch")
 
 #: what the port never imports
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
-          "consensus_entropy_tpu", "sklearn", "pandas")
+          "consensus_entropy_tpu", "sklearn", "pandas", "joblib")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -50,12 +50,15 @@ print(len(names))
 
 #: modules of the slices that must stay in the walk (slice 6: the harmonic
 #: frontend, the trunks, full-song scoring and the reference importer;
-#: slice 7: the fleet engine and the obs pieces it imports)
+#: slice 7: the fleet engine and the obs pieces it imports; slice 8:
+#: pre-training and the evidence experiment)
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "models.committee", "convert", "prng", "cli.amg_test",
                  "fleet.scheduler", "fleet.report", "fleet.session",
                  "obs.trace", "obs.jit_telemetry", "obs.metrics",
-                 "ops.scoring", "models.cnn_trainer")
+                 "ops.scoring", "models.cnn_trainer", "data.deam",
+                 "train.pretrain", "cli.deam_classifier", "al.evidence",
+                 "cli.evidence")
 
 
 def test_every_port_module_imports_without_jax():
