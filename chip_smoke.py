@@ -136,7 +136,31 @@ Phases, one line of output each (or a few):
     card and on the CPU, every scoring call's slots within the gate,
     trajectories equal (a split only behind a near-tie), then ``evidence
     analyze`` over the card's workdir equal to the sweep's tests; no hand
-    kernel launched.
+    kernel launched;
+18. mesh: the pool-axis mesh on the one card (every mesh repeats
+    ``cuda:0``, so its shards run one after another there: no multi-GPU
+    speed is measured).  (a) B2, ``make_shardmap_pallas_mc_scorer`` over
+    MESH_B2_SHARDS shards of phase 3's pool: ``linear_mc`` launched once a
+    shard (the launches counted from 0 over one sharded select), each
+    shard's entropies held against its plain version under SPLIT_MAX_ERR,
+    the merged top-k against one unsharded ``linear_score_mc(fuse_topk=
+    True)`` (values within the gate, split slots counted as near-ties), the
+    CUDA-event median of REPS sharded calls beside the single call's; (b)
+    the six fused modes through ``make_sharded_step_fns`` over
+    MESH_STEP_SHARDS shards of phases 7-9's tables, MESH_ITERS selects
+    each, against the unsharded steps on the card: entropies, values, ids
+    and masks bit-equal; (c) ``Committee.predict_song_sequence`` of one
+    seeded SEQ_SONG_S-s song at 16 kHz, SEQ_MEMBERS harm members at full
+    width (``CNNConfig(arch="harm")``), its windows over SEQ_SHARDS
+    shards, against the window grid in one forward
+    (``sequence.full_song_probs_reference``) within CNN_TOL, ms per song
+    of both, then its first SEQ_HALO_SONG_S s at half-window hop (a halo
+    copied from each right neighbour) against the committee's window-grid
+    ``predict_songs_cnn`` at that hop; (d) ``amg_test -m mc`` with phase
+    11's vgg registry over ``--mesh cuda:0,cuda:0`` and over ``--mesh auto
+    --distributed 127.0.0.1:<port>,1,0`` (NCCL at world size 1), on phase
+    11's tree and run inside phase 11: the queried songs of phase 11's
+    unmeshed card run, every epoch; ``--mesh 2`` refused on one card.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -213,6 +237,20 @@ from consensus_entropy_tpu_torch.fleet import (  # noqa: E402
     FleetUser,
 )
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer  # noqa: E402
+from consensus_entropy_tpu_torch.parallel import (  # noqa: E402
+    multihost,
+    pool_mesh,
+    sharding,
+)
+from consensus_entropy_tpu_torch.parallel.mesh import (  # noqa: E402
+    ShardedRows,
+    make_pool_mesh,
+    make_seq_mesh,
+)
+from consensus_entropy_tpu_torch.parallel.sequence import (  # noqa: E402
+    full_song_probs_reference,
+    plan_windows,
+)
 from consensus_entropy_tpu_torch.ops import scoring  # noqa: E402
 from consensus_entropy_tpu_torch.ops.entropy import (  # noqa: E402
     shannon_entropy,
@@ -381,6 +419,15 @@ SGD_CHECK_EPOCHS = 2
 PIPELINE_ARGS = ["-q", "10", "-n", "150", "--max-users", "1", "-e", "1",
                  "-m", "mc", "--retrain-epochs", "2"]
 EVIDENCE_ARGS = ["sweep", "--seeds", "2", "--epochs", "4"]
+# Phase 18: the pool-axis mesh on one card.  (a) B2 over MESH_B2_SHARDS
+# shards of phase 3's pool (25,000 rows a shard); (b) the six fused modes
+# over MESH_STEP_SHARDS shards, MESH_ITERS selects each; (c) one seeded
+# SEQ_SONG_S-s song (9.6 M samples, 162 windows of 59,049 at hop =
+# window) scored by SEQ_MEMBERS full-width harm members over SEQ_SHARDS
+# shards, timed over SEQ_REPS calls.
+MESH_B2_SHARDS, MESH_STEP_SHARDS, MESH_ITERS = 4, 2, ITERS
+SEQ_SONG_S, SEQ_MEMBERS, SEQ_SHARDS, SEQ_REPS = 600, 2, 4, 5
+SEQ_HALO_SONG_S = 60
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -1366,7 +1413,8 @@ def phase_al_cli(card):
                                      "metrics or state differ")
         fleet_cli = fleet_cli_runs(root, amg_root, roots["cuda"],
                                    {"cuda": got, "cpu": ref})
-        phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
+        cnn = phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
+        mesh_cli = mesh_cli_runs(root, amg_root, cnn)
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
           f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
           f"written in {tree_s:.1f} s), {REG_MEMBERS} GaussianNB + "
@@ -1374,7 +1422,7 @@ def phase_al_cli(card):
           f"(queried songs and F1s, every epoch) in {walls['cuda']:.1f} s / "
           f"{walls['cpu']:.1f} s; killed at state.save hit 2, the rerun "
           f"resumed to the uninterrupted run's metrics and state")
-    return fleet_cli
+    return fleet_cli, mesh_cli
 
 
 # -- slice 5: the boosted slot and the CNN members -------------------------
@@ -1939,7 +1987,7 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
              for arch in ("vgg", CLI_FULL_SONG["arch"])}
     for arch, base in bases.items():
         write_cnn_registry(host_models, base, arch=arch)
-    near, walls = {}, {}
+    near, walls, paths = {}, {}, {}
     n_members = 2 * REG_MEMBERS + CLI_XGB + CLI_CNN_MEMBERS
     runs = {"mc": ("vgg", []), "qbdc": ("vgg", []),
             "mc-full-song": (CLI_FULL_SONG["arch"], [
@@ -1968,7 +2016,7 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
                                      f"{len(picks[d])} selects")
             users = os.path.join(models, "users")
             (uid,) = os.listdir(users)
-            path = os.path.join(users, uid, mode)
+            path = paths[(run, d)] = os.path.join(users, uid, mode)
             recs = read_metrics(path)
             st = al_state.ALState.load(path)
             if (sorted(recs) != list(range(-1, CLI_CNN_EPOCHS))
@@ -2005,6 +2053,7 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
           f"and DONE written, linear_mc launches 0; iteration 0 card vs CPU:"
           f" slot values within {CNN_TOL}, slots naming another song {near};"
           f" wall s " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return {"bases": bases, "paths": paths}
 
 
 # -- slice 6: the other trunk families and full-song scoring ---------------
@@ -3226,6 +3275,242 @@ def phase_pretrain(card):
           f"{linear_mc.launches}; phase 17 {total:.1f} s")
 
 
+# -- slice 9: the pool-axis mesh -------------------------------------------
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_cli_runs(root, amg_root, cnn):
+    """Phase 18 (d), on phase 11's tree: ``amg_test -m mc`` with the vgg
+    registry (CLI_CNN_ARGS) over a 2-way mesh on the one card, then over
+    ``--mesh auto --distributed`` at world size 1 (NCCL); each run's
+    queried songs equal phase 11's unmeshed card run's every epoch (F1s
+    compared too); ``--mesh 2`` is refused where the machine has one
+    card."""
+    ref = read_metrics(cnn["paths"][("mc", "cuda")])
+    runs = {"mesh cuda:0,cuda:0": ["--mesh", "cuda:0,cuda:0"],
+            "mesh auto, distributed 1 process": [
+                "--mesh", "auto", "--distributed",
+                f"127.0.0.1:{_free_port()},1,0"]}
+    t_all = time.perf_counter()
+    walls, f1_diff = {}, {}
+    for i, (name, extra) in enumerate(runs.items()):
+        models = os.path.join(root, f"models_mesh_{i}")
+        shutil.copytree(os.path.join(cnn["bases"]["vgg"], "pretrained"),
+                        os.path.join(models, "pretrained"))
+        linear_mc.launches = 0
+        t0 = time.perf_counter()
+        try:
+            text = run_cli(CLI_CNN_ARGS + [
+                "-m", "mc", "--models-root", models, "--amg-root", amg_root,
+                "--device", "cuda", "--cnn-config-json",
+                json.dumps(CLI_CNN)] + extra)
+        finally:
+            multihost.shutdown()
+        walls[name] = time.perf_counter() - t0
+        if "Scoring mesh" not in text or "Training mesh" not in text:
+            raise AssertionError(f"mesh-cli {name}: no mesh:\n"
+                                 f"{text[-2000:]}")
+        if linear_mc.launches:
+            raise AssertionError(f"mesh-cli {name}: linear_mc launched")
+        users = os.path.join(models, "users")
+        (uid,) = os.listdir(users)
+        recs = read_metrics(os.path.join(users, uid, "mc"))
+        if sorted(recs) != sorted(ref):
+            raise AssertionError(f"mesh-cli {name}: epochs {sorted(recs)}")
+        for e in ref:
+            if recs[e].get("queried") != ref[e].get("queried"):
+                raise AssertionError(f"mesh-cli {name} epoch {e}: queried "
+                                     "songs differ from phase 11's run")
+        f1_diff[name] = max(float(np.max(np.abs(
+            np.subtract(recs[e]["f1"], ref[e]["f1"])))) for e in ref)
+    refused = None
+    if torch.cuda.device_count() < 2:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = amg_test.main(CLI_CNN_ARGS + [
+                "-m", "mc", "--models-root", cnn["bases"]["vgg"],
+                "--amg-root", amg_root, "--device", "cuda", "--mesh", "2",
+                "--cnn-config-json", json.dumps(CLI_CNN)])
+        refused = out.getvalue().strip().splitlines()[-1]
+        if rc != 1 or "have 1 device(s)" not in refused:
+            raise AssertionError(f"mesh-cli: --mesh 2 on one card: exit "
+                                 f"{rc}, {refused!r}")
+    return {"walls": walls, "f1_diff": f1_diff, "refused": refused,
+            "wall_s": time.perf_counter() - t_all}
+
+
+def phase_mesh(card, x, w, b, mask, tables, hc, mesh_cli):
+    """The pool-axis mesh on the one card: (a) B2, (b) the fused modes,
+    (c) sequence parallelism at full width, (d) the CLI (run in phase
+    11).  Returns the kernel line's additions."""
+    # (a) B2 at configs[4] scale
+    mesh = make_pool_mesh(["cuda:0"] * MESH_B2_SHARDS)
+    xt = torch.from_numpy(x).cuda()
+    w_p, b_p = linear_members_from_jax(w, b, "cuda")
+    mt = torch.from_numpy(mask).cuda()
+    xs = ShardedRows.split(xt, mesh.device_list, 0)
+    ms = ShardedRows.split(mt, mesh.device_list, 0)
+    scorer = sharding.make_shardmap_pallas_mc_scorer(mesh, n_members=M, k=Q)
+    torch.cuda.synchronize()
+    linear_mc.launches = 0
+    got = scorer(xs, w_p, b_p, ms)
+    torch.cuda.synchronize()
+    launches = linear_mc.launches
+    if launches != MESH_B2_SHARDS:
+        raise AssertionError(f"mesh B2: {launches} linear_mc launches for "
+                             f"one select over {MESH_B2_SHARDS} shards")
+    worst = 0.0
+    for s in range(MESH_B2_SHARDS):
+        plain = linear_mc.plain_masked_entropy(xs.blocks[s], w_p, b_p,
+                                               ms.blocks[s], M)
+        worst = max(worst, check_entropy(got.entropy.blocks[s], plain,
+                                         f"mesh B2 shard {s}"))
+    check_split(worst, "mesh B2 shards")
+    ent1, v1, i1 = linear_mc.linear_score_mc(xt, w_p, b_p, mt, n_members=M,
+                                             k=Q, fuse_topk=True)
+    split = check_selection((got.values, got.indices), (v1, i1),
+                            got.entropy.full(), ent1, "mesh B2 top-k")
+    sharded_ms = time_ms(lambda: scorer(xs, w_p, b_p, ms))
+    single_ms = time_ms(lambda: linear_mc.linear_score_mc(
+        xt, w_p, b_p, mt, n_members=M, k=Q, fuse_topk=True))
+    del xt, xs, ent1
+    print(f"[mesh] {card}: (a) B2 over {MESH_B2_SHARDS} shards of "
+          f"{N // MESH_B2_SHARDS} rows (M={M} K={K} F={F} C={C} k={Q}): "
+          f"linear_mc launched {launches} times for one sharded select; "
+          f"each shard's kernel vs its plain version max |err| {worst:.3e} "
+          f"(<= {SPLIT_MAX_ERR}); merged top-k vs one unsharded launch: "
+          f"values within the gate, {split} slots split by near-ties; "
+          f"CUDA-event median of {REPS}: sharded {sharded_ms:.4f} ms "
+          f"({MESH_B2_SHARDS} shards, one after another, one card), "
+          f"unsharded {single_ms:.4f} ms")
+
+    # (b) the six fused modes, bit for bit
+    mesh2 = make_pool_mesh(["cuda:0"] * MESH_STEP_SHARDS)
+    devs = mesh2.device_list
+    sharded = pool_mesh.make_sharded_step_fns(mesh2, k=Q)
+    plain_fns = make_scoring_fns(k=Q)
+    probs, qbdc = tables["members"]["cuda"], tables["qbdc"]["cuda"]
+    hc_t = torch.from_numpy(hc).cuda()
+    hc_ent = shannon_entropy(hc_t)
+    weights = torch.from_numpy(np.random.default_rng(SEED + 30).uniform(
+        0.05, 1.0, probs.shape[0]).astype(np.float32)).cuda()
+    table_of = {"qbdc_fused": qbdc}
+    compared = 0
+    for key in scoring.FUSED_MASKS:
+        pool_u, hc_u = mt.clone(), torch.ones_like(mt)
+        pool_s = ShardedRows.split(pool_u, devs, 0)
+        hc_s = ShardedRows.split(hc_u, devs, 0)
+        p = table_of.get(key, probs)
+        p_s = ShardedRows.split(p, devs, 1)
+        for it in range(MESH_ITERS):
+            key_it = prng.key(SEED + 50 + it, "cpu")
+            args = {"mc_fused": ((p_s, pool_s), (p, pool_u)),
+                    "qbdc_fused": ((p_s, pool_s), (p, pool_u)),
+                    "wmc_fused": ((p_s, pool_s, weights),
+                                  (p, pool_u, weights)),
+                    "rand_fused": ((key_it, pool_s), (key_it, pool_u)),
+                    "hc_pre_fused": ((hc_ent, hc_s, pool_s),
+                                     (hc_ent, hc_u, pool_u)),
+                    "mix_fused": ((p_s, pool_s, hc_t, hc_s),
+                                  (p, pool_u, hc_t, hc_u))}[key]
+            a = sharded[key](*args[0])
+            r = plain_fns[key](*args[1])
+            ent = a.entropy.full() if isinstance(a.entropy, ShardedRows) \
+                else a.entropy
+            same = (torch.equal(ent, r.entropy)
+                    and torch.equal(a.values, r.values)
+                    and torch.equal(a.indices, r.indices)
+                    and torch.equal(pool_s.full(), pool_u)
+                    and torch.equal(hc_s.full(), hc_u))
+            if not same or valid_count(a.values) != Q:
+                raise AssertionError(f"mesh (b) {key} select {it}: sharded "
+                                     "and unsharded steps differ")
+            compared += 1
+    print(f"[mesh] (b) the six fused modes over {MESH_STEP_SHARDS} shards "
+          f"of phases 7-9's N={N} tables (members, qbdc K={QBDC_K}, hc), "
+          f"{MESH_ITERS} selects each ({compared} in all): entropies, "
+          f"values, ids and pool/hc masks bit-equal to the unsharded steps "
+          f"on the card")
+
+    # (c) sequence parallelism at full width
+    cfg = CNNConfig(arch="harm")
+    members = [CNNMember(f"harm.it_{i}", short_cnn.init_variables(
+        prng.key(SEED + 60 + i, "cpu"), cfg, "cuda"), cfg)
+        for i in range(SEQ_MEMBERS)]
+    com = Committee([], members, cfg, full_song_hop=cfg.input_length,
+                    device="cuda")
+    wave = (np.random.default_rng(SEED + 61).standard_normal(
+        SEQ_SONG_S * 16000) * 0.1).astype(np.float32)
+    seq_mesh = make_seq_mesh(["cuda:0"] * SEQ_SHARDS)
+    got_seq = com.predict_song_sequence(wave, seq_mesh)
+    # the window grid as one forward of the song's windows: the committee's
+    # predict_songs_cnn pads a chunk to WINDOW_CHUNK songs, 8 copies of a
+    # 600-s song, more than the card holds
+    song_plan = plan_windows(len(wave), SEQ_SHARDS, window=cfg.input_length)
+    variables = [m.variables for m in members]
+
+    def grid():
+        return full_song_probs_reference(variables, wave, song_plan, cfg,
+                                         "cuda")
+
+    ref_seq = grid()
+    np.testing.assert_allclose(got_seq.cpu().numpy(), ref_seq.cpu().numpy(),
+                               err_msg="mesh (c) full song", **CNN_TOL)
+    seq_err = float((got_seq - ref_seq).abs().max())
+    seq_ms = time_ms(lambda: com.predict_song_sequence(wave, seq_mesh),
+                     SEQ_REPS)
+    grid_ms = time_ms(grid, SEQ_REPS)
+    n_windows = song_plan.n_windows
+    # overlapping windows: each shard copies its halo from the next one
+    hop = cfg.input_length // 2
+    halo_wave = wave[: SEQ_HALO_SONG_S * 16000]
+    plan = plan_windows(len(halo_wave), SEQ_SHARDS, window=cfg.input_length,
+                        hop=hop)
+    if plan.halo <= 0:
+        raise AssertionError(f"mesh (c) halo run: no halo in {plan}")
+    halo_com = Committee([], members, cfg, full_song_hop=hop, device="cuda")
+    halo_store = DeviceWaveformStore({0: halo_wave}, cfg.input_length,
+                                     "cuda")
+    got_halo = halo_com.predict_song_sequence(halo_wave, seq_mesh)
+    ref_halo = halo_com.predict_songs_cnn(halo_store, [0], None)[:, 0]
+    np.testing.assert_allclose(got_halo.cpu().numpy(),
+                               ref_halo.cpu().numpy(),
+                               err_msg="mesh (c) halo", **CNN_TOL)
+    halo_err = float((got_halo - ref_halo).abs().max())
+    del com, halo_com, members, variables, halo_store
+    torch.cuda.empty_cache()
+    print(f"[mesh] (c) one {SEQ_SONG_S}-s song ({len(wave)} samples, "
+          f"{n_windows} windows of {cfg.input_length}), {SEQ_MEMBERS} harm "
+          f"members at full width: predict_song_sequence over {SEQ_SHARDS} "
+          f"seq shards vs the window grid in one forward within "
+          f"{CNN_TOL} (max |diff| {seq_err:.3e}); CUDA-event median of "
+          f"{SEQ_REPS}: {seq_ms:.3f} ms a song sharded ({SEQ_SHARDS} shards, "
+          f"one after another, one card), {grid_ms:.3f} ms on the grid; "
+          f"its first {SEQ_HALO_SONG_S} s at hop {hop} ({plan.n_windows} "
+          f"windows, a {plan.halo}-sample halo copied from each right "
+          f"neighbour's shard) vs the committee's window-grid "
+          f"predict_songs_cnn within the gate (max |diff| "
+          f"{halo_err:.3e})")
+
+    # (d) the CLI with a mesh (run inside phase 11)
+    print(f"[mesh] (d) amg_test {' '.join(CLI_CNN_ARGS)} -m mc with phase "
+          f"11's GBDT + vgg registry: queried songs equal phase 11's "
+          f"unmeshed card run every epoch for " + "; ".join(
+              f"{k} ({mesh_cli['walls'][k]:.1f} s, max |F1 diff| "
+              f"{mesh_cli['f1_diff'][k]:.3e})" for k in mesh_cli["walls"])
+          + f"; --mesh 2 on one card: {mesh_cli['refused']!r}; linear_mc "
+          f"launches 0")
+    return {"launches": launches, "max_abs_err": worst,
+            "sharded_ms": sharded_ms, "single_ms": single_ms}
+
+
 def main():
     t0 = time.perf_counter()
     walls = {}
@@ -3250,12 +3535,12 @@ def main():
     committee, pool, table, mem = phase_members(x)
     tables, hc = phase_acquire(table)
     phase_acquire_times(committee, pool, tables, hc, mem, card)
-    del committee, pool, table, tables
+    del committee, pool, table   # phase 18 takes the tables again
     torch.cuda.empty_cache()
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    fleet_cli = phase_al_cli(card)
+    fleet_cli, mesh_cli = phase_al_cli(card)
     lap("11")
     phase_gbdt(card)
     lap("12")
@@ -3274,14 +3559,21 @@ def main():
     lap("16")
     phase_pretrain(card)
     lap("17")
+    mesh = phase_mesh(card, x, w, b, mask, tables, hc, mesh_cli)
+    lap("18")
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
+        + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f})"
         + f"; total {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
-        "launches": launches, "max_abs_err": max_err, **times}]}))
+        "launches": launches + mesh["launches"],
+        "launches_by_phase": {"5": launches, "18": mesh["launches"]},
+        "max_abs_err": max(max_err, mesh["max_abs_err"]), **times,
+        "sharded_ms": mesh["sharded_ms"],
+        "sharded_shards": MESH_B2_SHARDS}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from consensus_entropy_tpu_torch.parallel.mesh import ShardedRows
+
 
 class AcquisitionStrategy:
     """One acquisition mode behind the ``Acquirer`` seam.
@@ -107,8 +109,11 @@ def sanitize_member_rows(p: torch.Tensor) -> torch.Tensor:
     a non-finite value or sums to zero.  It becomes the mean of the song's
     valid rows, so the member mean renormalises over the survivors; a song
     with no valid row becomes uniform.  Selected with ``torch.where``, so
-    with every row valid the output is the input, bit for bit.
+    with every row valid the output is the input, bit for bit.  Row-local,
+    so a pool-sharded table is sanitized shard by shard.
     """
+    if isinstance(p, ShardedRows):
+        return p.map(sanitize_member_rows)
     valid = (torch.isfinite(p).all(dim=-1) & (p.sum(dim=-1) > 0))[..., None]
     safe = torch.where(valid, p, 0.0)
     cnt = valid.sum(dim=0)

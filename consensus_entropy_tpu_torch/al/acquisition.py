@@ -1,17 +1,19 @@
 """Acquisition: from the scoring step back to song ids.
 
-Counterpart of ``consensus_entropy_tpu/al/acquisition.py`` on one device:
-the index <-> song-id mapping, the hc table's "queried rows never repeat"
+Counterpart of ``consensus_entropy_tpu/al/acquisition.py``: the index <->
+song-id mapping, the hc table's "queried rows never repeat"
 removal (``amg_test.py:455,484``), the mix block split and the shrinking
 pool mask, with every device shape fixed across the AL iterations.  Mode
 behaviour is the registered strategy's (``consensus_entropy_tpu_torch.
 acquire``); the ``Acquirer`` holds the per-user state the strategies work
-on.
+on.  With a pool-axis ``mesh`` the step runs through the sharded families
+of ``parallel.pool_mesh`` over operands split across the mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -40,6 +42,9 @@ class DevicePoolState:
     - ``h2d_bytes`` / ``h2d_ops``: host->device traffic since the last
       ``Acquirer.take_h2d``.
 
+    On a mesh the pool-axis members (``hc``, ``hc_ent``, ``probs`` and the
+    masks) are ``parallel.mesh.ShardedRows`` split over the pool axis.
+
     The host numpy masks stay authoritative: checkpoints and every rebuild
     read them, never the twins.
     """
@@ -64,8 +69,11 @@ class Acquirer:
     ``fuse_step``: stage the ``*_fused`` steps over the device masks (one
     call: score -> top-k -> in-place mask update); ``False`` keeps the
     two-call path that uploads the host masks each select.  ``device``:
-    where the step runs (``None`` is the card).  The pool-axis ``mesh`` of
-    the JAX acquirer is not ported.
+    where the step runs (``None`` is the card).  ``mesh``: a pool-axis
+    ``parallel.mesh.Mesh``; the step then runs sharded across it (the pad
+    width a multiple of the pool axis times the processes, so every shard
+    of every process is as wide), on the mesh's first device where
+    ``device`` would put it.
     """
 
     #: probs-staging width bucket (``staging_width``)
@@ -76,10 +84,19 @@ class Acquirer:
                  pad_multiple: int = 8, seed: int = 0, mesh=None,
                  pad_to: int | None = None, fuse_step: bool = True,
                  device=None):
+        self._mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "the pool-axis mesh is not ported; pass mesh=None")
-        self.torch_device = resolve_device(device)
+            from consensus_entropy_tpu_torch.parallel import multihost
+            from consensus_entropy_tpu_torch.parallel.mesh import POOL_AXIS
+
+            if POOL_AXIS not in mesh.shape:
+                raise ValueError(f"the acquirer's mesh needs a "
+                                 f"{POOL_AXIS!r} axis, got {mesh.shape}")
+            pad_multiple = math.lcm(pad_multiple,
+                                    multihost.pool_shards(mesh))
+            self.torch_device = mesh.axis_devices(POOL_AXIS)[0]
+        else:
+            self.torch_device = resolve_device(device)
         self.mode = mode
         self.fuse_step = fuse_step
         self.strategy = acquire.get(mode)
@@ -102,7 +119,16 @@ class Acquirer:
             self.hc[: self.n_valid] = np.asarray(hc_rows, np.float32)
         else:
             self.hc_mask[:] = False
-        self._fns = scoring.make_scoring_fns(k=queries, tie_break=tie_break)
+        if mesh is None:
+            self._fns = scoring.make_scoring_fns(k=queries,
+                                                 tie_break=tie_break)
+        else:
+            from consensus_entropy_tpu_torch.parallel.pool_mesh import (
+                make_sharded_step_fns,
+            )
+
+            self._fns = make_sharded_step_fns(mesh, k=queries,
+                                              tie_break=tie_break)
         # rand's key stream stays on the host: a split hashes two counters
         # in ~170 integer ops, microseconds here and a launch each on the
         # card; only the pool-wide draw runs on the device
@@ -113,11 +139,19 @@ class Acquirer:
         if self.strategy.uses_hc_table:
             self.device.hc = self._feed(self.hc)
         if self.strategy.uses_hc_entropy:
-            self.device.hc_ent = shannon_entropy(self.device.hc)
+            hc = self.device.hc
+            self.device.hc_ent = (shannon_entropy(hc) if mesh is None
+                                  else hc.map(shannon_entropy))
 
-    def _feed(self, arr: np.ndarray) -> torch.Tensor:
-        """A copy of a host array on the acquirer's device."""
-        return torch.tensor(arr, device=self.torch_device)
+    def _feed(self, arr: np.ndarray, axis: int = 0):
+        """A copy of a host array on the acquirer's device; on a mesh,
+        split on ``axis`` over the pool axis (each process feeding only
+        its own rows, ``parallel.multihost.feed_pool_axis``)."""
+        if self._mesh is None:
+            return torch.tensor(arr, device=self.torch_device)
+        from consensus_entropy_tpu_torch.parallel import multihost
+
+        return multihost.feed_pool_axis(arr, self._mesh, axis)
 
     @property
     def remaining_songs(self) -> list:
@@ -152,21 +186,23 @@ class Acquirer:
         is never read, so no index points past ``n_pad``.
         """
         d = self.device
+        if self._mesh is not None:
+            if self.fuse_step and isinstance(member_probs, np.ndarray):
+                return self._staged_probs_mesh(member_probs)
+            if isinstance(member_probs, torch.Tensor):
+                member_probs = member_probs.cpu().numpy()
+            padded = self.pad_probs(member_probs)
+            d.h2d_bytes += padded.nbytes
+            d.h2d_ops += 1
+            return self._feed(padded, 1)
         if isinstance(member_probs, np.ndarray):
             if not self.fuse_step:
                 padded = self.pad_probs(member_probs)
                 d.h2d_bytes += padded.nbytes
                 d.h2d_ops += 1
                 return torch.from_numpy(padded).to(self.torch_device)
-            w = self.staging_width(member_probs.shape[1])
-            member_probs = np.asarray(member_probs, np.float32)
-            if member_probs.shape[1] < w:  # host pad: fixed upload shape
-                member_probs = np.pad(
-                    member_probs,
-                    ((0, 0), (0, w - member_probs.shape[1]), (0, 0)))
-            d.h2d_bytes += member_probs.nbytes
-            d.h2d_ops += 1
-            member_probs = torch.from_numpy(member_probs)
+            member_probs = torch.from_numpy(
+                self._staging_upload(member_probs))
         m = member_probs.shape[0]
         if d.probs is None or d.probs.shape[0] != m:
             d.probs = torch.zeros((m, self.n_pad, NUM_CLASSES),
@@ -181,6 +217,43 @@ class Acquirer:
             member_probs[:, : len(live)].to(self.torch_device,
                                             torch.float32))
         return d.probs
+
+    def _staging_upload(self, member_probs: np.ndarray) -> np.ndarray:
+        """Host probs padded to the staging width (a fixed upload shape),
+        counted as one upload."""
+        member_probs = np.asarray(member_probs, np.float32)
+        w = self.staging_width(member_probs.shape[1])
+        if member_probs.shape[1] < w:
+            member_probs = np.pad(
+                member_probs,
+                ((0, 0), (0, w - member_probs.shape[1]), (0, 0)))
+        self.device.h2d_bytes += member_probs.nbytes
+        self.device.h2d_ops += 1
+        return member_probs
+
+    def _staged_probs_mesh(self, member_probs: np.ndarray):
+        """The fused mesh arm of :meth:`_staged_probs`: the live block,
+        host-padded to the staging width, scattered into the persistent
+        pool-sharded buffer in place (each shard of this process writes the
+        rows it holds; the staging tail's out-of-range rows are
+        dropped)."""
+        from consensus_entropy_tpu_torch.parallel import pool_mesh
+
+        d = self.device
+        member_probs = self._staging_upload(member_probs)
+        w, m = member_probs.shape[1], member_probs.shape[0]
+        if d.probs is None or d.probs.shape[0] != m:
+            d.probs = pool_mesh.sharded_probs_buffer(
+                self._mesh, m, self.n_pad, NUM_CLASSES)
+        live = np.flatnonzero(self.pool_mask)
+        if w < len(live):
+            raise ValueError(f"member_probs width {w} < {len(live)} live "
+                             f"songs")
+        if w > len(live):  # out-of-range slots are dropped
+            live = np.concatenate(
+                [live, np.full(w - len(live), self.n_pad, live.dtype)])
+        return pool_mesh.sharded_scatter_rows(self._mesh)(
+            d.probs, torch.from_numpy(live), torch.from_numpy(member_probs))
 
     def take_h2d(self) -> tuple:
         """Drain the ``(bytes, ops)`` uploaded since the last read."""

@@ -147,18 +147,23 @@ class ALLoop:
     members' retrain epochs an iteration; ``pad_pool_to`` pads every
     user's pool to one width; ``fuse_step`` stages the fused select (one
     call: score -> top-k -> mask update); ``device`` is where the
-    acquisition runs (``None`` is the card)."""
+    acquisition runs (``None`` is the card).  ``mesh``: a pool-axis mesh
+    the acquisition runs sharded across (its first device then stands for
+    ``device``); pair it with ``Committee(mesh=...)`` so the CNN forward
+    shards too."""
 
     def __init__(self, config: ALConfig, *, tie_break: str = "fast",
                  retrain_epochs: int | None = None,
                  pad_pool_to: int | None = None, fuse_step: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config
         self.tie_break = tie_break
         self.retrain_epochs = retrain_epochs
         self.pad_pool_to = pad_pool_to
         self.fuse_step = fuse_step
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device_list[0] if mesh is not None
+                       and device is None else resolve_device(device))
 
     def run_user(self, committee: Committee, data: UserData, user_path: str,
                  *, seed: int | None = None, resume: bool = True,
@@ -177,5 +182,5 @@ class ALLoop:
             tie_break=self.tie_break, retrain_epochs=self.retrain_epochs,
             pad_pool_to=self.pad_pool_to,
             resume=resume, timer=timer, preemption=preemption,
-            fuse_step=self.fuse_step, device=self.device)
+            fuse_step=self.fuse_step, device=self.device, mesh=self.mesh)
         return drive_inline(session)

@@ -121,10 +121,12 @@ def load_committee(path: str, config: CNNConfig = CNNConfig(),
                    train_config: TrainConfig = TrainConfig(), *,
                    device_members: bool = False,
                    full_song_hop: int | None = None,
-                   device=None) -> Committee:
+                   device=None, mesh=None, train_mesh=None) -> Committee:
     """Load every member file of a workspace into a ``Committee`` (CNN
     members under ``config``, honouring their files' frontend; scoring
-    full songs with ``full_song_hop``), after
+    full songs with ``full_song_hop``; on ``device``, by default the pool
+    ``mesh``'s first device when there is one, sharding the CNN forward
+    over ``mesh`` and the retrain over ``train_mesh``), after
     finishing or discarding a torn checkpoint.  A member file that fails to
     parse rolls the workspace back one generation once (the last-good
     snapshot) and loads again; without a snapshot the error propagates."""
@@ -133,10 +135,14 @@ def load_committee(path: str, config: CNNConfig = CNNConfig(),
         rollback_workspace,
     )
 
+    if device is None and mesh is not None:
+        device = mesh.device_list[0]
+    meshes = {"mesh": mesh, "train_mesh": train_mesh}
     recover_workspace(path)
     try:
         return _load_committee_once(path, config, train_config,
-                                    device_members, full_song_hop, device)
+                                    device_members, full_song_hop, device,
+                                    meshes)
     except CheckpointCorruptError as e:
         if not rollback_workspace(path):
             raise
@@ -146,12 +152,13 @@ def load_committee(path: str, config: CNNConfig = CNNConfig(),
                       "to the previous generation - one AL iteration will "
                       "be replayed")
         return _load_committee_once(path, config, train_config,
-                                    device_members, full_song_hop, device)
+                                    device_members, full_song_hop, device,
+                                    meshes)
 
 
 def _load_committee_once(path: str, config, train_config,
-                         device_members: bool, full_song_hop, device
-                         ) -> Committee:
+                         device_members: bool, full_song_hop, device,
+                         meshes: dict) -> Committee:
     members, cnns = [], []
     for fname in member_files(path):
         full = os.path.join(path, fname)
@@ -168,4 +175,4 @@ def _load_committee_once(path: str, config, train_config,
         raise FileNotFoundError(f"no committee members in {path}")
     return Committee(members, cnns, config, train_config,
                      device_members=device_members,
-                     full_song_hop=full_song_hop, device=device)
+                     full_song_hop=full_song_hop, device=device, **meshes)

@@ -14,8 +14,15 @@ runs; ``--cnn-arch`` names the members' trunk family (any of the five)
 and ``--full-song-hop`` scores whole songs on a window grid.  ``--fleet
 N`` runs the users in cohorts of N through ``fleet.FleetScheduler``
 (``amg_test.py:833-940`` of the JAX CLI): each user's workspace and
-result are the sequential run's.  The serve, fabric, mesh and distributed
-modes of the JAX CLI are not ported (ROADMAP A10, A11).
+result are the sequential run's.  ``--mesh auto|N|DEVICES`` splits
+every pool (and a CNN forward's crop rows, and the retrain's members)
+across N devices: the first N cards, N entries of the CPU with
+``--device cpu``, or a device list (``cuda:0,cuda:0`` holds a 2-way mesh
+on one card); ``--fleet`` composes with it.  ``--distributed COORD,N,ID`` joins
+N processes over ``torch.distributed`` first (with ``--mesh auto``): each
+holds its share of every pool, the coordinator writes the workspaces.
+The serve and fabric modes of the JAX CLI (``--mesh-devices``,
+``--hosts``) are not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -100,6 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "waveform, instead of one random crop per pass")
     p.add_argument("--cnn-arch", default=None, choices=CNN_ARCHS,
                    help="trunk family of the pre-trained CNN committee")
+    p.add_argument("--mesh", default=None, metavar="auto|N",
+                   help="shard the scoring path (CNN forward + fused "
+                        "mean->entropy->top-k) over a pool-axis device mesh: "
+                        "'auto' = all visible devices, N = first N devices "
+                        "(N entries of the CPU with --device cpu), or a "
+                        "device list such as cuda:0,cuda:0 (a device may "
+                        "repeat: its shards run one after another there)")
+    p.add_argument("--distributed", default=None, metavar="COORD,N,ID",
+                   help="join a multi-process run before touching the "
+                        "device: coordinator host:port, process count, this "
+                        "process's id (parallel.multihost over "
+                        "torch.distributed; requires --mesh auto)")
     add_path_args(p)
     add_device_arg(p)
     return p
@@ -122,6 +141,34 @@ def main(argv=None) -> int:
     if args.qbdc_k < 1:
         print(f"--qbdc-k must be >= 1, got {args.qbdc_k}")
         return 1
+    if args.fleet is not None:
+        if args.distributed:
+            # mesh x users composes in one process; several processes
+            # stacking one cohort are not built
+            print("--fleet is single-process only (drop --distributed)")
+            return 1
+        if args.mesh == "auto":
+            print("--fleet shards pools on an explicit mesh width "
+                  "(--mesh N) — 'auto' is the sequential path's spelling")
+            return 1
+    if args.distributed:
+        # before any device query: it picks this process's card
+        from consensus_entropy_tpu_torch.parallel import multihost
+
+        try:
+            coord, n_proc, proc_id = args.distributed.split(",")
+            n_proc, proc_id = int(n_proc), int(proc_id)
+        except ValueError:
+            print(f"--distributed must be COORD,N,ID "
+                  f"(got {args.distributed!r})")
+            return 1
+        if args.mesh != "auto":
+            # a numeric mesh would name the same devices in every process,
+            # and no mesh would run the whole workload in each
+            print("--distributed requires --mesh auto (got "
+                  f"--mesh {args.mesh!r})")
+            return 1
+        multihost.initialize(coord, n_proc, proc_id, device=args.device)
     import numpy as np
 
     from consensus_entropy_tpu_torch.al import workspace
@@ -166,6 +213,11 @@ def main(argv=None) -> int:
               f"classifier_cnn.*.npz in {paths.pretrained_dir}); run "
               "deam-classifier with a CNN registry first")
         return 1
+    if args.mode == "qbdc" and args.mesh and args.fleet is None:
+        # the sequential path's qbdc forward is one member's, unsharded
+        print("--al-mode qbdc does not support --mesh (qbdc scoring is "
+              "single-mesh only; use --fleet/--serve to batch users)")
+        return 1
 
     anno = amg.load_annotations(paths.amg_annotations_mat,
                                 paths.amg_mapping_mat)
@@ -183,15 +235,20 @@ def main(argv=None) -> int:
         # CNN scoring and retraining crop from the device store
         store = device_store_from_npy(paths.amg_npy_dir, pool.song_ids,
                                       cnn_cfg.input_length, device)
+    meshes = _meshes(args, device, store)
+    if meshes is None:
+        return 1
+    mesh, train_mesh = meshes
     loop = ALLoop(cfg, tie_break=args.tie_break,
                   retrain_epochs=args.retrain_epochs,
                   pad_pool_to=args.pad_pool_to,
-                  fuse_step=not args.no_fuse_step, device=device)
+                  fuse_step=not args.no_fuse_step, device=device, mesh=mesh)
     results = []
     try:
         with PreemptionGuard() as guard:
             _run_users(args, cfg, paths, users, pool, anno, hc_table,
-                       store, cnn_cfg, loop, guard, device, results)
+                       store, cnn_cfg, loop, guard, device, results,
+                       mesh, train_mesh)
     except Preempted as e:
         print(f"preempted: {e}")
         return EXIT_PREEMPTED
@@ -202,31 +259,100 @@ def main(argv=None) -> int:
     return 0
 
 
+def _meshes(args, device, store):
+    """``(mesh, train_mesh)`` of ``--mesh`` (``(None, None)`` without it),
+    or ``None`` after printing why the flag is refused.  The sequential
+    path with CNN members also spreads the retrain's members over a member
+    axis of the same devices."""
+    if not args.mesh:
+        return None, None
+    from consensus_entropy_tpu_torch.parallel import multihost
+    from consensus_entropy_tpu_torch.parallel.mesh import (
+        make_pool_mesh,
+        make_training_mesh,
+    )
+    from consensus_entropy_tpu_torch.parallel.pool_mesh import (
+        make_pool_mesh_for,
+    )
+
+    have = (1 if device.type == "cpu" else _cuda_count())
+    try:
+        n_dev = have if args.mesh == "auto" else int(args.mesh)
+    except ValueError:
+        n_dev = None
+    if n_dev is None:
+        # an explicit device list, which may repeat a device
+        try:
+            mesh = make_pool_mesh(args.mesh.split(","))
+        except (ValueError, RuntimeError) as e:
+            print(f"--mesh must be 'auto', a device count or a device "
+                  f"list, got {args.mesh!r}: {e}")
+            return None
+    elif device.type == "cpu" and n_dev >= 1:
+        mesh = make_pool_mesh_for(n_dev, "cpu")
+    elif not 1 <= n_dev <= have:
+        print(f"--mesh {args.mesh}: have {have} device(s)")
+        return None
+    elif args.distributed:
+        # this process's card; the process group holds the others
+        mesh = multihost.global_pool_mesh()
+    else:
+        mesh = make_pool_mesh_for(n_dev)
+    if args.distributed:
+        print(f"Scoring mesh: {mesh.size} device(s) in each of "
+              f"{multihost.process_count()} process(es) on the pool axis")
+    else:
+        print(f"Scoring mesh: {mesh.size} device(s) on the pool axis")
+    train_mesh = None
+    if store is not None and args.fleet is None:
+        train_mesh = make_training_mesh(dp=1, member=mesh.size,
+                                        devices=mesh.device_list)
+        print(f"Training mesh: {mesh.size} device(s) on the member axis")
+    return mesh, train_mesh
+
+
+def _cuda_count() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
 def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
-               cnn_cfg, loop, guard, device, results) -> None:
+               cnn_cfg, loop, guard, device, results, mesh=None,
+               train_mesh=None) -> None:
     from consensus_entropy_tpu_torch.al import workspace
     from consensus_entropy_tpu_torch.al.loop import UserData
     from consensus_entropy_tpu_torch.data import amg
     from consensus_entropy_tpu_torch.obs.metrics import StepTimer
+    from consensus_entropy_tpu_torch.parallel import multihost
     from consensus_entropy_tpu_torch.resilience.preemption import Preempted
 
     if args.fleet is not None:
         _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table,
-                         store, cnn_cfg, guard, device, results)
+                         store, cnn_cfg, guard, device, results, mesh)
         return
+    # several processes: the coordinator owns every workspace write, and
+    # the decisions that steer control flow are agreed by all (a process
+    # that diverged would hang the next collective)
     for num_user, u_id in enumerate(users[: args.max_users]):
-        if guard.requested:
+        if multihost.broadcast_flag(guard.requested):
             raise Preempted(f"stopping before user {u_id}")
-        user_path, skip = workspace.create_user(
-            paths.users_dir, paths.pretrained_dir, u_id, cfg.mode,
-            experiment={"seed": cfg.seed, "queries": cfg.queries,
-                        "train_size": cfg.train_size})
-        if skip:
+        if multihost.is_coordinator():
+            user_path, skip = workspace.create_user(
+                paths.users_dir, paths.pretrained_dir, u_id, cfg.mode,
+                experiment={"seed": cfg.seed, "queries": cfg.queries,
+                            "train_size": cfg.train_size})
+        else:
+            user_path = workspace.user_dir(paths.users_dir, u_id, cfg.mode)
+            skip = False
+        multihost.sync(f"create_user_{num_user}")
+        if multihost.broadcast_flag(skip):
             print(f"Skipping user {u_id}, already exists!")
             continue
         committee = workspace.load_committee(
             user_path, cnn_cfg, device_members=args.device_members,
-            full_song_hop=args.full_song_hop, device=device)
+            full_song_hop=args.full_song_hop, device=device, mesh=mesh,
+            train_mesh=train_mesh)
         sub_pool, labels = amg.user_pool(pool, anno, u_id)
         data = UserData(u_id, sub_pool, labels,
                         hc_rows=hc_table.rows_for(sub_pool.song_ids),
@@ -234,20 +360,24 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
         print(f"Creating and performing active learning for user {u_id} "
               f"with {len(labels)} annotations.")
         print(f"User {num_user} / {len(users) - 1}")
-        timer = StepTimer(os.path.join(user_path, "timings.jsonl"))
+        timer = StepTimer(os.path.join(user_path, "timings.jsonl")
+                          if multihost.is_coordinator() else None)
         res = loop.run_user(committee, data, user_path, seed=cfg.seed,
                             timer=timer, preemption=guard)
-        committee.save(user_path)
-        workspace.mark_done(user_path)
+        if multihost.is_coordinator():
+            committee.save(user_path)
+            workspace.mark_done(user_path)
+        multihost.sync(f"user_done_{num_user}")
         results.append(res)
         print(f"user {u_id}: final mean F1 = {res['final_mean_f1']:.4f}")
 
 
 def _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table, store,
-                     cnn_cfg, guard, device, results) -> None:
+                     cnn_cfg, guard, device, results, mesh=None) -> None:
     """The fleet path: cohorts of ``--fleet N`` users through
-    ``fleet.FleetScheduler`` on ``device``, each user's workspace and
-    result the sequential path's."""
+    ``fleet.FleetScheduler`` on ``device`` (on ``mesh``, every pool split
+    across it: users times shards in one dispatch), each user's workspace
+    and result the sequential path's."""
     import json
 
     from consensus_entropy_tpu_torch.fleet import (
@@ -263,7 +393,7 @@ def _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table, store,
         host_workers=args.fleet_host_workers, preemption=guard,
         pad_pool_to=args.pad_pool_to, report=report,
         stack_cnn=not args.no_stack_cnn, plan_chunk=args.plan_chunk,
-        fuse_step=not args.no_fuse_step, device=device)
+        fuse_step=not args.no_fuse_step, device=device, mesh=mesh)
     todo = list(users[: args.max_users])
     failed = []
     _run_fleet_cohorts(args, cfg, paths, store, pool, anno, hc_table,

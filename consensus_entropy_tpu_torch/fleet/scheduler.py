@@ -33,10 +33,13 @@ order as ``ALLoop.run_user``; scheduling only changes when each step runs.
 
 :meth:`FleetScheduler.run` composes the lifecycle methods :meth:`open`,
 :meth:`admit`, :meth:`pump` and :meth:`close` (:meth:`abort` on the error
-path), public for a caller that holds the engine open.  The serving
-layer's hooks (watchdog, breaker, admission hold, terminal hand-off, the
-fence release), the pool mesh, the span tracer and the device profiler
-hook are not ported (ROADMAP A10, A11).
+path), public for a caller that holds the engine open.  With a pool-axis
+``mesh`` every group runs through the sharded per-width families
+(``parallel.pool_mesh.sharded_fleet_fns_for_width``): the stacked
+``(U, M, N, C)`` is split on N, users times shards in one dispatch.  The
+serving layer's hooks (watchdog, breaker, admission hold, terminal
+hand-off, the fence release), the span tracer and the device profiler
+hook are not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from consensus_entropy_tpu_torch.obs import jit_telemetry
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
 from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER
 from consensus_entropy_tpu_torch.ops import scoring as ops_scoring
+from consensus_entropy_tpu_torch.parallel.mesh import ShardedRows
 from consensus_entropy_tpu_torch.resilience import faults
 
 
@@ -108,7 +112,9 @@ class FleetScheduler:
     admits users at several widths.  ``stack_cnn``, ``plan_chunk``,
     ``fuse_step``: see the module docstring and ``Acquirer``.  Each
     session writes its ``timings.jsonl``; a faulted user is resumed at
-    most ``MAX_RESUMES`` times."""
+    most ``MAX_RESUMES`` times.  ``mesh``: a pool-axis mesh every
+    session's pool is split across (its first device stands for
+    ``device``); groups dispatch through the sharded families."""
 
     #: eviction -> resume attempts per user before it fails terminally
     MAX_RESUMES = 1
@@ -122,9 +128,11 @@ class FleetScheduler:
                  report: FleetReport | None = None,
                  scoring_by_width: bool = False, stack_cnn: bool = True,
                  plan_chunk: int | None = None, fuse_step: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device_list[0] if mesh is not None
+                       and device is None else resolve_device(device))
         self.tie_break = tie_break
         self.retrain_epochs = retrain_epochs
         self.host_workers = host_workers
@@ -153,8 +161,10 @@ class FleetScheduler:
         host_n = self.host_workers or min(capacity, cpus, 8)
         ckpt_n = min(capacity, self.CKPT_WORKERS)
         jit_telemetry.subscribe(self._on_compile)
-        self._fleet_fns = ops_scoring.make_fleet_scoring_fns(
-            k=self.config.queries, tie_break=self.tie_break)
+        # a mesh engine dispatches through the sharded per-width families
+        self._fleet_fns = None if self.mesh is not None else \
+            ops_scoring.make_fleet_scoring_fns(
+                k=self.config.queries, tie_break=self.tie_break)
         self._results: dict = {}
         # each host worker's GBDT fits get its share of the cores
         self._host_pool = ThreadPoolExecutor(
@@ -276,7 +286,7 @@ class FleetScheduler:
             timer=timer, preemption=self.preemption,
             ckpt_executor=self._ckpt_pool, pin_pad=pin_pad,
             cnn_steps=self.stack_cnn, fuse_step=self.fuse_step,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         return _SessionState(entry, session, session.steps(), pad=pad,
                              n_pad=session.acq.n_pad)
 
@@ -383,6 +393,9 @@ class FleetScheduler:
     def _sig(x):
         if ops_scoring.is_key_array(x):
             return ("key", tuple(x.shape))
+        if isinstance(x, ShardedRows):
+            return ("sharded", x.shape, str(x.dtype), x.offsets,
+                    tuple(map(str, x.devices)))
         if isinstance(x, torch.Tensor):
             return (tuple(x.shape), str(x.dtype), str(x.device))
         arr = np.asarray(x)
@@ -392,18 +405,36 @@ class FleetScheduler:
     def _stack(vals):
         if ops_scoring.is_key_array(vals[0]):
             return ops_scoring.stack_user_keys(vals)
+        if isinstance(vals[0], ShardedRows):
+            return ShardedRows.stack(vals)
         return torch.stack([torch.as_tensor(v) for v in vals])
 
     def _h2d(self, vals) -> tuple:
         """``(bytes, uploads)`` of the operands not on the dispatch device
-        (numpy, or tensors elsewhere): each is a host->device copy."""
-        host = [v for v in vals if not (isinstance(v, torch.Tensor)
-                                        and v.device == self.device)]
+        (numpy, or tensors elsewhere): each is a host->device copy.  A
+        sharded operand lives on its mesh."""
+        host = [v for v in vals if not (
+            isinstance(v, ShardedRows) or (isinstance(v, torch.Tensor)
+                                           and v.device == self.device))]
         return (sum(int(np.asarray(v).nbytes) if not isinstance(
             v, torch.Tensor) else v.numel() * v.element_size()
             for v in host), len(host))
 
+    def _n_devices(self):
+        """The dispatch scopes' ``n_devices`` key: the mesh size, or
+        ``None`` off a mesh."""
+        return self.mesh.size if self.mesh is not None else None
+
     def _group_fns(self, width: int) -> dict:
+        """The stacked scorers of one dispatch group: the shared fleet
+        family, the width-guarded one when admitting by bucket, or on a
+        mesh the pool-sharded per-width family."""
+        if self.mesh is not None:
+            from consensus_entropy_tpu_torch.parallel import pool_mesh
+
+            return pool_mesh.sharded_fleet_fns_for_width(
+                self.mesh, k=self.config.queries,
+                tie_break=self.tie_break, width=width)
         if not self.scoring_by_width:
             return self._fleet_fns
         return ops_scoring.fleet_scoring_fns_for_width(
@@ -538,7 +569,8 @@ class FleetScheduler:
                         batch=len(group))
             stacked = [self._stack([step.inputs[pos] for _, step in group])
                        for pos in range(len(group[0][1].inputs))]
-            with jit_telemetry.dispatch_scope(fn_key, width=width):
+            with jit_telemetry.dispatch_scope(fn_key, width=width,
+                                              n_devices=self._n_devices()):
                 batched = self._group_fns(width)[fn_key](*stacked)
         except BaseException:
             # the per-user fallback grades these uploads

@@ -22,8 +22,12 @@ in the same per-user order with the same key stream as the sequential one
 (one ``prng.split`` for each ``jax.random.split``).  A host step never
 touches a tensor: the values it needs from the device are pulled to numpy
 on the generator's thread before the step is yielded, and host steps are
-offered only to committees whose host members score on the host.  The
-span tracer and the multi-host barriers wait for ROADMAP A10 and A11.
+offered only to committees whose host members score on the host.  With a
+pool-axis ``mesh`` the acquirer selects sharded and the CNN work stays
+inline.  Across processes (``parallel.multihost``) only the coordinator
+writes the workspace and the report, the preemption flag is agreed by
+every process at each boundary, and a barrier closes the run.  The span
+tracer waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from consensus_entropy_tpu_torch.al.reporting import UserReport
 from consensus_entropy_tpu_torch.config import ALConfig
 from consensus_entropy_tpu_torch.labels import one_hot_np
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
+from consensus_entropy_tpu_torch.parallel import multihost
 from consensus_entropy_tpu_torch.resilience import faults
 from consensus_entropy_tpu_torch.resilience.preemption import Preempted
 from consensus_entropy_tpu_torch.resilience.retry import retry_transient
@@ -132,7 +137,9 @@ class UserSession:
     (the fleet's).  ``pin_pad``: the padded pool width this user was
     admitted at; a rebuilt session (eviction, preemption) that pads to
     another width raises.  ``cnn_steps``: yield the CNN device work as
-    :class:`DeviceStep` plans (``False`` keeps it inline)."""
+    :class:`DeviceStep` plans (``False`` keeps it inline).  ``mesh``: the
+    acquirer's pool-axis mesh; a meshed session keeps every step inline
+    (its operands are placed on the mesh, not stackable across users)."""
 
     def __init__(self, config: ALConfig, committee, data, user_path: str, *,
                  seed: int | None = None, tie_break: str = "fast",
@@ -141,7 +148,7 @@ class UserSession:
                  timer: StepTimer | None = None, preemption=None,
                  ckpt_executor=None, pin_pad: int | None = None,
                  cnn_steps: bool = True, fuse_step: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         from consensus_entropy_tpu_torch.al.loop import (
             AsyncCheckpointer,
             grouped_split,
@@ -157,6 +164,7 @@ class UserSession:
         self.preemption = preemption
         #: CNN retrain epochs an iteration (None: ``n_epochs_retrain``)
         self.retrain_epochs = retrain_epochs
+        self.mesh = mesh
         self.result: dict | None = None
         # the config's survivor floor never weakens a stricter committee
         committee.min_members = max(committee.min_members, cfg.min_members)
@@ -167,6 +175,11 @@ class UserSession:
         self._scoring_member_names: list | None = None
 
         st = al_state.ALState.load(user_path) if resume else None
+        # every process has read the resume state before the coordinator's
+        # first commit of this run can replace it: a process that read it
+        # later would resume where the others start fresh, and the two
+        # would wait in different collectives
+        multihost.sync(f"run_user_start_{data.user_id}")
         if st is not None and not st.matches(
                 mode=cfg.mode, seed=self.seed, queries=cfg.queries,
                 train_size=cfg.train_size):
@@ -202,7 +215,7 @@ class UserSession:
                             queries=cfg.queries, mode=cfg.mode,
                             tie_break=tie_break, seed=self.seed,
                             pad_to=pad_pool_to, fuse_step=fuse_step,
-                            device=device)
+                            device=device, mesh=mesh)
         if pin_pad is not None and self.acq.n_pad != pin_pad:
             # a user's padded width is part of its run: a rebuild on another
             # width would move it to another dispatch group mid-run
@@ -215,11 +228,14 @@ class UserSession:
         #: the last finished background job's self-timed durations
         self.bg_times: dict = {}
         #: whole iteration blocks may run on host workers only when none
-        #: touches a tensor: no CNN member and no device slice
+        #: touches a tensor: no CNN member, no device slice, no mesh
         self.host_offloadable = (not committee.cnn_members
-                                 and not committee.device_members)
-        #: the CNN device work is yielded as batchable DeviceSteps
-        self.cnn_steps = cnn_steps and bool(committee.cnn_members)
+                                 and not committee.device_members
+                                 and mesh is None)
+        #: the CNN device work is yielded as batchable DeviceSteps (a
+        #: meshed committee keeps its placements: inline)
+        self.cnn_steps = (cnn_steps and bool(committee.cnn_members)
+                          and mesh is None)
         #: per step: a CNN committee's host members (scored on the host)
         #: still ride the worker pool; their blocks take numpy only
         self.sklearn_offloadable = self.host_offloadable or (
@@ -311,6 +327,8 @@ class UserSession:
         (the commit point) -> promote.  Staging is synchronous (the members
         change in place at the next update); the state write and promotion
         run on the checkpointer's thread."""
+        if not multihost.is_coordinator():
+            return
         cfg, committee, split = self.config, self.committee, self.split
         user_path = self.user_path
         # join the previous commit first: its recover_workspace prunes
@@ -355,7 +373,9 @@ class UserSession:
                 self.timer.add(f"ckpt_bg_{k}", self.bg_times.pop(f"{k}_s"))
 
     def _preempt_check(self, boundary: str) -> None:
-        if self.preemption is not None and self.preemption.requested:
+        # agreed across processes, so every one leaves at this boundary
+        if self.preemption is not None and multihost.broadcast_flag(
+                bool(self.preemption.requested)):
             self.ckpt.wait()
             raise Preempted(
                 f"preempted after {boundary}; workspace committed - "
@@ -396,7 +416,9 @@ class UserSession:
         trajectory, queried_hist = self.trajectory, self.queried_hist
         seed = self.seed
 
-        with self.ckpt, UserReport(self.user_path, cfg.mode) as report:
+        with self.ckpt, UserReport(
+                self.user_path, cfg.mode,
+                write=multihost.is_coordinator()) as report:
             #: host members' F1s from the last evaluation, the gate's
             #: before-scores (None: recompute)
             last_host_f1s = None
@@ -627,5 +649,8 @@ class UserSession:
                       "trajectory": trajectory,
                       "final_mean_f1": trajectory[-1] if trajectory
                       else None}
+        # every write is durable here; the barrier keeps the other
+        # processes from reading the workspace before the last commit
+        multihost.sync(f"run_user_done_{data.user_id}")
         self.result = result
         return result

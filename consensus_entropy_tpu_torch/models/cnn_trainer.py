@@ -25,9 +25,11 @@ float32 rounding.
 
 ``fit_many`` trains member ``i`` under ``fold_in(key, i)``, one member
 after another: the schedule depends on the epoch only, so the loop is the
-JAX lockstep's math.  ``fit_many_users`` (``:880-995``) does the same for
-a cohort of users, one user after another (the JAX user lockstep is the
-same math), each under its own key.  There is no mesh (ROADMAP A11).
+JAX lockstep's math; with a training ``mesh`` (``:278-346, 695-760``) the
+members are spread over its member axis, each trained on its device.
+``fit_many_users`` (``:880-995``) does the same for a cohort of users, one
+user after another (the JAX user lockstep is the same math), each under
+its own key.
 """
 
 from __future__ import annotations
@@ -101,6 +103,19 @@ def run_schedule(n_epochs: int, adam_patience: int, sgd_patience: int,
             phase_i += 1
             reload_best(PHASES[phase_i])
             drop_counter = 0
+
+
+def _store_on(store, device):
+    """``store``, or its copy on ``device`` (made once and kept on the
+    store)."""
+    if device is None or store.device == device:
+        return store
+    copies = store.__dict__.setdefault("_device_copies", {})
+    if device not in copies:
+        copies[device] = type(store).from_padded(
+            store.ids, store.data.to(device), store.lengths.to(device),
+            store.input_length)
+    return copies[device]
 
 
 def phase_segments(n_epochs: int, adam_patience: int,
@@ -245,17 +260,53 @@ class CNNTrainer:
         return st["best"], history
 
     def fit_many(self, variables_list: list, store, train_ids, train_y,
-                 test_ids, test_y, key, *, n_epochs: int | None = None):
+                 test_ids, test_y, key, *, n_epochs: int | None = None,
+                 mesh=None):
         """Train every member, member ``i`` under ``fold_in(key, i)``;
-        returns ``(best_variables_list, histories)``."""
+        returns ``(best_variables_list, histories)``.
+
+        ``mesh``: a ``(dp, member)`` training mesh.  The member axis spans
+        every process's member devices (``L`` a process, ``R`` processes):
+        member ``i`` takes slot ``i // ceil(M / (L*R))``, so each slot
+        holds a contiguous block of members, as the JAX package's padded
+        member axis does.  The process owning a slot trains its members on
+        the slot's device, against a copy of the store there; the JAX
+        package's padding members only fill the vmap and are not trained.
+        Each best copy comes back to the device its member arrived on,
+        and across processes each member's result and history are
+        broadcast from the rank that trained it, so the ranks hold
+        identical committees."""
+        from consensus_entropy_tpu_torch.parallel import multihost
+
+        n_members = len(variables_list)
+        homes, owners = [None] * n_members, [0] * n_members
+        if mesh is not None:
+            from consensus_entropy_tpu_torch.parallel.mesh import MEMBER_AXIS
+
+            devices = mesh.axis_devices(MEMBER_AXIS)
+            n_slots = len(devices) * multihost.process_count()
+            per = -(-n_members // n_slots)
+            slots = [i // per for i in range(n_members)]
+            homes = [devices[s % len(devices)] for s in slots]
+            owners = [s // len(devices) for s in slots]
+        me = multihost.process_index()
         best, histories = [], []
-        for i, variables in enumerate(variables_list):
-            b, h = self.fit(variables, store, train_ids, train_y, test_ids,
-                            test_y, prng.fold_in(key, i), n_epochs=n_epochs)
+        for i, (variables, dev, owner) in enumerate(
+                zip(variables_list, homes, owners)):
+            b, h = variables, None
+            if owner == me:
+                b, h = self.fit(variables, _store_on(store, dev), train_ids,
+                                train_y, test_ids, test_y,
+                                prng.fold_in(key, i), n_epochs=n_epochs)
+            if mesh is not None:
+                # in the member's own key order, alike on every rank
+                home = next(iter(variables.values())).device
+                b = {k: multihost.broadcast_tensor(b[k].to(home), src=owner)
+                     for k in variables}
+                h = multihost.broadcast_object(h, src=owner)
             best.append(b)
             histories.append(h)
         return best, histories
-
 
     def fit_many_users(self, users: list[dict], *,
                        n_epochs: int | None = None) -> list[tuple]:

@@ -13,14 +13,18 @@ incremental host updates and the CNN retrain; the checkpoint snapshot; and
 the cross-user device plans the fleet scheduler stacks (``:1168-1240,
 1342-1554``: ``CNNScorePlan``, ``CNNEvalPlan``, ``QBDCScorePlan``,
 ``CNNRetrainPlan``, ``stage_device_plans`` / ``commit_device_plans`` /
-``run_device_plans``).  Meshes and the sequence-parallel scorer wait for
-ROADMAP A11.
+``run_device_plans``).  With a pool-axis ``mesh`` the CNN forward's crop
+(or window) rows are split across the mesh (``:228-290, 455-520``); with a
+``train_mesh`` the retrain spreads the members over its member axis;
+``predict_song_sequence`` scores one long song over a ``seq`` mesh
+(``:1121-1166``).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import os
 from typing import Sequence
 
@@ -47,6 +51,8 @@ from consensus_entropy_tpu_torch.ops.device_members import (
     MemberStacks,
     make_device_committee_scorer,
 )
+from consensus_entropy_tpu_torch.parallel import multihost
+from consensus_entropy_tpu_torch.parallel.mesh import POOL_AXIS, ShardedRows
 from consensus_entropy_tpu_torch.resilience import faults
 from consensus_entropy_tpu_torch.utils import round_up
 
@@ -313,6 +319,16 @@ class Committee:
     ``full_song_hop``: CNN members score each song as the masked mean over
     its stride-``full_song_hop`` windows (deterministic, covering the
     whole song) instead of one random crop a pass; qbdc keeps its crops.
+
+    ``mesh``: a pool-axis ``parallel.mesh.Mesh``.  The CNN forward then
+    splits each crop (or window) batch's rows across it, each shard on its
+    device with the member weights copied once per distinct device, and
+    gathers the scores to the committee's device; the batches are padded
+    to a shard-divisible width, so the crop stream and the scores are the
+    unmeshed path's.  ``train_mesh``: a ``(dp, member)`` mesh
+    (``make_training_mesh``) whose member axis the retrain spreads the
+    members over (``CNNTrainer.fit_many``).  A meshed committee stages no
+    fleet plan: its placements do not stack across users.
     """
 
     #: the crop compile bucket of the JAX package (``Acquirer.
@@ -320,15 +336,16 @@ class Committee:
     #: of it, so a song's crop does not depend on the pool's width, and
     #: forwarded in bucket-wide slices
     CROP_BUCKET = 256
-    #: songs a window-grid forward takes (the last chunk padded by
-    #: repeating its last song), bounding the ``(chunk, W, L)`` windows
+    #: songs a window-grid forward takes, bounding the ``(chunk, W, L)``
+    #: windows (on a mesh, rounded up to the pool shards)
     WINDOW_CHUNK = 8
 
     def __init__(self, host_members: list[Member], cnn_members=(),
                  config: CNNConfig = CNNConfig(),
                  train_config: TrainConfig = TrainConfig(), *,
                  device_members: bool = False, min_members: int = 1,
-                 full_song_hop: int | None = None, device=None):
+                 full_song_hop: int | None = None, device=None, mesh=None,
+                 train_mesh=None):
         self.host_members = list(host_members)
         self.cnn_members = list(cnn_members)
         self.device_members = device_members
@@ -375,6 +392,51 @@ class Committee:
         #: members keeping their seats first, floored at ``min_members``.
         #: Volatile: nothing checkpointed reads it
         self.depth_cap: int | None = None
+        self.mesh = mesh
+        self.train_mesh = train_mesh
+        #: the global pool axis (every process's shards): crop buckets and
+        #: window chunks are multiples of it
+        self._n_pool_shards = (1 if mesh is None
+                               else multihost.pool_shards(mesh))
+        #: sequence-parallel scorers by (geometry, mesh); they take the
+        #: member variables as an argument, so a retrain needs no flush
+        self._seq_scorers: dict = {}
+
+    # -- mesh feeds --------------------------------------------------------
+
+    def _feed_repl(self, member_variables: list) -> dict:
+        """The member variables on every distinct device of the pool axis
+        (one copy a device), keyed by device."""
+        out = {}
+        for dev in self.mesh.axis_devices(POOL_AXIS):
+            if dev not in out:
+                out[dev] = [{k: t.to(dev) for k, t in v.items()}
+                            for v in member_variables]
+        return out
+
+    def _feed_rows(self, x: torch.Tensor) -> ShardedRows:
+        """A row batch split over the pool axis (each process feeding its
+        own rows)."""
+        return multihost.feed_pool_axis(x, self.mesh, 0)
+
+    @staticmethod
+    def _gather_rows(out: ShardedRows) -> torch.Tensor:
+        """The forward's sharded ``(M, rows, C)`` back whole on the first
+        device (from every process)."""
+        return multihost.gather_ranks(out.full(), out.axis)
+
+    def _forward(self, fn, variables: list, replicas: dict | None,
+                 *xs) -> torch.Tensor:
+        """``fn(member_variables, *xs) -> (M, rows, C)``: whole, or with
+        ``replicas`` (:meth:`_feed_repl`) on each pool shard's rows with
+        its device's copy of the variables, the results gathered."""
+        if replicas is None:
+            return fn(variables, *xs)
+        fed = [self._feed_rows(x) for x in xs]
+        lead = fed[0]
+        outs = [fn(replicas[b.device], *(f.blocks[s] for f in fed))
+                for s, b in enumerate(lead.blocks)]
+        return self._gather_rows(ShardedRows(outs, 1, lead.offsets, lead.n))
 
     @property
     def member_names(self) -> list[str]:
@@ -583,12 +645,17 @@ class Committee:
 
     # -- CNN members -------------------------------------------------------
 
+    @property
+    def _crop_bucket(self) -> int:
+        """``CROP_BUCKET``, made divisible by the pool shards."""
+        return math.lcm(self.CROP_BUCKET, self._n_pool_shards)
+
     def _bucketed_crops(self, store, rows, key) -> torch.Tensor:
         """Crops of ``rows`` padded (repeating the last row) to a multiple
-        of ``CROP_BUCKET``, sampled at the full width: threefry draws are
+        of the crop bucket, sampled at the full width: threefry draws are
         prefix-stable in the width, so the real rows' crops do not depend
         on the padding."""
-        pad = -len(rows) % self.CROP_BUCKET
+        pad = -len(rows) % self._crop_bucket
         rows_in = (np.concatenate([rows, np.repeat(rows[-1:], pad)])
                    if pad else rows)
         return store.sample_crops(key, rows_in)
@@ -602,7 +669,8 @@ class Committee:
         tail holds the bucket padding's extra crops.  With
         ``full_song_hop``: the masked mean over each song's window grid,
         ``WINDOW_CHUNK`` songs a forward, the tail repeating the last
-        song's column."""
+        song's column.  On a mesh each bucket (or window chunk) splits its
+        rows over the pool shards."""
         rows = store.row_of(song_ids)
         if pad_to is not None and pad_to < len(rows):
             raise ValueError(f"pad_to={pad_to} < n={len(rows)}")
@@ -611,38 +679,86 @@ class Committee:
             return torch.zeros((len(active), pad_to or 0,
                                 self.config.n_class), device=self.device)
         variables = [m.variables for m in active]
+        replicas = None if self.mesh is None else self._feed_repl(variables)
         with torch.no_grad():
             if self.full_song_hop is None:
                 crops = self._bucketed_crops(store, rows, key)
-                out = torch.cat([
-                    short_cnn.committee_infer(
-                        variables, crops[lo: lo + self.CROP_BUCKET],
-                        self.config)
-                    for lo in range(0, crops.shape[0], self.CROP_BUCKET)],
-                    dim=1)
+                bucket = self._crop_bucket
+                out = torch.cat([self._forward(
+                    self._crop_probs, variables, replicas,
+                    crops[lo: lo + bucket])
+                    for lo in range(0, crops.shape[0], bucket)], dim=1)
             else:
+                chunk = self._window_chunk
                 out = torch.cat([self._windows_forward(
-                    variables, store, rows[lo: lo + self.WINDOW_CHUNK])
-                    for lo in range(0, len(rows), self.WINDOW_CHUNK)], dim=1)
+                    variables, replicas, store, rows[lo: lo + chunk])
+                    for lo in range(0, len(rows), chunk)], dim=1)
         return _keep_columns(out, len(rows) if pad_to is None else pad_to)
 
-    def _windows_forward(self, variables, store, rows) -> torch.Tensor:
+    def _crop_probs(self, variables, crops) -> torch.Tensor:
+        return short_cnn.committee_infer(variables, crops, self.config)
+
+    @property
+    def _window_chunk(self) -> int:
+        """``WINDOW_CHUNK``, made divisible by the pool shards."""
+        return round_up(self.WINDOW_CHUNK, self._n_pool_shards)
+
+    def _windows_forward(self, variables, replicas, store,
+                         rows) -> torch.Tensor:
         """``(M, len(rows), C)``: each member's scores of ``rows``' windows
         averaged over the valid ones (``committee.py:260-268``), the chunk
-        padded to ``WINDOW_CHUNK`` songs and cut back."""
+        padded to :attr:`_window_chunk` songs by repeating its last song
+        and cut back; on a mesh the chunk's songs split over the pool
+        shards."""
         n = len(rows)
-        pad = self.WINDOW_CHUNK - n
+        pad = self._window_chunk - n
         if pad:
             rows = np.concatenate([rows, np.repeat(rows[-1:], pad)])
         windows, valid = store.window_batch(rows, self.full_song_hop)
+        return self._forward(self._window_mean, variables, replicas,
+                             windows, valid)[:, :n]
+
+    def _window_mean(self, variables, windows, valid) -> torch.Tensor:
+        """``(R, W, L)`` windows and their ``(R, W)`` mask -> ``(M, R, C)``
+        masked window means."""
         r, w, length = windows.shape
         probs = short_cnn.committee_infer(
             variables, windows.reshape(r * w, length), self.config)
         probs = probs.reshape(probs.shape[0], r, w, probs.shape[-1])
         weight = valid.to(probs.dtype)
-        out = ((probs * weight[None, :, :, None]).sum(dim=2)
-               / weight.sum(dim=1)[None, :, None])
-        return out[:, :n]
+        return ((probs * weight[None, :, :, None]).sum(dim=2)
+                / weight.sum(dim=1)[None, :, None])
+
+    def predict_song_sequence(self, wave, seq_mesh, *,
+                              hop: int | None = None) -> torch.Tensor:
+        """Sequence-parallel full-song CNN scores ``(M_cnn, C)`` of one
+        long waveform (``parallel.sequence``): its windows split over
+        ``seq_mesh``'s ``seq`` axis with the halo copied between
+        neighbours, so the audio is not replicated per device.  ``hop``
+        defaults to ``full_song_hop`` (else the window: no overlap).
+        Scorers are cached by padded geometry and mesh; for pools of short
+        excerpts use :meth:`predict_songs_cnn`."""
+        from consensus_entropy_tpu_torch.parallel.mesh import SEQ_AXIS
+        from consensus_entropy_tpu_torch.parallel.sequence import (
+            make_full_song_scorer,
+            pad_song,
+            plan_windows,
+        )
+
+        if not self.active_cnn_members:
+            raise ValueError("committee has no CNN members to score with")
+        wave = np.asarray(wave, np.float32)
+        plan = plan_windows(wave.shape[0], seq_mesh.shape[SEQ_AXIS],
+                            window=self.config.input_length,
+                            hop=self.full_song_hop if hop is None else hop)
+        key = (plan.windows_per_shard, plan.chunk_len, plan.halo,
+               plan.window, plan.hop, seq_mesh)
+        scorer = self._seq_scorers.get(key)
+        if scorer is None:
+            scorer = self._seq_scorers[key] = make_full_song_scorer(
+                seq_mesh, plan, self.config)
+        return scorer([m.variables for m in self.active_cnn_members],
+                      torch.from_numpy(pad_song(wave, plan)), plan.n_windows)
 
     def _qbdc_stage(self, store, rows, key, k: int):
         """Split the pass's key into the crop and the mask streams, fire
@@ -696,7 +812,8 @@ class Committee:
             [m.variables for m in active], store, train_ids, train_y,
             test_ids, test_y, key,
             n_epochs=(self.trainer.train_config.n_epochs_retrain
-                      if n_epochs is None else n_epochs))
+                      if n_epochs is None else n_epochs),
+            mesh=self.train_mesh)
         for m, b, h in zip(active, best, histories):
             if any(e["improved"] for e in h):
                 m.variables = b
@@ -705,8 +822,8 @@ class Committee:
     # -- cross-user device plans (the fleet's stacked dispatch) ------------
 
     def _stackable(self, store, song_ids) -> bool:
-        return bool(self.active_cnn_members) and store is not None \
-            and len(song_ids) > 0
+        return (bool(self.active_cnn_members) and store is not None
+                and len(song_ids) > 0 and self.mesh is None)
 
     def cnn_score_plan(self, store, song_ids, key, *,
                        pad_to: int) -> "CNNScorePlan | None":
@@ -745,6 +862,7 @@ class Committee:
         trains through ``CNNTrainer.fit_many_users``); ``None`` (a host
         store, no active member, an empty split) keeps the per-user path."""
         if (not self.active_cnn_members or store is None
+                or self.mesh is not None or self.train_mesh is not None
                 or not hasattr(store, "data")
                 or not len(train_ids) or not len(test_ids)):
             return None

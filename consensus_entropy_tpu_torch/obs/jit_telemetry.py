@@ -40,3 +40,13 @@ def dispatch_scope(fn: str, width=None, n_devices=None):
     """The dispatch of the ``(fn, width, n_devices)`` family runs inside:
     no compile can land in it, so nothing is recorded."""
     yield
+
+
+def note_lookup(family: str, **key) -> None:
+    """A family lookup keyed by ``(family, width, n_devices)``: nothing is
+    compiled behind it, so nothing is recorded."""
+
+
+def note_build(family: str, **key) -> None:
+    """A family build: eager PyTorch builds no program, so nothing is
+    recorded."""

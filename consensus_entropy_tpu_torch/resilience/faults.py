@@ -17,8 +17,9 @@ Actions:
   first row to NaN;
 - ``delay`` sleeps ``delay_s`` (``delay=0.5``).
 
-Of the serve points only ``serve.dispatch`` (the fleet scheduler's device
-dispatches) is here; the others, the fabric points and the gray
+``multihost.sync`` fires at each cross-process barrier.  Of the serve
+points only ``serve.dispatch`` (the fleet scheduler's device dispatches)
+is here; the others, the fabric points and the gray
 ``stall``/``slow`` actions wait for the serving layer (ROADMAP A10).
 """
 
@@ -45,6 +46,7 @@ FAULT_POINTS = frozenset({
     "io.fsync",           # raise -> the fsync is dropped
     "io.rename",          # raise -> the atomic rename fails with EIO
     "serve.dispatch",     # FleetScheduler, each device dispatch
+    "multihost.sync",     # parallel.multihost.sync barriers
 })
 
 ACTIONS = ("kill", "raise", "transient", "corrupt", "delay")

@@ -189,8 +189,23 @@ def test_sanitizer_matches_jax_and_is_identity_on_valid_rows(rng):
 
 
 def test_mesh_and_unknown_mode_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Acquirer([1, 2], None, queries=1, mode="mc", mesh=object(),
-                 device="cpu")
+    """A mesh without a pool axis and an unknown mode raise; a pool mesh
+    selects what the unmeshed acquirer selects (the sharded path itself
+    is held in tests/test_torch_sharding.py and test_torch_sharded_loop.py)."""
+    from consensus_entropy_tpu_torch.parallel.mesh import (
+        make_pool_mesh,
+        make_training_mesh,
+    )
+
+    with pytest.raises(ValueError, match="mesh"):
+        Acquirer([1, 2], None, queries=1, mode="mc",
+                 mesh=make_training_mesh(devices=["cpu"] * 2))
+    probs = np.random.default_rng(0).uniform(0.01, 1, (2, 3, 4)).astype(
+        np.float32)
+    meshed = Acquirer([1, 2, 3], None, queries=1, mode="mc",
+                      mesh=make_pool_mesh(["cpu"] * 2))
+    plain = Acquirer([1, 2, 3], None, queries=1, mode="mc", device="cpu")
+    assert meshed.n_pad == plain.n_pad == 8
+    assert meshed.select(probs) == plain.select(probs)
     with pytest.raises(ValueError, match="unknown mode"):
         Acquirer([1, 2], None, queries=1, mode="zzz", device="cpu")

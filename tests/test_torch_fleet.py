@@ -349,13 +349,44 @@ def test_shared_executor_keeps_each_sessions_order():
 
 def test_failed_stacked_dispatch_serves_each_user(users, tmp_path):
     """A stacked dispatch that fails is recorded and its group served one
-    user at a time: the results are unchanged."""
+    user at a time: the results are unchanged.  The cohort is stepped to
+    its first select and that round is dispatched as one group, so the
+    fault lands on a stacked dispatch whatever the host timing; the rest
+    of the run is pumped as usual."""
+    from consensus_entropy_tpu_torch.fleet.session import (
+        DeviceStep,
+        HostStep,
+        ScoreStep,
+    )
+
     cfg = _cfg("mix", epochs=2)
     seq = _sequential(users, tmp_path, cfg, pad=_pad(users))
+    entries = _entries(users, tmp_path)
     sched = FleetScheduler(cfg, device="cpu")
-    with faults.inject(FaultRule("serve.dispatch", "raise", at=1)) as inj:
-        recs = sched.run(_entries(users, tmp_path))
-    assert inj.fired
+    sched.open(N_USERS)
+    try:
+        states = [sched.admit(e, pad=_pad(users)) for e in entries]
+        sched._ready.clear()
+        round_ = []
+        for st in states:
+            sched._live[st] = None
+            step = sched._advance(st)
+            while isinstance(step, (HostStep, DeviceStep)):
+                step = sched._advance(st, step.fn() if isinstance(
+                    step, HostStep) else step.single())
+            assert isinstance(step, ScoreStep)
+            round_.append((st, step))
+        with faults.inject(FaultRule("serve.dispatch", "raise",
+                                     at=1)) as inj:
+            served = sched._dispatch_scores(round_)
+        assert [f["batch"] for f in inj.fired] == [N_USERS]
+        for st, res in served:
+            sched._ready.append((st, res, None))
+        while sched.pump():
+            pass
+    finally:
+        sched.close()
+    recs = [sched.results[id(e)] for e in entries]
     summary = sched.report.summary(cohort=N_USERS)
     assert summary["dispatch_failures"] == 1
     assert [d["batch"] for d in sched.report.dispatches[:N_USERS]] \

@@ -51,14 +51,16 @@ print(len(names))
 #: modules of the slices that must stay in the walk (slice 6: the harmonic
 #: frontend, the trunks, full-song scoring and the reference importer;
 #: slice 7: the fleet engine and the obs pieces it imports; slice 8:
-#: pre-training and the evidence experiment)
+#: pre-training and the evidence experiment; slice 9: the meshes)
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "models.committee", "convert", "prng", "cli.amg_test",
                  "fleet.scheduler", "fleet.report", "fleet.session",
                  "obs.trace", "obs.jit_telemetry", "obs.metrics",
                  "ops.scoring", "models.cnn_trainer", "data.deam",
                  "train.pretrain", "cli.deam_classifier", "al.evidence",
-                 "cli.evidence")
+                 "cli.evidence", "parallel.mesh", "parallel.sharding",
+                 "parallel.pool_mesh", "parallel.sequence",
+                 "parallel.multihost")
 
 
 def test_every_port_module_imports_without_jax():
