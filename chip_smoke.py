@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sgd-fold   # one measurement, outside the phases
+    python3 chip_smoke.py --serve-drill DIR   # phase 19 (b)'s subprocess
 
 ``--sgd-fold`` times one DEAM-scale SGD fold (``-cv 1``) through the host
 core and through its Python plain version, members bit-equal, and stops.
@@ -160,7 +161,28 @@ Phases, one line of output each (or a few):
     11's vgg registry over ``--mesh cuda:0,cuda:0`` and over ``--mesh auto
     --distributed 127.0.0.1:<port>,1,0`` (NCCL at world size 1), on phase
     11's tree and run inside phase 11: the queried songs of phase 11's
-    unmeshed card run, every epoch; ``--mesh 2`` refused on one card.
+    unmeshed card run, every epoch; ``--mesh 2`` refused on one card;
+19. serve: single-host serving on the card.  (a) a seeded SERVE_USERS-user
+    ``workload`` trace (two priority classes, pools skewed over two bucket
+    widths, Poisson arrivals compressed into SERVE_TRACE_S s) played by
+    ``TraceDriver(ServerTarget)`` into ``FleetServer(target_live=
+    SERVE_LIVE)`` with the SLO planner, the admission journal and the span
+    tracer on, each user with phase 16 (b)'s committee (mc, SERVE_EPOCHS
+    iterations): each user's metrics and ``al_state.json`` equal its
+    sequential run's on the card, ``grade_run`` finds no lost user and a
+    clean stream and journal, ``validate_metrics`` is clean, the spans
+    have no orphans and export to a Chrome trace; per-class admission wait
+    and admission-to-finish p50/p95, the mean bucket occupancy and users/s
+    against the sequential runs, by host clock; (b) the same trace in a
+    subprocess (``--serve-drill``) killed by
+    ``CETPU_FAULTS=serve.journal.append:kill@SERVE_KILL_AT`` mid-run, then
+    restarted from the journal: no user lost, the finished users skipped,
+    every user's metrics and state equal (a)'s; (c) ``amg_test --serve 2
+    --bucket-widths`` with ``--trace-dir`` and ``--torch-profile`` on
+    phase 11's GBDT + vgg registry (run inside phase 11): the queried songs
+    of the sequential CLI on the same two users, spans without orphans, a
+    ``torch.profiler`` trace holding CUDA kernel events; no hand kernel
+    launched.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -236,7 +258,16 @@ from consensus_entropy_tpu_torch.fleet import (  # noqa: E402
     FleetScheduler,
     FleetUser,
 )
+from consensus_entropy_tpu_torch.obs.export import (  # noqa: E402
+    chrome_trace,
+    find_span_files,
+    load_spans,
+    orphan_spans,
+    read_jsonl_tolerant,
+    validate_metrics_file,
+)
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer  # noqa: E402
+from consensus_entropy_tpu_torch.obs.trace import Tracer  # noqa: E402
 from consensus_entropy_tpu_torch.parallel import (  # noqa: E402
     multihost,
     pool_mesh,
@@ -252,6 +283,20 @@ from consensus_entropy_tpu_torch.parallel.sequence import (  # noqa: E402
     plan_windows,
 )
 from consensus_entropy_tpu_torch.ops import scoring  # noqa: E402
+from consensus_entropy_tpu_torch.al import workspace  # noqa: E402
+from consensus_entropy_tpu_torch.serve import (  # noqa: E402
+    AdmissionJournal,
+    FleetServer,
+    ServeConfig,
+)
+from consensus_entropy_tpu_torch.workload import (  # noqa: E402
+    ServerTarget,
+    TraceDriver,
+    TraceSpec,
+    generate,
+    grade_run,
+    percentile,
+)
 from consensus_entropy_tpu_torch.ops.entropy import (  # noqa: E402
     shannon_entropy,
 )
@@ -428,6 +473,21 @@ EVIDENCE_ARGS = ["sweep", "--seeds", "2", "--epochs", "4"]
 MESH_B2_SHARDS, MESH_STEP_SHARDS, MESH_ITERS = 4, 2, ITERS
 SEQ_SONG_S, SEQ_MEMBERS, SEQ_SHARDS, SEQ_REPS = 600, 2, 4, 5
 SEQ_HALO_SONG_S = 60
+# Phase 19: single-host serving.  (a) a SERVE_USERS-user trace (seed
+# SERVE_TRACE_SEED: two classes, pools skewed over SERVE_POOLS, Poisson
+# arrivals compressed into SERVE_TRACE_S s) through a SERVE_LIVE-slot
+# FleetServer, phase 16 (b)'s committee, mc, SERVE_EPOCHS iterations; (b)
+# the same trace killed at the SERVE_KILL_AT-th journal append and
+# restarted (mid-run whatever the timing: 8 enqueues, one planner epoch
+# and 4 admits need no finish and each further admit needs one, so 19
+# appends hold at least 3 finishes, and all 8 take 25 appends);
+# (c) the CLI's --serve 2 on phase 11's tree, two users, its first
+# SERVE_PROFILE_N dispatches profiled.
+SERVE_USERS, SERVE_LIVE, SERVE_EPOCHS, SERVE_TRACE_S = 8, 4, 3, 2.0
+SERVE_TRACE_SEED, SERVE_POOLS, SERVE_KILL_AT = 7, (150, 400), 20
+SERVE_CLI_ARGS = ["-q", "10", "-e", str(CLI_CNN_EPOCHS), "-n", "150",
+                  "--max-users", "2", "--retrain-epochs", "2"]
+SERVE_CLI_WIDTHS, SERVE_PROFILE_N = "512,1024", 10
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -1415,6 +1475,7 @@ def phase_al_cli(card):
                                    {"cuda": got, "cpu": ref})
         cnn = phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
         mesh_cli = mesh_cli_runs(root, amg_root, cnn)
+        serve_cli = serve_cli_runs(root, amg_root, cnn)
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
           f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
           f"written in {tree_s:.1f} s), {REG_MEMBERS} GaussianNB + "
@@ -1422,7 +1483,7 @@ def phase_al_cli(card):
           f"(queried songs and F1s, every epoch) in {walls['cuda']:.1f} s / "
           f"{walls['cpu']:.1f} s; killed at state.save hit 2, the rerun "
           f"resumed to the uninterrupted run's metrics and state")
-    return fleet_cli, mesh_cli
+    return fleet_cli, mesh_cli, serve_cli
 
 
 # -- slice 5: the boosted slot and the CNN members -------------------------
@@ -1774,16 +1835,16 @@ def phase_cnn(card):
     return {"per_crop_ms": per_crop_ms, "epoch_ms": epoch_ms}
 
 
-def full_user(store_ids, seed=SEED + 16):
-    """One AMG1608 user: USER_SONGS annotated songs (a seeded choice of
+def full_user(store_ids, seed=SEED + 16, n_songs=USER_SONGS):
+    """One AMG1608 user: ``n_songs`` annotated songs (a seeded choice of
     the store's ids) with USER_FRAMES frames of F features around seeded
     class centres, and seeded labels."""
     rng = np.random.default_rng(seed)
-    songs = sorted(rng.choice(store_ids, USER_SONGS, replace=False).tolist())
+    songs = sorted(rng.choice(store_ids, n_songs, replace=False).tolist())
     labels = {s: int(c) for s, c in zip(songs, rng.integers(0, C,
-                                                             USER_SONGS))}
+                                                             n_songs))}
     centers = rng.normal(0, CENTER_SD * 5, (C, F)).astype(np.float32)
-    frames = (rng.standard_normal((USER_SONGS, USER_FRAMES, F), np.float32)
+    frames = (rng.standard_normal((n_songs, USER_FRAMES, F), np.float32)
               + centers[[labels[s] for s in songs]][:, None, :])
     pool = FramePool(frames.reshape(-1, F), np.repeat(songs, USER_FRAMES))
     return pool, labels, centers
@@ -3511,6 +3572,326 @@ def phase_mesh(card, x, w, b, mask, tables, hc, mesh_cli):
             "sharded_ms": sharded_ms, "single_ms": single_ms}
 
 
+# -- slice 10: single-host serving -----------------------------------------
+
+
+def serve_inputs():
+    """Phase 19's trace (SERVE_USERS seeded Poisson arrivals compressed
+    into SERVE_TRACE_S s, two classes, pools skewed over SERVE_POOLS) and
+    each user's data and REG_MEMBERS GaussianNB + REG_MEMBERS SGD members,
+    all from seeds: the drill's subprocess rebuilds the same ones."""
+    trace = generate(TraceSpec(
+        seed=SERVE_TRACE_SEED, n_users=SERVE_USERS, rate=4.0,
+        class_mix=(("interactive", 0.5), ("batch", 0.5)), pool_dist="skew",
+        pool_sizes=SERVE_POOLS, horizon_s=SERVE_TRACE_S))
+    ids = list(range(1, FULL_SONGS + 1))
+    users = {}
+    for i, ev in enumerate(e for e in trace.events if e["kind"] == "arrive"):
+        pool, labels, centers = full_user(ids, seed=SEED + 70 + i,
+                                          n_songs=ev["pool"])
+        users[ev["user"]] = (UserData(ev["user"], pool, labels),
+                             fit_members(centers, REG_MEMBERS,
+                                         SEED + 80 + 10 * i))
+    return trace, users
+
+
+def serve_config():
+    return ALConfig(queries=Q, epochs=SERVE_EPOCHS, mode="mc",
+                    train_size=TRAIN_SIZE, seed=SEED, ckpt_dtype="float32")
+
+
+def serve_trace_run(root, trace, users):
+    """The trace through ``FleetServer(target_live=SERVE_LIVE)`` on the
+    card, its journal, metrics and spans under ``root/users``: played by
+    ``TraceDriver(ServerTarget)`` on a fresh journal; on a journal a
+    killed run left, restarted as the CLI restarts (the journal's
+    recovery order).  Returns wall s, the driver's stats, the summary."""
+    users_dir = os.path.join(root, "users")
+    os.makedirs(users_dir, exist_ok=True)
+    report = FleetReport(os.path.join(users_dir, "fleet_metrics.jsonl"))
+    journal = AdmissionJournal(os.path.join(users_dir,
+                                            "serve_journal.jsonl"))
+    tracer = Tracer(os.path.join(users_dir, "spans.jsonl"),
+                    run_id=f"mc-{SEED}")
+    sched = FleetScheduler(serve_config(), report=report,
+                           scoring_by_width=True,
+                           host_workers=FLEET_HOST_WORKERS, device="cuda",
+                           tracer=tracer)
+    server = FleetServer(sched, ServeConfig(target_live=SERVE_LIVE),
+                         journal=journal)
+
+    def build_entry(uid, cls, pool):
+        path = os.path.join(users_dir, uid)
+        os.makedirs(path, exist_ok=True)
+        data, members = users[uid]
+        committee = (workspace.load_committee(path) if os.path.exists(
+            os.path.join(path, al_state.STATE_FILE))
+            else Committee(copy.deepcopy(members)))
+        return FleetUser(uid, committee, data, path, seed=SEED,
+                         committee_factory=lambda p=path:
+                         workspace.load_committee(p), priority=cls)
+
+    stats = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        if journal.recovered:
+            arrive = {e["user"]: e for e in trace.events
+                      if e["kind"] == "arrive"}
+            order = journal.state.recovery_order(trace.users)
+            server.serve(build_entry(u, arrive[u]["cls"], arrive[u]["pool"])
+                         for u in order)
+        else:
+            driver = TraceDriver(trace, ServerTarget(server, build_entry))
+            driver.start()
+            try:
+                server.serve((), keep_open=True)
+            finally:
+                driver.stop()
+                if not driver.join(timeout=60):
+                    raise AssertionError("serve: the trace driver hung")
+            stats = driver.stats.as_dict()
+    finally:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tracer.close()
+        summary = report.write_summary(cohort=SERVE_LIVE, wall_s=wall)
+        report.close()
+        journal.close()
+    return {"wall": wall, "stats": stats, "summary": summary,
+            "users_dir": users_dir}
+
+
+def serve_drill_main(root):
+    """``chip_smoke.py --serve-drill ROOT``: phase 19 (b)'s subprocess, one
+    run of the trace under ROOT (killed by ``CETPU_FAULTS`` when set).  An
+    injected kill is process death on whichever thread it fires: on the
+    trace driver's (an enqueue's journal append) the process exits at
+    once, as a SIGKILL would end it."""
+    import threading
+    import traceback
+
+    from consensus_entropy_tpu_torch.resilience import faults
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+
+    def die(args):
+        if issubclass(args.exc_type, faults.InjectedKill):
+            traceback.print_exception(args.exc_type, args.exc_value,
+                                      args.exc_traceback)
+            sys.stderr.flush()
+            os._exit(1)
+        threading.__excepthook__(args)
+
+    threading.excepthook = die
+    trace, users = serve_inputs()
+    serve_trace_run(root, trace, users)
+
+
+def serve_run_check(run, trace, ref_paths, what):
+    """Each user's metrics and state equal ``ref_paths``'s, the grader
+    finds no loss and a clean journal and stream, the spans no orphans."""
+    users_dir = run["users_dir"]
+    paths = [os.path.join(users_dir, u) for u in trace.users]
+    _same_runs(paths, ref_paths, what)
+    jpath = os.path.join(users_dir, "serve_journal.jsonl")
+    grade = grade_run(users_dir, journal_path=jpath, trace=trace,
+                      slo_s={"interactive": 60.0, "batch": 600.0},
+                      wall_s=run["wall"], driver_stats=run["stats"])
+    det = grade["deterministic"]
+    if not (det["zero_loss"] and det["stream_ok"] and det["journal_ok"]):
+        raise AssertionError(f"{what}: grade {det} "
+                             f"{grade['measured']['stream_errors']} "
+                             f"{grade['measured']['journal_errors']}")
+    errors = validate_metrics_file(os.path.join(users_dir,
+                                                "fleet_metrics.jsonl"))
+    if errors:
+        raise AssertionError(f"{what}: metrics stream {errors[:3]}")
+    spans = load_spans(find_span_files(users_dir))
+    orphans = orphan_spans(spans)
+    events = chrome_trace(spans)["traceEvents"]
+    if not spans or orphans or not events:
+        raise AssertionError(f"{what}: {len(spans)} spans, "
+                             f"{len(orphans)} orphans")
+    return grade, spans
+
+
+def phase_serve(card, serve_cli):
+    """Phase 19: single-host serving on the card, (a)-(c)."""
+    trace, users = serve_inputs()
+    cfg = serve_config()
+    with tempfile.TemporaryDirectory() as root:
+        seq_paths, seq_wall = [], 0.0
+        for uid in trace.users:
+            data, members = users[uid]
+            path = os.path.join(root, "seq", uid)
+            os.makedirs(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ALLoop(cfg, device="cuda").run_user(
+                Committee(copy.deepcopy(members)), data, path)
+            torch.cuda.synchronize()
+            seq_wall += time.perf_counter() - t0
+            seq_paths.append(path)
+        # (a) the trace through the server
+        linear_mc.launches = 0
+        run = serve_trace_run(os.path.join(root, "a"), trace, users)
+        launches = linear_mc.launches
+        if launches:
+            raise AssertionError(f"serve: {launches} linear_mc launches")
+        grade, spans = serve_run_check(run, trace, seq_paths, "serve (a)")
+        s = run["summary"]
+        widths = sorted(s.get("per_bucket") or {})
+        if len(widths) < 2 or s.get("dispatch_failures"):
+            raise AssertionError(f"serve (a): buckets {widths}, summary {s}")
+        occ = [b["occupancy"] for b in s["per_bucket"].values()
+               if b["occupancy"] is not None]
+        lat = {c: v["admission_to_finish_s"]
+               for c, v in (s.get("per_class") or {}).items()}
+        waits = {c: [e["wait_s"] for e in read_jsonl_tolerant(os.path.join(
+            run["users_dir"], "fleet_metrics.jsonl"))
+            if e.get("event") == "admit" and e.get("cls") == c]
+            for c in lat}
+        print(f"[serve] {card}: (a) a {SERVE_USERS}-user trace (seed "
+              f"{SERVE_TRACE_SEED}, Poisson arrivals in {SERVE_TRACE_S} s, "
+              f"pools {[e['pool'] for e in trace.events]}, classes "
+              f"{grade['deterministic']['class_counts']}) played by "
+              f"TraceDriver into FleetServer(target_live={SERVE_LIVE}), SLO "
+              f"planner, journal and tracer on, {REG_MEMBERS} GaussianNB + "
+              f"{REG_MEMBERS} SGD members, mc, {SERVE_EPOCHS} iterations: "
+              f"each user's metrics and al_state.json equal its sequential "
+              f"run's on the card; grade_run: lost users "
+              f"{grade['deterministic']['lost_users']}, stream and journal "
+              f"clean; validate_metrics clean; {len(spans)} spans, 0 orphans,"
+              f" chrome_trace exported; linear_mc launches {launches}")
+        print(f"[serve] {card}: (a) host clock: admission wait by class "
+              + ", ".join(f"{c} p50 {percentile(w, 50):.4f} s p95 "
+                          f"{percentile(w, 95):.4f} s"
+                          for c, w in sorted(waits.items()))
+              + "; admission-to-finish by class " + ", ".join(
+                  f"{c} p50 {v['p50']} s p95 {v['p95']} s"
+                  for c, v in sorted(lat.items()))
+              + f"; buckets {widths}, mean bucket occupancy "
+              f"{statistics.mean(occ):.3f} ({s['per_bucket']}); planner "
+              f"{s.get('planner')}; users/s served "
+              f"{SERVE_USERS / run['wall']:.4f} ({run['wall']:.2f} s, the "
+              f"trace's {SERVE_TRACE_S} s of arrivals included) vs "
+              f"sequential {SERVE_USERS / seq_wall:.4f} ({seq_wall:.2f} s)")
+        # (b) the crash drill: killed mid-run in a subprocess, restarted
+        here = os.path.dirname(os.path.abspath(__file__))
+        drill = os.path.join(root, "b")
+        cmd = [sys.executable, os.path.join(here, "chip_smoke.py"),
+               "--serve-drill", drill]
+        env = dict(os.environ, PYTHONPATH=here,
+                   CETPU_FAULTS=f"serve.journal.append:kill@{SERVE_KILL_AT}")
+        t0 = time.perf_counter()
+        killed = subprocess.run(cmd, cwd=here, env=env, timeout=600,
+                                capture_output=True, text=True)
+        if killed.returncode == 0 or "injected kill" not in killed.stderr:
+            raise AssertionError(f"serve (b): the drill did not kill (exit "
+                                 f"{killed.returncode}):\n"
+                                 f"{killed.stderr[-2000:]}")
+        jpath = os.path.join(drill, "users", "serve_journal.jsonl")
+        st = AdmissionJournal(jpath).state
+        finished, in_flight = set(st.finished), list(st.in_flight)
+        if not finished or len(finished) == SERVE_USERS:
+            raise AssertionError(f"serve (b): the kill at append "
+                                 f"{SERVE_KILL_AT} was not mid-run: "
+                                 f"{sorted(finished)} finished")
+        env.pop("CETPU_FAULTS")
+        rerun = subprocess.run(cmd, cwd=here, env=env, timeout=600,
+                               capture_output=True, text=True)
+        if rerun.returncode != 0:
+            raise AssertionError(f"serve (b): the restart exited "
+                                 f"{rerun.returncode}:\n"
+                                 f"{rerun.stderr[-2000:]}")
+        drill_s = time.perf_counter() - t0
+        with open(os.path.join(drill, "users", "fleet_metrics.jsonl")) as f:
+            restart = [json.loads(line) for line in f]
+        skipped = {e["user"] for e in restart if e["event"] == "skip_done"}
+        if skipped != finished:
+            raise AssertionError(f"serve (b): skipped {sorted(skipped)}, "
+                                 f"finished before the kill "
+                                 f"{sorted(finished)}")
+        a_paths = [os.path.join(run["users_dir"], u) for u in trace.users]
+        grade_b, _ = serve_run_check(
+            {"users_dir": os.path.join(drill, "users"), "wall": None,
+             "stats": None}, trace, a_paths, "serve (b)")
+    print(f"[serve] {card}: (b) the trace killed in a subprocess at "
+          f"serve.journal.append hit {SERVE_KILL_AT} ({len(finished)} users "
+          f"finished, {len(in_flight)} in flight), restarted from the "
+          f"journal: lost users {grade_b['deterministic']['lost_users']}, "
+          f"the {len(skipped)} finished users skipped, every user's metrics "
+          f"and state equal (a)'s; {drill_s:.1f} s for both processes")
+    print(f"[serve] {card}: (c) amg_test {' '.join(serve_cli['args'])} "
+          f"--serve 2 on phase 11's GBDT + vgg registry: queried songs equal"
+          f" the sequential CLI's every epoch (max |F1 diff| "
+          f"{serve_cli['f1_diff']:.3e}); spans {serve_cli['spans']}, 0 "
+          f"orphans; torch.profiler trace of the first "
+          f"{SERVE_PROFILE_N} dispatches with {serve_cli['kernels']} CUDA "
+          f"kernel events; {serve_cli['wall_s']:.1f} s")
+    return {"launches": launches}
+
+
+def serve_cli_runs(root, amg_root, cnn):
+    """Phase 19 (c), on phase 11's tree: ``amg_test --serve 2`` with the
+    vgg registry (SERVE_CLI_ARGS: two users) and ``--trace-dir``,
+    ``--torch-profile``, against the sequential CLI on the same two users;
+    the queried songs equal every epoch, the spans have no orphans, the
+    profile holds CUDA kernel events."""
+    t_all = time.perf_counter()
+    runs = {}
+    spans_dir = os.path.join(root, "serve_spans")
+    prof_dir = os.path.join(root, "serve_prof")
+    for name, extra in (("seq", []), ("serve", [
+            "--serve", "2", "--bucket-widths", SERVE_CLI_WIDTHS,
+            "--trace-dir", spans_dir, "--torch-profile", prof_dir,
+            "--torch-profile-n", str(SERVE_PROFILE_N)])):
+        models = os.path.join(root, f"models_serve_{name}")
+        shutil.copytree(os.path.join(cnn["bases"]["vgg"], "pretrained"),
+                        os.path.join(models, "pretrained"))
+        linear_mc.launches = 0
+        text = run_cli(SERVE_CLI_ARGS + [
+            "-m", "mc", "--models-root", models, "--amg-root", amg_root,
+            "--device", "cuda", "--cnn-config-json", json.dumps(CLI_CNN)]
+            + extra)
+        if linear_mc.launches:
+            raise AssertionError(f"serve-cli {name}: linear_mc launched")
+        users = os.path.join(models, "users")
+        runs[name] = {u: read_metrics(os.path.join(users, u, "mc"))
+                      for u in sorted(os.listdir(users))
+                      if os.path.isdir(os.path.join(users, u))}
+    if "serve summary: " not in text or len(runs["serve"]) != 2 \
+            or sorted(runs["serve"]) != sorted(runs["seq"]):
+        raise AssertionError(f"serve-cli: users {sorted(runs['serve'])}:\n"
+                             f"{text[-2000:]}")
+    f1_diff = 0.0
+    for u, ref in runs["seq"].items():
+        got = runs["serve"][u]
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"serve-cli user {u}: epochs {sorted(got)}")
+        for e in ref:
+            if got[e].get("queried") != ref[e].get("queried"):
+                raise AssertionError(f"serve-cli user {u} epoch {e}: "
+                                     "queried songs differ")
+            f1_diff = max(f1_diff, float(np.max(np.abs(np.subtract(
+                got[e]["f1"], ref[e]["f1"])))))
+    spans = load_spans(find_span_files(spans_dir))
+    if not spans or orphan_spans(spans):
+        raise AssertionError(f"serve-cli: {len(spans)} spans, "
+                             f"{len(orphan_spans(spans))} orphans")
+    (prof,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, prof)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError("serve-cli: the device profile holds no CUDA "
+                             "kernel events")
+    return {"args": SERVE_CLI_ARGS, "f1_diff": f1_diff, "spans": len(spans),
+            "kernels": kernels, "wall_s": time.perf_counter() - t_all}
+
+
 def main():
     t0 = time.perf_counter()
     walls = {}
@@ -3518,6 +3899,9 @@ def main():
     def lap(name):
         walls[name] = time.perf_counter() - t0 - sum(walls.values())
 
+    if sys.argv[1:2] == ["--serve-drill"]:
+        serve_drill_main(sys.argv[2])
+        return
     card = phase_device()
     if sys.argv[1:] == ["--sgd-fold"]:
         phase_sgd_fold(card)
@@ -3540,7 +3924,7 @@ def main():
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    fleet_cli, mesh_cli = phase_al_cli(card)
+    fleet_cli, mesh_cli, serve_cli = phase_al_cli(card)
     lap("11")
     phase_gbdt(card)
     lap("12")
@@ -3560,17 +3944,23 @@ def main():
     phase_pretrain(card)
     lap("17")
     mesh = phase_mesh(card, x, w, b, mask, tables, hc, mesh_cli)
+    del tables, hc
+    torch.cuda.empty_cache()
     lap("18")
+    serve = phase_serve(card, serve_cli)
+    lap("19")
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
-        + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f})"
+        + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f}; 19 (c): "
+        f"{serve_cli['wall_s']:.1f})"
         + f"; total {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
-        "launches": launches + mesh["launches"],
-        "launches_by_phase": {"5": launches, "18": mesh["launches"]},
+        "launches": launches + mesh["launches"] + serve["launches"],
+        "launches_by_phase": {"5": launches, "18": mesh["launches"],
+                              "19": serve["launches"]},
         "max_abs_err": max(max_err, mesh["max_abs_err"]), **times,
         "sharded_ms": mesh["sharded_ms"],
         "sharded_shards": MESH_B2_SHARDS}]}))

@@ -41,6 +41,12 @@ Ported so far:
   ``native/ce_sgd.cpp`` — the SGD member's epoch loop in the host core;
 - ``al.evidence``, ``cli.evidence`` — the matched-budget mode sweep and the
   paper's paired t-tests;
+- ``fleet`` and ``parallel`` — cohorts of users stacked into one dispatch,
+  and pools split over a device mesh;
+- ``serve``, ``workload`` and ``obs`` — single-host serving (bucketed
+  continuous admission, the admission journal, the watchdog, the breaker,
+  the SLO planner), trace-driven load and its grader, the span tracer and
+  its export;
 - ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
   and JAX-layout weights, members (CNN checkpoints included), workspaces
   and keys carried across.

@@ -21,8 +21,24 @@ across N devices: the first N cards, N entries of the CPU with
 on one card); ``--fleet`` composes with it.  ``--distributed COORD,N,ID`` joins
 N processes over ``torch.distributed`` first (with ``--mesh auto``): each
 holds its share of every pool, the coordinator writes the workspaces.
-The serve and fabric modes of the JAX CLI (``--mesh-devices``,
-``--hosts``) are not ported (ROADMAP A10).
+
+``--serve N`` (``amg_test.py:941-1090`` of the JAX CLI) serves the users
+through ``serve.FleetServer``: N sessions live, a freed slot refilled at
+once from the waiting queue, each user padded to its bucket
+(``--bucket-widths``, or edges the SLO planner derives), every admission
+transition in the journal ``users/serve_journal.jsonl`` (a killed run
+restarted with the same flags loses no user), finished users persisted
+the moment they finish.  ``--watchdog-s``, ``--failure-budget`` and the
+breaker flags set its fault domain; ``--unpoison U`` removes users from
+the poison list and exits.  Fleet and serve runs write spans to
+``spans.jsonl`` in the users directory, or in ``--trace-dir``
+(``--no-trace`` turns them off); ``--torch-profile DIR`` (the JAX CLI's
+``--jax-profile``) captures the first ``--torch-profile-n`` device
+dispatches with ``torch.profiler``.  On the sequential path
+``--trace-dir DIR`` takes a ``torch.profiler`` trace of each user's run,
+as the JAX CLI's takes a ``jax.profiler`` one.  The multi-host fabric's
+flags (``--hosts``, the elastic, remedy and introspection flags) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -88,6 +104,91 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score, pull the result and update the masks on "
                         "the host each iteration instead of the fused "
                         "select (same selections)")
+    p.add_argument("--serve", type=int, default=None, metavar="N",
+                   help="serving mode: keep N AL sessions live, admitting "
+                        "a queued user the moment a session finishes, each "
+                        "user padded to its bucket instead of the cohort "
+                        "max; SIGTERM drains (in-flight users finish, "
+                        "queued users wait for the rerun, exit 75); "
+                        "per-user results are the sequential run's")
+    p.add_argument("--admit-window-ms", type=float, default=0.0,
+                   help="serve mode: with free slots and an empty queue, "
+                        "wait up to this long for more arrivals so they "
+                        "are admitted together (default 0)")
+    p.add_argument("--bucket-widths", default=None, metavar="W1,W2,...",
+                   help="serve mode: explicit pool-width bucket edges "
+                        "(comma-separated ascending ints); larger pools "
+                        "fall through to the next power of two (default: "
+                        "power-of-two buckets, or the SLO planner's)")
+    p.add_argument("--no-slo-planner", action="store_true",
+                   help="serve mode: disable the SLO admission planner "
+                        "(journaled adaptive bucket edges, adaptive holds "
+                        "inside per-class SLO headroom); per-user results "
+                        "are the same either way")
+    p.add_argument("--slo-interactive-s", type=float, default=60.0,
+                   metavar="S",
+                   help="serve mode: admission->finish latency target of "
+                        "the 'interactive' class (default 60)")
+    p.add_argument("--slo-batch-s", type=float, default=600.0, metavar="S",
+                   help="serve mode: admission->finish latency target of "
+                        "the 'batch' class (default 600)")
+    p.add_argument("--priority-aging-s", type=float, default=30.0,
+                   metavar="S",
+                   help="serve mode: queue wait past which a 'batch' user "
+                        "pops ahead of fresh 'interactive' arrivals (0 = "
+                        "strict priority; default 30)")
+    p.add_argument("--interactive-users", default=None,
+                   metavar="USER[,USER...]",
+                   help="serve mode: submit these user ids in the "
+                        "'interactive' class; everyone else is 'batch'")
+    p.add_argument("--no-serve-journal", action="store_true",
+                   help="serve mode: no admission journal "
+                        "(users/serve_journal.jsonl; with it, a killed run "
+                        "restarted with the same flags skips finished "
+                        "users, re-admits in-flight ones and re-queues "
+                        "waiting ones)")
+    p.add_argument("--watchdog-s", type=float, default=0.0, metavar="S",
+                   help="serve mode: wall-clock deadline per engine step "
+                        "(host block or device dispatch); a hung step's "
+                        "session is evicted and resumed (default 0: off)")
+    p.add_argument("--failure-budget", type=int, default=3, metavar="N",
+                   help="serve mode: admissions per user; a terminally "
+                        "failed session is re-queued with seeded backoff "
+                        "until the budget is spent, then poisoned "
+                        "(users/serve_poison.jsonl) and skipped (default 3)")
+    p.add_argument("--breaker-threshold", type=int, default=2, metavar="N",
+                   help="serve mode: consecutive stacked-dispatch failures "
+                        "that degrade a bucket to per-user dispatch until a "
+                        "half-open probe succeeds (0 disables; default 2)")
+    p.add_argument("--breaker-cooldown-s", type=float, default=30.0,
+                   metavar="S",
+                   help="serve mode: how long an open bucket stays "
+                        "degraded before its probe (default 30)")
+    p.add_argument("--breaker-probes", type=int, default=0, metavar="N",
+                   help="serve mode: failed probes before a bucket stays "
+                        "per-user for the run (0 = probe forever)")
+    p.add_argument("--journal-compact-kb", type=int, default=0,
+                   metavar="KB",
+                   help="serve mode: compact the admission journal "
+                        "whenever it grows past this size (0 = never)")
+    p.add_argument("--unpoison", default=None, metavar="USER[,USER...]",
+                   help="operator command: remove users from the poison "
+                        "list (journaled records), then exit")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="fleet/serve: write the span file here (default: "
+                        "the users directory); sequential: a torch.profiler "
+                        "trace of each user's run")
+    p.add_argument("--no-trace", action="store_true",
+                   help="fleet/serve: no span tracer (spans.jsonl: "
+                        "run -> user -> al_iter -> dispatch spans with "
+                        "deterministic ids)")
+    p.add_argument("--torch-profile", default=None, metavar="DIR",
+                   help="fleet/serve: capture the first --torch-profile-n "
+                        "device dispatches with torch.profiler (CUDA "
+                        "activity) into DIR as a Chrome trace")
+    p.add_argument("--torch-profile-n", type=int, default=10, metavar="N",
+                   help="device dispatches to keep the profiler open for "
+                        "(default 10)")
     p.add_argument("--seed", type=int, default=1987)
     p.add_argument("--tie-break", choices=("fast", "numpy"), default="fast")
     p.add_argument("--pad-pool-to", type=int, default=None, metavar="N",
@@ -126,31 +227,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.fleet is not None and args.fleet < 1:
-        print(f"--fleet must be >= 1, got {args.fleet}")
+    if args.unpoison is not None:
+        # an operator action on the journal and poison files: no dataset
+        return _run_unpoison(args)
+    if _refused(args):
         return 1
-    if args.no_stack_cnn and args.fleet is None:
-        print("--no-stack-cnn requires --fleet or --serve (the sequential "
-              "path never stacks)")
-        return 1
-    if args.plan_chunk is not None and (args.plan_chunk < 1
-                                        or args.fleet is None):
-        print("--plan-chunk takes a positive chunk size and requires "
-              "--fleet or --serve")
-        return 1
-    if args.qbdc_k < 1:
-        print(f"--qbdc-k must be >= 1, got {args.qbdc_k}")
-        return 1
-    if args.fleet is not None:
-        if args.distributed:
-            # mesh x users composes in one process; several processes
-            # stacking one cohort are not built
-            print("--fleet is single-process only (drop --distributed)")
-            return 1
-        if args.mesh == "auto":
-            print("--fleet shards pools on an explicit mesh width "
-                  "(--mesh N) — 'auto' is the sequential path's spelling")
-            return 1
     if args.distributed:
         # before any device query: it picks this process's card
         from consensus_entropy_tpu_torch.parallel import multihost
@@ -213,7 +294,8 @@ def main(argv=None) -> int:
               f"classifier_cnn.*.npz in {paths.pretrained_dir}); run "
               "deam-classifier with a CNN registry first")
         return 1
-    if args.mode == "qbdc" and args.mesh and args.fleet is None:
+    if args.mode == "qbdc" and args.mesh and args.fleet is None \
+            and args.serve is None:
         # the sequential path's qbdc forward is one member's, unsharded
         print("--al-mode qbdc does not support --mesh (qbdc scoring is "
               "single-mesh only; use --fleet/--serve to batch users)")
@@ -304,7 +386,7 @@ def _meshes(args, device, store):
     else:
         print(f"Scoring mesh: {mesh.size} device(s) on the pool axis")
     train_mesh = None
-    if store is not None and args.fleet is None:
+    if store is not None and args.fleet is None and args.serve is None:
         train_mesh = make_training_mesh(dp=1, member=mesh.size,
                                         devices=mesh.device_list)
         print(f"Training mesh: {mesh.size} device(s) on the member axis")
@@ -324,11 +406,16 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
     from consensus_entropy_tpu_torch.al.loop import UserData
     from consensus_entropy_tpu_torch.data import amg
     from consensus_entropy_tpu_torch.obs.metrics import StepTimer
+    from consensus_entropy_tpu_torch.obs.trace import device_trace
     from consensus_entropy_tpu_torch.parallel import multihost
     from consensus_entropy_tpu_torch.resilience.preemption import Preempted
 
     if args.fleet is not None:
         _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table,
+                         store, cnn_cfg, guard, device, results, mesh)
+        return
+    if args.serve is not None:
+        _run_users_serve(args, cfg, paths, users, pool, anno, hc_table,
                          store, cnn_cfg, guard, device, results, mesh)
         return
     # several processes: the coordinator owns every workspace write, and
@@ -362,8 +449,9 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
         print(f"User {num_user} / {len(users) - 1}")
         timer = StepTimer(os.path.join(user_path, "timings.jsonl")
                           if multihost.is_coordinator() else None)
-        res = loop.run_user(committee, data, user_path, seed=cfg.seed,
-                            timer=timer, preemption=guard)
+        with device_trace(args.trace_dir, device):
+            res = loop.run_user(committee, data, user_path, seed=cfg.seed,
+                                timer=timer, preemption=guard)
         if multihost.is_coordinator():
             committee.save(user_path)
             workspace.mark_done(user_path)
@@ -388,16 +476,24 @@ def _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table, store,
 
     report = FleetReport(os.path.join(paths.users_dir,
                                       "fleet_metrics.jsonl"))
+    tracer = _build_tracer(args, cfg, paths)
     scheduler = FleetScheduler(
         cfg, tie_break=args.tie_break, retrain_epochs=args.retrain_epochs,
         host_workers=args.fleet_host_workers, preemption=guard,
         pad_pool_to=args.pad_pool_to, report=report,
         stack_cnn=not args.no_stack_cnn, plan_chunk=args.plan_chunk,
-        fuse_step=not args.no_fuse_step, device=device, mesh=mesh)
+        fuse_step=not args.no_fuse_step, device=device, mesh=mesh,
+        tracer=tracer, profile_dir=args.torch_profile,
+        profile_n=args.torch_profile_n)
     todo = list(users[: args.max_users])
     failed = []
-    _run_fleet_cohorts(args, cfg, paths, store, pool, anno, hc_table,
-                       cnn_cfg, device, scheduler, todo, results, failed)
+    try:
+        _run_fleet_cohorts(args, cfg, paths, store, pool, anno, hc_table,
+                           cnn_cfg, device, scheduler, todo, results,
+                           failed)
+    finally:
+        # the run span closes on preemption too (a rerun reuses the ids)
+        tracer.close()
     summary = report.write_summary(cohort=min(args.fleet, len(todo) or 1))
     report.close()
     print("fleet summary: " + json.dumps(bench_line(summary),
@@ -459,6 +555,350 @@ def _run_fleet_cohorts(args, cfg, paths, store, pool, anno, hc_table,
             results.append(rec["result"])
             print(f"user {rec['user']}: final mean F1 = "
                   f"{rec['result']['final_mean_f1']:.4f}")
+
+
+def _mesh_width(spec: str) -> int | None:
+    """The device count a ``--mesh`` spelling names (None for ``auto`` or
+    a malformed one, which the mesh builder reports)."""
+    try:
+        return int(spec)
+    except ValueError:
+        return len(spec.split(",")) if "," in spec or ":" in spec else None
+
+
+def _refused(args) -> bool:
+    """The JAX CLI's refusals of fleet and serve flags
+    (``amg_test.py:388-470``, their order and words), minus the fabric's;
+    prints the reason and returns True for a refused combination."""
+    if args.fleet is not None and args.serve is not None:
+        print("--fleet and --serve are exclusive: --fleet runs fixed "
+              "cohorts, --serve runs continuous admission")
+        return True
+    if args.fleet is not None or args.serve is not None:
+        n_flag, n_val = (("--fleet", args.fleet) if args.fleet is not None
+                         else ("--serve", args.serve))
+        if n_val < 1:
+            print(f"{n_flag} must be >= 1, got {n_val}")
+            return True
+        if args.distributed:
+            # mesh x users composes in one process; several processes
+            # stacking one cohort are not built
+            print(f"{n_flag} is single-process only (drop --distributed)")
+            return True
+        if args.mesh == "auto":
+            print(f"{n_flag} shards pools on an explicit mesh width "
+                  "(--mesh N) — 'auto' is the sequential path's spelling")
+            return True
+    if args.serve is not None and args.pad_pool_to is not None:
+        print("--serve pads per bucket; use --bucket-widths instead of "
+              "--pad-pool-to")
+        return True
+    if args.no_stack_cnn and args.fleet is None and args.serve is None:
+        print("--no-stack-cnn requires --fleet or --serve (the sequential "
+              "path never stacks)")
+        return True
+    if args.plan_chunk is not None and (
+            args.plan_chunk < 1 or (args.fleet is None
+                                    and args.serve is None)):
+        print("--plan-chunk takes a positive chunk size and requires "
+              "--fleet or --serve")
+        return True
+    if args.admit_window_ms and args.serve is None:
+        print("--admit-window-ms requires --serve")
+        return True
+    if args.torch_profile is not None and args.fleet is None \
+            and args.serve is None:
+        print("--torch-profile captures the engine's device dispatches; it "
+              "requires --fleet or --serve (use --trace-dir for sequential "
+              "runs)")
+        return True
+    if args.torch_profile_n < 1:
+        print(f"--torch-profile-n must be >= 1, got {args.torch_profile_n}")
+        return True
+    for flag, is_set in (("--no-serve-journal", args.no_serve_journal),
+                         ("--no-slo-planner", args.no_slo_planner),
+                         ("--slo-interactive-s",
+                          args.slo_interactive_s != 60.0),
+                         ("--slo-batch-s", args.slo_batch_s != 600.0),
+                         ("--priority-aging-s",
+                          args.priority_aging_s != 30.0),
+                         ("--interactive-users",
+                          args.interactive_users is not None),
+                         ("--watchdog-s", args.watchdog_s),
+                         ("--failure-budget", args.failure_budget != 3),
+                         ("--breaker-threshold",
+                          args.breaker_threshold != 2),
+                         ("--breaker-cooldown-s",
+                          args.breaker_cooldown_s != 30.0),
+                         ("--breaker-probes", args.breaker_probes != 0),
+                         ("--journal-compact-kb",
+                          args.journal_compact_kb != 0)):
+        if is_set and args.serve is None:
+            print(f"{flag} requires --serve")
+            return True
+    if args.qbdc_k < 1:
+        print(f"--qbdc-k must be >= 1, got {args.qbdc_k}")
+        return True
+    if args.serve is not None and (args.watchdog_s < 0
+                                   or args.failure_budget < 1
+                                   or args.breaker_threshold < 0
+                                   or args.breaker_probes < 0
+                                   or args.journal_compact_kb < 0):
+        print("--watchdog-s must be >= 0, --failure-budget >= 1, "
+              "--breaker-threshold >= 0, --breaker-probes >= 0, "
+              "--journal-compact-kb >= 0")
+        return True
+    if args.serve is not None and (args.slo_interactive_s <= 0
+                                   or args.slo_batch_s <= 0
+                                   or args.priority_aging_s < 0):
+        print("--slo-interactive-s and --slo-batch-s must be > 0, "
+              "--priority-aging-s >= 0")
+        return True
+    args._bucket_widths = None
+    if args.bucket_widths is not None:
+        if args.serve is None:
+            print("--bucket-widths requires --serve")
+            return True
+        try:
+            widths = tuple(int(w) for w in args.bucket_widths.split(",")
+                           if w)
+            if not widths:
+                raise ValueError
+        except ValueError:
+            print(f"--bucket-widths must be comma-separated positive ints, "
+                  f"got {args.bucket_widths!r}")
+            return True
+        from consensus_entropy_tpu_torch.serve.buckets import (
+            validate_bucket_widths,
+        )
+
+        try:
+            validate_bucket_widths(widths)
+        except ValueError as e:
+            print(f"--bucket-widths {args.bucket_widths!r} is invalid: "
+                  f"{e}")
+            return True
+        args._bucket_widths = widths
+    if args.serve is not None and args.mesh \
+            and _mesh_width(args.mesh) is not None:
+        # an edge that does not divide across the pool mesh fails here,
+        # not as a shard mismatch at the first dispatch
+        from consensus_entropy_tpu_torch.serve import ServeConfig
+
+        try:
+            ServeConfig(target_live=args.serve,
+                        bucket_widths=args._bucket_widths,
+                        mesh_devices=_mesh_width(args.mesh))
+        except ValueError as e:
+            print(f"--mesh {args.mesh} is invalid with this serve "
+                  f"config: {e}")
+            return True
+    return False
+
+
+def _serve_config(args, mesh=None):
+    """The ``ServeConfig`` of the serve flags (``amg_test.py:771`` of the
+    JAX CLI); a pool mesh sets its width."""
+    from consensus_entropy_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(
+        target_live=args.serve,
+        admit_window_s=args.admit_window_ms / 1000.0,
+        bucket_widths=args._bucket_widths,
+        mesh_devices=mesh.size if mesh is not None else 1,
+        watchdog_s=args.watchdog_s,
+        failure_budget=args.failure_budget,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        breaker_probes=args.breaker_probes,
+        slo_planner=not args.no_slo_planner,
+        slo_interactive_s=args.slo_interactive_s,
+        slo_batch_s=args.slo_batch_s,
+        aging_s=args.priority_aging_s)
+
+
+def _interactive_set(args) -> set:
+    """The user ids of ``--interactive-users`` (everyone else is
+    ``batch``)."""
+    if not args.interactive_users:
+        return set()
+    return {u.strip() for u in args.interactive_users.split(",")
+            if u.strip()}
+
+
+def _build_tracer(args, cfg, paths):
+    """The span tracer of fleet and serve runs: ``spans.jsonl`` in
+    ``--trace-dir`` or the users directory.  Its run id comes from mode and
+    seed, so a restarted run continues the same traces."""
+    from consensus_entropy_tpu_torch.obs.trace import Tracer
+
+    return Tracer(os.path.join(args.trace_dir or paths.users_dir,
+                               "spans.jsonl"),
+                  run_id=f"{cfg.mode}-{cfg.seed}", enabled=not args.no_trace)
+
+
+def _run_users_serve(args, cfg, paths, users, pool, anno, hc_table, store,
+                     cnn_cfg, guard, device, results, mesh=None) -> None:
+    """The serve path: continuous admission through ``serve.FleetServer``
+    on ``device``, ``--serve N`` sessions live, each user padded to its
+    bucket; each user's workspace and result are the sequential path's,
+    persisted the moment the user finishes.  Admission transitions go
+    through ``users/serve_journal.jsonl`` (unless ``--no-serve-journal``):
+    a killed run restarted with the same flags re-admits in-flight users
+    first, re-queues waiting ones in order and skips finished ones; users
+    past ``--failure-budget`` are in ``users/serve_poison.jsonl`` and
+    skipped on every run."""
+    import json
+
+    from consensus_entropy_tpu_torch.al import workspace
+    from consensus_entropy_tpu_torch.al.loop import UserData
+    from consensus_entropy_tpu_torch.data import amg
+    from consensus_entropy_tpu_torch.fleet import (
+        FleetReport,
+        FleetScheduler,
+        FleetUser,
+    )
+    from consensus_entropy_tpu_torch.fleet.report import bench_line
+    from consensus_entropy_tpu_torch.serve import (
+        AdmissionJournal,
+        FleetServer,
+        PoisonList,
+    )
+
+    experiment = {"seed": cfg.seed, "queries": cfg.queries,
+                  "train_size": cfg.train_size}
+    report = FleetReport(os.path.join(paths.users_dir,
+                                      "fleet_metrics.jsonl"))
+    journal = None if args.no_serve_journal else AdmissionJournal(
+        os.path.join(paths.users_dir, "serve_journal.jsonl"),
+        compact_bytes=args.journal_compact_kb * 1024 or None)
+    poison = PoisonList(os.path.join(paths.users_dir,
+                                     "serve_poison.jsonl"))
+    tracer = _build_tracer(args, cfg, paths)
+    scheduler = FleetScheduler(
+        cfg, tie_break=args.tie_break, retrain_epochs=args.retrain_epochs,
+        host_workers=args.fleet_host_workers, report=report,
+        scoring_by_width=True, stack_cnn=not args.no_stack_cnn,
+        plan_chunk=args.plan_chunk, fuse_step=not args.no_fuse_step,
+        device=device, mesh=mesh, tracer=tracer,
+        profile_dir=args.torch_profile, profile_n=args.torch_profile_n)
+    server = FleetServer(scheduler, _serve_config(args, mesh),
+                         preemption=guard, journal=journal, poison=poison)
+    todo = list(users[: args.max_users])
+    if journal is not None and journal.recovered:
+        st = journal.state
+        # in-flight users first (their workspaces hold the most sunk
+        # work), then journal-queued users in order, then new ones
+        todo = st.recovery_order(todo)
+        print(f"serve journal: recovering — {len(st.finished)} finished "
+              f"(skipped), {len(st.in_flight)} in-flight (re-admitted "
+              f"first), {len(st.queued)} queued (re-enqueued), "
+              f"{len(st.poisoned)} poisoned")
+    interactive = _interactive_set(args)
+
+    def source():
+        # pulled as queue room frees: each user's workspace and committee
+        # are made just in time, and a drain leaves the rest untouched
+        for u_id in todo:
+            user_path, skip = workspace.create_user(
+                paths.users_dir, paths.pretrained_dir, u_id, cfg.mode,
+                experiment=experiment)
+            if skip:
+                print(f"Skipping user {u_id}, already exists!")
+                continue
+
+            def factory(user_path=user_path):
+                return workspace.load_committee(
+                    user_path, cnn_cfg, device_members=args.device_members,
+                    full_song_hop=args.full_song_hop, device=device)
+
+            sub_pool, labels = amg.user_pool(pool, anno, u_id)
+            data = UserData(u_id, sub_pool, labels,
+                            hc_rows=hc_table.rows_for(sub_pool.song_ids),
+                            store=store)
+            yield FleetUser(u_id, factory(), data, user_path,
+                            seed=cfg.seed, committee_factory=factory,
+                            priority="interactive"
+                            if str(u_id) in interactive else "batch")
+
+    failed = []
+
+    def on_result(rec):
+        # a finished user is durable at once, not at the end of the run
+        if rec["error"] is not None:
+            print(f"user {rec['user']} FAILED: {rec['error']}")
+            failed.append(rec["user"])
+            return
+        user_path = workspace.user_dir(paths.users_dir, rec["user"],
+                                       cfg.mode)
+        rec["committee"].save(user_path)
+        workspace.mark_done(user_path)
+        results.append(rec["result"])
+        print(f"user {rec['user']}: final mean F1 = "
+              f"{rec['result']['final_mean_f1']:.4f}")
+
+    try:
+        server.serve(source(), on_result=on_result)
+    finally:
+        tracer.close()
+        summary = report.write_summary(cohort=args.serve)
+        report.close()
+        print("serve summary: "
+              + json.dumps(bench_line(summary), sort_keys=True))
+        if summary.get("users_failed") or len(poison):
+            print(f"serve failures: {summary.get('users_failed', 0)} "
+                  f"user(s) failed terminally, {len(poison)} on the "
+                  f"poison list ({poison.path})")
+        if scheduler.profile_path is not None:
+            print(f"device profile: {scheduler.profile_path}")
+        if journal is not None:
+            journal.close()
+        poison.close()
+    if failed:
+        # as the sequential path crashes on a user's error, a serve run
+        # that dropped users must not look successful
+        raise RuntimeError(
+            f"{len(failed)} serve user(s) failed terminally after "
+            f"eviction/resume: {failed}")
+
+
+def _run_unpoison(args) -> int:
+    """``--unpoison``: journaled removal from the poison list, plus an
+    ``unpoison`` record in the admission journal so a restart forgets the
+    user's spent failure budget."""
+    from consensus_entropy_tpu_torch.config import PathsConfig
+    from consensus_entropy_tpu_torch.serve import (
+        AdmissionJournal,
+        PoisonList,
+        SingleWriterViolation,
+    )
+
+    paths = PathsConfig(models_root=args.models_root,
+                        amg_root=args.amg_root)
+    ppath = os.path.join(paths.users_dir, "serve_poison.jsonl")
+    jpath = os.path.join(paths.users_dir, "serve_journal.jsonl")
+    poison = PoisonList(ppath)
+    journal = AdmissionJournal(jpath) if os.path.exists(jpath) else None
+    rc = 0
+    try:
+        for uid in filter(None, (u.strip()
+                                 for u in args.unpoison.split(","))):
+            if poison.remove(uid):
+                if journal is not None:
+                    journal.append("unpoison", uid)
+                print(f"unpoisoned user {uid} (failure budget reset)")
+            else:
+                print(f"user {uid} is not on the poison list ({ppath})")
+                rc = 1
+    except SingleWriterViolation as e:
+        # a live server owns the WAL: refuse rather than interleave seqs
+        print(f"cannot unpoison while a server is running: {e}")
+        rc = 1
+    finally:
+        poison.close()
+        if journal is not None:
+            journal.close()
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,8 +1,6 @@
 """Fleet throughput reporting: users/s, device-batch occupancy, phases.
 
-Counterpart of ``consensus_entropy_tpu/fleet/report.py`` (``:43-446``)
-without the serving layer's admission telemetry (enqueue / admit events,
-admission latency histograms, the SLO planner's section: ROADMAP A10).
+Counterpart of ``consensus_entropy_tpu/fleet/report.py`` (``:43-446``).
 Each session keeps its own per-user files; this adds the cohort's view:
 
 - one ``fleet_metrics.jsonl`` event stream (dispatches are kept in memory;
@@ -12,7 +10,13 @@ Each session keeps its own per-user files; this adds the cohort's view:
   dispatches ran against the sessions holding a slot at that moment),
   per-bucket occupancy, the transfer and CNN-dispatch roll-ups and the
   sessions' summed phase times,
-- a BENCH-shaped one-line JSON (:func:`bench_line`).
+- a BENCH-shaped one-line JSON (:func:`bench_line`),
+- under the serve layer, the admission telemetry: ``enqueue`` / ``admit``
+  events, queue depth and wait, each user's first-enqueue-to-finish
+  latency in a histogram (exact p50/p95/p99 while its reservoir holds),
+  one such histogram a priority class, the SLO planner's section and the
+  fault domain's counters (watchdog evictions, breaker trips, requeues,
+  poisoned users).
 
 Occupancy counts only ACTIVE slots: a finished, evicted or failed session
 stops counting the moment its generator returned.  The port compiles
@@ -34,8 +38,13 @@ from consensus_entropy_tpu_torch.obs.metrics import (
 CNN_DISPATCH_FNS = ("cnn_probs", "qbdc_probs", "cnn_retrain", "cnn_eval")
 
 #: summary counters of fault events, present only when nonzero
-_FAULT_COUNTS = (("dispatch_failures", "dispatch_failed"),
-                 ("dispatch_session_errors", "dispatch_session_error"))
+_FAULT_COUNTS = (("watchdog_evictions", "watchdog_evict"),
+                 ("breaker_trips", "breaker_open"),
+                 ("breaker_giveups", "breaker_giveup"),
+                 ("dispatch_failures", "dispatch_failed"),
+                 ("dispatch_session_errors", "dispatch_session_error"),
+                 ("requeues", "requeue"),
+                 ("users_poisoned", "poison"))
 
 
 def _dispatch_rollup(ds: list[dict]) -> dict:
@@ -69,6 +78,20 @@ class FleetReport:
         self.metrics = MetricsRegistry()
         #: host-clock seconds of each device dispatch (stacked or single)
         self.dispatch_wall = self.metrics.rolling("dispatch_wall_s")
+        #: the serve layer's admission telemetry (empty outside serving)
+        self.queue_depth = self.metrics.rolling("queue_depth")
+        self.admission_wait = self.metrics.rolling("admission_wait_s")
+        #: each user's first enqueue -> user_done or terminal failure (the
+        #: queue wait included: what a latency SLO targets)
+        self.admission_latency = self.metrics.histogram(
+            "admission_to_finish_s")
+        #: the same a priority class, made at the class's first admit
+        self._class_latency: dict[str, object] = {}
+        self._class_of: dict[str, str] = {}
+        #: the SLO planner (``serve.planner``), installed by ``FleetServer``
+        #: so the summary carries its section
+        self.planner = None
+        self._admit_t: dict[str, float] = {}
         self.writer = EventWriter(jsonl_path)
         self._t0 = time.perf_counter()
         self._lock = threading.Lock()
@@ -111,9 +134,54 @@ class FleetReport:
         self._emit({"event": kind, "t_s": round(self.elapsed_s(), 3),
                     **fields})
 
+    def enqueued(self, user, depth: int, cls: str = "batch") -> None:
+        """A user entered the serve layer's waiting queue (``depth`` after
+        it), in priority class ``cls``; producer threads call this too.
+        The first enqueue starts the user's latency clock; a backoff
+        re-enqueue continues it."""
+        with self._lock:
+            self.queue_depth.add(depth)
+            self._admit_t.setdefault(str(user), time.perf_counter())
+        self.event("enqueue", user=str(user), depth=depth, cls=cls)
+
+    def admitted(self, user, *, width: int, wait_s: float, depth: int,
+                 live: int, cls: str = "batch") -> None:
+        """A queued user was admitted into the engine: its bucket width,
+        class, queue wait, the depth left behind and the live sessions
+        after it."""
+        with self._lock:
+            self.admission_wait.add(wait_s)
+            self.queue_depth.add(depth)
+            self._admit_t.setdefault(str(user), time.perf_counter())
+            self._class_of.setdefault(str(user), cls)
+            if cls not in self._class_latency:
+                self._class_latency[cls] = self.metrics.histogram(
+                    f"admission_to_finish_s.{cls}")
+        self.event("admit", user=str(user), width=width,
+                   wait_s=round(wait_s, 4), depth=depth, live=live,
+                   cls=cls)
+
+    def _finish_latency(self, user) -> None:
+        with self._lock:
+            t = self._admit_t.pop(str(user), None)
+            if t is not None:
+                latency = time.perf_counter() - t
+                self.admission_latency.add(latency)
+                cls = self._class_of.get(str(user))
+                if cls in self._class_latency:
+                    self._class_latency[cls].add(latency)
+
+    def class_p95s(self) -> dict:
+        """``{class: p95 of its admission-to-finish latency}`` (``None``
+        before a class resolved anyone)."""
+        with self._lock:
+            return {cls: h.percentile(95)
+                    for cls, h in self._class_latency.items()}
+
     def user_done(self, user, result: dict, phases: dict) -> None:
         """A session finished; ``phases`` are its summed ``{phase}_s``."""
         self.users_done += 1
+        self._finish_latency(user)
         for k, v in phases.items():
             self.phase_totals[k] = self.phase_totals.get(k, 0.0) + v
         self.event("user_done", user=str(user),
@@ -122,8 +190,10 @@ class FleetReport:
 
     def user_failed(self, user, error: str,
                     attempts: int | None = None) -> None:
-        """A user failed terminally (its resumes, if any, spent)."""
+        """A user failed terminally (its resumes, if any, spent, and under
+        the serve layer its re-admissions)."""
         self.users_failed += 1
+        self._finish_latency(user)
         rec = {"user": str(user), "error": error}
         if attempts is not None:
             rec["attempts"] = attempts
@@ -230,6 +300,22 @@ class FleetReport:
                            ("transfer", self.transfer_summary)):
             if value is not None:
                 out[key] = value
+        if self.admission_wait.n:
+            out["admissions"] = self.admission_wait.n
+            out["admission_wait_s"] = self.admission_wait.snapshot()
+            out["queue_depth"] = self.queue_depth.snapshot()
+        if self.admission_latency.n:
+            out["admission_to_finish_s"] = self.admission_latency.snapshot()
+        if self._class_latency:
+            out["per_class"] = {}
+            for cls, h in sorted(self._class_latency.items()):
+                snap = h.snapshot()
+                # resolved users (finished or failed), the histogram's n
+                out["per_class"][cls] = {
+                    "users": snap["n"] if snap else 0,
+                    "admission_to_finish_s": snap}
+        if self.planner is not None:
+            out["planner"] = self.planner.summary()
         return out
 
     def write_summary(self, *, cohort: int,
@@ -259,7 +345,8 @@ def bench_line(summary: dict, *, baseline_users_per_sec: float | None = None,
         "evictions": summary.get("evictions"),
         "phase_wall_s": summary.get("phase_wall_s"),
     }
-    for key in ("per_bucket", "cnn", "transfer"):
+    for key in ("per_bucket", "cnn", "transfer", "admission_to_finish_s",
+                "per_class", "planner"):
         if summary.get(key) is not None:
             line[key] = summary[key]
     for key, _ in _FAULT_COUNTS:

@@ -36,10 +36,18 @@ order as ``ALLoop.run_user``; scheduling only changes when each step runs.
 path), public for a caller that holds the engine open.  With a pool-axis
 ``mesh`` every group runs through the sharded per-width families
 (``parallel.pool_mesh.sharded_fleet_fns_for_width``): the stacked
-``(U, M, N, C)`` is split on N, users times shards in one dispatch.  The
-serving layer's hooks (watchdog, breaker, admission hold, terminal
-hand-off, the fence release), the span tracer and the device profiler
-hook are not ported (ROADMAP A10).
+``(U, M, N, C)`` is split on N, users times shards in one dispatch.
+
+The serving layer's hooks (JAX ``scheduler.py:155-263``): ``watchdog``
+bounds every host step and device dispatch (a hung host step's session is
+evicted, ``_reap_hung_hosts``; teardown stays bounded); ``breaker``
+degrades a width whose stacked dispatches keep failing to per-user
+dispatch; ``hold`` sizes how long a partly formed stacked dispatch waits
+for host steps in flight; ``on_terminal`` lets the server take a failed
+user back for backoff re-admission; ``tracer`` writes the dispatch and
+host-step spans; ``profile_dir`` captures the first ``profile_n`` device
+dispatches with ``torch.profiler``.  The fence's release hooks belong to
+the multi-host fabric and are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ from consensus_entropy_tpu_torch.fleet.session import (
 from consensus_entropy_tpu_torch.models import committee as committee_mod
 from consensus_entropy_tpu_torch.obs import jit_telemetry
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
-from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER
+from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER, DeviceProfile
 from consensus_entropy_tpu_torch.ops import scoring as ops_scoring
 from consensus_entropy_tpu_torch.parallel.mesh import ShardedRows
 from consensus_entropy_tpu_torch.resilience import faults
@@ -84,6 +92,9 @@ class FleetUser:
     user_path: str
     seed: int | None = None
     committee_factory: Callable | None = None
+    #: the serve layer's admission priority class
+    #: (``serve.planner.PRIORITY_CLASSES``); ignored outside serving
+    priority: str = "batch"
 
 
 @dataclasses.dataclass(eq=False)  # identity hash: states live in dicts
@@ -114,7 +125,18 @@ class FleetScheduler:
     session writes its ``timings.jsonl``; a faulted user is resumed at
     most ``MAX_RESUMES`` times.  ``mesh``: a pool-axis mesh every
     session's pool is split across (its first device stands for
-    ``device``); groups dispatch through the sharded families."""
+    ``device``); groups dispatch through the sharded families.
+
+    ``batch_window_s``: before dispatching a partly full round while host
+    steps are in flight, wait up to this long for more sessions to join
+    (0: eager).  Serving hooks (module docstring): ``watchdog`` (a
+    ``serve.watchdog.Watchdog``), ``breaker`` (a ``serve.breaker.
+    DispatchBreaker``), ``on_terminal(entry, error, resumes)`` (True
+    takes the failure over: no result is recorded), ``hold`` (an object
+    whose ``window_s(waiting, host_in_flight)`` is the dispatch hold and
+    whose optional ``note_host_step(seconds)`` learns host-step times),
+    ``tracer`` (an ``obs.trace.Tracer``), ``profile_dir`` /
+    ``profile_n``."""
 
     #: eviction -> resume attempts per user before it fails terminally
     MAX_RESUMES = 1
@@ -128,7 +150,10 @@ class FleetScheduler:
                  report: FleetReport | None = None,
                  scoring_by_width: bool = False, stack_cnn: bool = True,
                  plan_chunk: int | None = None, fuse_step: bool = True,
-                 device=None, mesh=None):
+                 device=None, mesh=None, batch_window_s: float = 0.0,
+                 watchdog=None, breaker=None, on_terminal=None, hold=None,
+                 tracer=None,
+                 profile_dir: str | None = None, profile_n: int = 10):
         self.config = config
         self.mesh = mesh
         self.device = (mesh.device_list[0] if mesh is not None
@@ -143,7 +168,19 @@ class FleetScheduler:
         self.stack_cnn = stack_cnn
         self.plan_chunk = plan_chunk
         self.fuse_step = fuse_step
-        self.tracer = NULL_TRACER
+        self.batch_window_s = batch_window_s
+        self.watchdog = watchdog
+        self.breaker = breaker
+        self.on_terminal = on_terminal
+        self.hold = hold
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        #: the device profiler's capture: started at the first device
+        #: dispatch, stopped after ``profile_n`` of them (the Chrome trace
+        #: lands in ``profile_dir``; its path in ``profile_path``)
+        self._profile_dir = profile_dir
+        self._profile_left = profile_n if profile_dir else 0
+        self._profile: DeviceProfile | None = None
+        self.profile_path: str | None = None
         #: ``"full"`` or ``"cheap"`` (each committee capped at its
         #: ``min_members`` floor): see :meth:`set_depth`
         self.depth = "full"
@@ -179,6 +216,12 @@ class FleetScheduler:
         self._live: dict = {}
         self._score_wait: list = []   # (state, ScoreStep | DeviceStep)
         self._host_wait: dict = {}    # Future -> (state, HostStep)
+        #: Future -> submit time (the hold's host-step telemetry)
+        self._host_t0: dict = {}
+        #: watchdog-abandoned host futures: their zombie threads run on
+        #: against discarded session objects; teardown must not wait on
+        #: one that hangs for good
+        self._abandoned: list = []
         self._opened = True
 
     def admit(self, entry: FleetUser, *, pad: int | None = None
@@ -211,12 +254,19 @@ class FleetScheduler:
         host step.  Returns False when the engine is idle."""
         if not (self._ready or self._score_wait or self._host_wait):
             return False
+        self._reap_hung_hosts()
         while self._ready:
             state, value, exc = self._ready.popleft()
             self._live[state] = None
             self._track(state, self._advance(state, value, exc))
         if self._score_wait:
-            if self._host_wait and self._drain_host(0):
+            # the dispatch hold: wait up to this long for host steps in
+            # flight, whose sessions may be one step from joining
+            window = self.batch_window_s
+            if self.hold is not None:
+                window = max(window, self.hold.window_s(
+                    len(self._score_wait), len(self._host_wait)))
+            if self._host_wait and self._drain_host(window):
                 # sessions finishing host work may be one step from their
                 # own device step: let them join this batch
                 return True
@@ -224,14 +274,19 @@ class FleetScheduler:
             if self.plan_chunk and self._host_wait:
                 batch = self._hold_partial_plans(batch)
                 if not batch:
-                    self._drain_host(None)
+                    self._drain_host(self._host_timeout())
                     return True
             for state, res in self._dispatch_scores(batch):
                 self._ready.append((state, res, None))
             return True
         if self._host_wait:
-            self._drain_host(None)
+            self._drain_host(self._host_timeout())
         return True
+
+    def _host_timeout(self):
+        """How long a blocking host wait may last: until the next armed
+        watchdog deadline could expire, or without bound."""
+        return None if self.watchdog is None else self.watchdog.poll_s()
 
     @property
     def has_work(self) -> bool:
@@ -252,7 +307,7 @@ class FleetScheduler:
         """The error path (``Preempted``, ``InjectedKill``, interrupt):
         join the host workers (they touch session state), then close every
         live generator, so each session's checkpointer joins its commit."""
-        self._host_pool.shutdown(wait=True)
+        self._shutdown_host_pool()
         for state in list(self._live):
             try:
                 state.gen.close()
@@ -263,10 +318,29 @@ class FleetScheduler:
         """Join both pools and retire the engine.  Every generator was
         closed before (finished ones inside themselves, the rest in
         :meth:`abort`), so the checkpoint pool holds no pending commit."""
-        self._host_pool.shutdown(wait=True)
+        self._shutdown_host_pool()
         self._ckpt_pool.shutdown(wait=True)
+        if self._profile is not None:  # fewer than profile_n dispatches
+            self.profile_path = self._profile.stop()
+            self._profile = None
         jit_telemetry.unsubscribe(self._on_compile)
         self._opened = False
+
+    def _shutdown_host_pool(self) -> None:
+        """Join the host pool: without a watchdog, until every host step
+        finished.  With one, teardown is bounded by its deadline: tracked
+        steps get one deadline to finish (the abort path, where a hung
+        step was never reaped), and a step still alive after that, or an
+        abandoned zombie still running, is left to the interpreter rather
+        than wedging shutdown on the hang the watchdog exists to bound."""
+        if self.watchdog is None:
+            self._host_pool.shutdown(wait=True)
+            return
+        if self._host_wait:
+            wait(list(self._host_wait), timeout=self.watchdog.deadline_s)
+        hung = any(not f.done() for f in self._abandoned) \
+            or any(not f.done() for f in self._host_wait)
+        self._host_pool.shutdown(wait=not hung)
 
     def _on_compile(self, ev: dict) -> None:
         """A compile event into the metrics stream (none is emitted: the
@@ -286,7 +360,7 @@ class FleetScheduler:
             timer=timer, preemption=self.preemption,
             ckpt_executor=self._ckpt_pool, pin_pad=pin_pad,
             cnn_steps=self.stack_cnn, fuse_step=self.fuse_step,
-            device=self.device, mesh=self.mesh)
+            device=self.device, mesh=self.mesh, tracer=self.tracer)
         return _SessionState(entry, session, session.steps(), pad=pad,
                              n_pad=session.acq.n_pad)
 
@@ -312,9 +386,30 @@ class FleetScheduler:
         elif isinstance(step, (ScoreStep, DeviceStep)):
             self._score_wait.append((state, step))
         else:
-            fut = self._host_pool.submit(self._timed_host_step, step.fn,
+            fn = step.fn
+            if self.tracer.enabled:
+                # the pooled block's span under the session's current
+                # iteration, read here while the generator is suspended;
+                # keyed (user, epoch, label), so a re-run after an
+                # eviction writes the same id
+                uid = str(state.entry.user_id)
+                name = ("checkpoint" if step.label == "checkpoint"
+                        else "host_step")
+                ctx = state.session.trace_ctx
+                key = (uid, state.session.trace_epoch, step.label)
+
+                def fn(fn=step.fn, name=name, ctx=ctx, key=key, uid=uid,
+                       label=step.label or "host"):
+                    with self.tracer.span(name, parent=ctx, key=key,
+                                          user=uid, label=label):
+                        return fn()
+            fut = self._host_pool.submit(self._timed_host_step, fn,
                                          step.label or "host")
             self._host_wait[fut] = (state, step)
+            # submit -> completion: the hold's host-step telemetry
+            self._host_t0[fut] = time.monotonic()
+            if self.watchdog is not None:
+                self.watchdog.arm(state, step.label or "host")
 
     def _timed_host_step(self, fn, label: str):
         """Run a host step on a worker, recording its interval in the
@@ -332,14 +427,47 @@ class FleetScheduler:
             return 0
         done, _ = wait(list(self._host_wait), timeout=timeout,
                        return_when=FIRST_COMPLETED)
+        note = getattr(self.hold, "note_host_step", None)
         for fut in done:
             state, _ = self._host_wait.pop(fut)
+            t0 = self._host_t0.pop(fut, None)
+            if note is not None and t0 is not None:
+                note(time.monotonic() - t0)
+            if self.watchdog is not None:
+                self.watchdog.disarm(state)
             err = fut.exception()
             # a failure is thrown into the generator: the session's own
             # error path runs, as if the block had raised inline
             self._ready.append((state, fut.result(), None) if err is None
                                else (state, None, err))
         return len(done)
+
+    def _reap_hung_hosts(self) -> None:
+        """Evict the sessions whose host step blew the watchdog deadline:
+        the future is abandoned (a thread cannot be killed; the zombie
+        finishes against the discarded session's objects) and the timeout
+        is thrown into the generator, whose error path runs and whose user
+        :meth:`_evict` resumes from its workspace."""
+        if self.watchdog is None or not self._host_wait:
+            return
+        expired = {key: (label, elapsed)
+                   for key, label, elapsed in self.watchdog.expired()}
+        if not expired:
+            return
+        for fut, (state, step) in list(self._host_wait.items()):
+            if state not in expired or fut.done():
+                continue  # a done future drains normally
+            del self._host_wait[fut]
+            self._host_t0.pop(fut, None)
+            self._abandoned.append(fut)
+            label, elapsed = expired[state]
+            exc = self.watchdog.trip(state, label, elapsed)
+            self.report.event("watchdog_evict",
+                              user=str(state.entry.user_id),
+                              step=step.label or "host",
+                              elapsed_s=round(elapsed, 3),
+                              deadline_s=self.watchdog.deadline_s)
+            self._ready.append((state, None, exc))
 
     def _finish(self, state: _SessionState, result: dict) -> None:
         phases = {}
@@ -381,6 +509,12 @@ class FleetScheduler:
         self._ready.append((new, None, None))
 
     def _terminal(self, entry: FleetUser, error: str, resumes: int) -> None:
+        """Out of in-engine recovery.  ``on_terminal`` decides first: True
+        means the driver took the user back (the serve layer re-queues it
+        with backoff; no record, the user's span stays open)."""
+        if self.on_terminal is not None \
+                and self.on_terminal(entry, error, resumes):
+            return
         self.report.user_failed(entry.user_id, error, attempts=resumes + 1)
         self.tracer.close_user(str(entry.user_id), error=error)
         self._results[id(entry)] = {
@@ -470,12 +604,14 @@ class FleetScheduler:
         stacked dispatch, a group of one the session's own call.  Returns
         ``[(state, result), ...]``.
 
-        A failed stacked dispatch is recorded (``dispatch_failed``) and
-        its group served one session at a time; a session whose own call
-        fails is evicted through its generator's error path, its peers
-        untouched.  Stacked scoring calls are all launched before any row
-        is handed out, so the next group's stacking overlaps the previous
-        one's device work."""
+        A failed stacked dispatch is recorded (``dispatch_failed``, and on
+        the breaker, which may open the width) and its group served one
+        session at a time; a width whose breaker is open is served that
+        way from the start.  A session whose own call fails is evicted
+        through its generator's error path, its peers untouched.  Stacked
+        scoring calls are all launched before any row is handed out, so
+        the next group's stacking overlaps the previous one's device
+        work."""
         groups = collections.defaultdict(list)
         for st, step in steps:
             if isinstance(step, DeviceStep):
@@ -495,13 +631,27 @@ class FleetScheduler:
             else:
                 rounds.append(group)
 
-        def grade(fn_key, batch, width, wall, h2d=(None, None)):
+        def grade(fn_key, batch, width, wall, h2d=(None, None), w0=None):
             self.report.dispatch(
                 fn_key, batch,
                 self._active_in_bucket(width) if self.scoring_by_width
                 else n_live, wall,
                 width=width if self.scoring_by_width else None,
                 h2d_bytes=h2d[0], h2d_ops=h2d[1])
+            if w0 is not None and self.tracer.enabled:
+                # one span serves N users: it parents the run context, on
+                # its bucket's lane
+                self.tracer.span_at(
+                    "retrain" if fn_key == "cnn_retrain"
+                    else "score_dispatch",
+                    w0, w0 + wall, parent=self.tracer.run_ctx, fn=fn_key,
+                    width=width if self.scoring_by_width else None,
+                    batch=batch)
+
+        def closed(width):
+            if self.breaker is not None \
+                    and self.breaker.record_success(width) == "close":
+                self.report.event("breaker_close", width=width)
 
         out, single, pending = [], [], []
         for group in rounds:
@@ -509,9 +659,15 @@ class FleetScheduler:
             step0 = group[0][1]
             fn_key = (step0.plan.fn_key if isinstance(step0, DeviceStep)
                       else step0.fn_key)
-            if len(group) == 1:
+            stacked = len(group) > 1
+            if stacked and self.breaker is not None:
+                stacked = self.breaker.allow_stacked(width)
+                if stacked and self.breaker.state_of(width) == "half_open":
+                    self.report.event("breaker_probe", width=width)
+            if not stacked:
                 single.append((group, width, fn_key))
                 continue
+            w0 = time.time()
             t0 = time.perf_counter()
             try:
                 if isinstance(step0, DeviceStep):
@@ -519,21 +675,26 @@ class FleetScheduler:
                 else:
                     batched, h2d = self._stacked_call(fn_key, width, group)
             except Exception as exc:
-                self.report.event("dispatch_failed", fn=fn_key, width=width,
-                                  error=repr(exc))
+                self._note_stacked_failure(fn_key, width, exc)
                 single.append((group, width, fn_key))
                 continue
             if isinstance(step0, DeviceStep):
                 out.extend(served)
-                grade(fn_key, len(group), width, time.perf_counter() - t0)
+                closed(width)
+                grade(fn_key, len(group), width, time.perf_counter() - t0,
+                      w0=w0)
             else:
+                # the wall is taken at launch: the later groups' stacking
+                # is not this dispatch's
                 pending.append((group, width, fn_key,
-                                time.perf_counter() - t0, batched, h2d))
-        for group, width, fn_key, wall, batched, h2d in pending:
-            grade(fn_key, len(group), width, wall, h2d)
+                                time.perf_counter() - t0, batched, h2d, w0))
+        for group, width, fn_key, wall, batched, h2d, w0 in pending:
+            closed(width)
+            grade(fn_key, len(group), width, wall, h2d, w0=w0)
             out.extend(self._result_rows(fn_key, batched, group))
         for group, width, fn_key in single:
             for st, step in group:
+                w0 = time.time()
                 t0 = time.perf_counter()
                 try:
                     res = self._single_call(step)
@@ -546,12 +707,23 @@ class FleetScheduler:
                 out.append((st, res))
                 wall = time.perf_counter() - t0
                 if isinstance(step, DeviceStep):
-                    grade(fn_key, 1, width, wall)
+                    grade(fn_key, 1, width, wall, w0=w0)
                 else:
                     b1, o1 = self._h2d(step.inputs)
                     b2, o2 = step.session.acq.take_h2d()
-                    grade(fn_key, 1, width, wall, (b1 + b2, o1 + o2))
+                    grade(fn_key, 1, width, wall, (b1 + b2, o1 + o2),
+                          w0=w0)
         return out
+
+    def _guarded(self, dispatch, what: str):
+        """Run one device dispatch: under the watchdog's deadline when one
+        is installed (on its thread: the card's default stream orders the
+        work as inline calls are), inside the profiler's window."""
+        self._profile_start()
+        res = (self.watchdog.call(dispatch, what)
+               if self.watchdog is not None else dispatch())
+        self._profile_tick()
+        return res
 
     def _stacked_call(self, fn_key: str, width: int, group: list):
         """Stack a group's inputs and launch one fleet-scorer call; returns
@@ -564,14 +736,18 @@ class FleetScheduler:
             b2, o2 = step.session.acq.take_h2d()
             drained.append((step.session.acq, b2, o2))
             h2d = (h2d[0] + b1 + b2, h2d[1] + o1 + o2)
-        try:
+
+        def dispatch():
             faults.fire("serve.dispatch", fn=fn_key, width=width,
                         batch=len(group))
             stacked = [self._stack([step.inputs[pos] for _, step in group])
                        for pos in range(len(group[0][1].inputs))]
             with jit_telemetry.dispatch_scope(fn_key, width=width,
                                               n_devices=self._n_devices()):
-                batched = self._group_fns(width)[fn_key](*stacked)
+                return self._group_fns(width)[fn_key](*stacked)
+
+        try:
+            batched = self._guarded(dispatch, f"dispatch {fn_key}@{width}")
         except BaseException:
             # the per-user fallback grades these uploads
             for acq, b2, o2 in drained:
@@ -601,25 +777,68 @@ class FleetScheduler:
         return rows
 
     def _plan_call(self, fn_key: str, width: int, group: list) -> list:
-        """One stacked CNN dispatch for a plan group: the pure compute,
-        then the commit (a retrain's member rebinding) on this thread."""
+        """One stacked CNN dispatch for a plan group: the pure compute
+        (under the watchdog), then the commit (a retrain's member
+        rebinding) on this thread, so an abandoned dispatch that finishes
+        late never rebinds committees that took the per-user path."""
         plans = [step.plan for _, step in group]
-        faults.fire("serve.dispatch", fn=fn_key, width=width,
-                    batch=len(group))
-        with jit_telemetry.dispatch_scope(fn_key, width=width):
-            computed = committee_mod.stage_device_plans(plans)
+
+        def dispatch():
+            faults.fire("serve.dispatch", fn=fn_key, width=width,
+                        batch=len(group))
+            with jit_telemetry.dispatch_scope(fn_key, width=width):
+                return committee_mod.stage_device_plans(plans)
+
+        computed = self._guarded(dispatch, f"dispatch {fn_key}@{width}")
         results = committee_mod.commit_device_plans(plans, computed)
         return [(st, res) for (st, _), res in zip(group, results)]
 
-    @staticmethod
-    def _single_call(step):
-        """One session's own dispatch: the sequential path."""
-        faults.fire("serve.dispatch", fn=(
-            step.plan.fn_key if isinstance(step, DeviceStep)
-            else step.fn_key), width=step.session.acq.n_pad, batch=1)
-        if isinstance(step, DeviceStep):
-            return step.single()
-        return step.session.acq.run_scoring(step.fn_key, step.inputs)
+    def _single_call(self, step):
+        """One session's own dispatch, the sequential path, under the
+        watchdog like a stacked one."""
+        fn_key = (step.plan.fn_key if isinstance(step, DeviceStep)
+                  else step.fn_key)
+
+        def dispatch():
+            faults.fire("serve.dispatch", fn=fn_key,
+                        width=step.session.acq.n_pad, batch=1)
+            if isinstance(step, DeviceStep):
+                return step.single()
+            return step.session.acq.run_scoring(step.fn_key, step.inputs)
+
+        return self._guarded(dispatch, f"dispatch {fn_key}x1")
+
+    def _profile_start(self) -> None:
+        """Open the device profiler at the first dispatch."""
+        if self._profile_left and self._profile is None:
+            self._profile = DeviceProfile(self._profile_dir, self.device)
+            self._profile.start()
+
+    def _profile_tick(self) -> None:
+        """One dispatch done inside the profiler's window; close it (and
+        export its trace) after ``profile_n``."""
+        if self._profile is None:
+            return
+        self._profile_left -= 1
+        if self._profile_left <= 0:
+            self.profile_path = self._profile.stop()
+            self._profile = None
+
+    def _note_stacked_failure(self, fn_key: str, width: int,
+                              exc: Exception) -> None:
+        self.report.event("dispatch_failed", fn=fn_key, width=width,
+                          error=repr(exc))
+        if self.breaker is None:
+            return
+        verdict = self.breaker.record_failure(width)
+        if verdict == "open":
+            self.report.event("breaker_open", width=width,
+                              threshold=self.breaker.threshold,
+                              cooldown_s=self.breaker.cooldown_s)
+        elif verdict == "giveup":
+            # the probe budget is spent: per-user for the rest of the run
+            self.report.event("breaker_giveup", width=width,
+                              probes=self.breaker.probe_budget)
 
     # -- the cohort runner -------------------------------------------------
 

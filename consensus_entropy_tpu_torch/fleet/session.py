@@ -26,8 +26,13 @@ offered only to committees whose host members score on the host.  With a
 pool-axis ``mesh`` the acquirer selects sharded and the CNN work stays
 inline.  Across processes (``parallel.multihost``) only the coordinator
 writes the workspace and the report, the preemption flag is agreed by
-every process at each boundary, and a barrier closes the run.  The span
-tracer waits for ROADMAP A10.
+every process at each boundary, and a barrier closes the run.
+
+With a ``tracer`` (``obs.trace.Tracer``) the session opens the user's root
+span and one ``al_iter`` span an iteration (``begin``/``end``, keyed by
+user and epoch): an iteration cut short by a kill or an eviction leaves
+its span unwritten, and the resumed attempt, which re-runs it, writes the
+same id, so the children written before the fault keep their parent.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from consensus_entropy_tpu_torch.al.reporting import UserReport
 from consensus_entropy_tpu_torch.config import ALConfig
 from consensus_entropy_tpu_torch.labels import one_hot_np
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
+from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER
 from consensus_entropy_tpu_torch.parallel import multihost
 from consensus_entropy_tpu_torch.resilience import faults
 from consensus_entropy_tpu_torch.resilience.preemption import Preempted
@@ -139,7 +145,8 @@ class UserSession:
     another width raises.  ``cnn_steps``: yield the CNN device work as
     :class:`DeviceStep` plans (``False`` keeps it inline).  ``mesh``: the
     acquirer's pool-axis mesh; a meshed session keeps every step inline
-    (its operands are placed on the mesh, not stackable across users)."""
+    (its operands are placed on the mesh, not stackable across users).
+    ``tracer``: the span tracer (the null one by default)."""
 
     def __init__(self, config: ALConfig, committee, data, user_path: str, *,
                  seed: int | None = None, tie_break: str = "fast",
@@ -148,7 +155,7 @@ class UserSession:
                  timer: StepTimer | None = None, preemption=None,
                  ckpt_executor=None, pin_pad: int | None = None,
                  cnn_steps: bool = True, fuse_step: bool = True,
-                 device=None, mesh=None):
+                 device=None, mesh=None, tracer=None):
         from consensus_entropy_tpu_torch.al.loop import (
             AsyncCheckpointer,
             grouped_split,
@@ -166,6 +173,12 @@ class UserSession:
         self.retrain_epochs = retrain_epochs
         self.mesh = mesh
         self.result: dict | None = None
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        #: the current iteration's span and epoch: the scheduler parents a
+        #: pooled host step's span under them
+        self.trace_ctx = None
+        self.trace_epoch = None
+        self.tracer.open_user(str(data.user_id))
         # the config's survivor floor never weakens a stricter committee
         committee.min_members = max(committee.min_members, cfg.min_members)
         #: wmc: per-member reliability weights by member name, persisted
@@ -439,8 +452,13 @@ class UserSession:
                 trajectory.append(float(np.mean(f1s)))
                 return f1_prev
 
+            uid = str(data.user_id)
+            uctx = self.tracer.user_ctx(uid)
             if self._fresh:
                 # epoch 0: baseline evaluation (amg_test.py:398-418)
+                ictx = self.tracer.begin("al_iter", parent=uctx,
+                                         key=(uid, -1), user=uid, epoch=-1)
+                self.trace_ctx, self.trace_epoch = ictx, -1
                 report.epoch_header(-1)
                 self.key, sub = _split(self.key)
                 eval_block = yield from self._eval_forward(sub)
@@ -461,6 +479,10 @@ class UserSession:
 
                 yield from self._host_step(boundary0, "checkpoint",
                                            self.boundary_offloadable)
+                # the span closes before the preemption boundary: a resume
+                # after a clean preemption starts at the next iteration
+                self.tracer.end(ictx)
+                self.trace_ctx = self.trace_epoch = None
                 self._preempt_check("baseline evaluation")
 
             for epoch in range(self.start_epoch, cfg.epochs):
@@ -468,6 +490,10 @@ class UserSession:
                 live = acq.remaining_songs
                 if len(live) == 0:
                     break
+                ictx = self.tracer.begin("al_iter", parent=uctx,
+                                         key=(uid, epoch), user=uid,
+                                         epoch=epoch)
+                self.trace_ctx, self.trace_epoch = ictx, epoch
                 member_probs = None
                 block = plan = None
                 strat = acq.strategy
@@ -643,6 +669,8 @@ class UserSession:
 
                 yield from self._host_step(boundary, "checkpoint",
                                            self.boundary_offloadable)
+                self.tracer.end(ictx, queried=len(q_songs))
+                self.trace_ctx = self.trace_epoch = None
                 self._preempt_check(f"iteration {epoch}")
 
             result = {"user": data.user_id, "mode": cfg.mode,

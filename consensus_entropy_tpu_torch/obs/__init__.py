@@ -1,2 +1,3 @@
-"""Observability of the port: phase timers, the metrics registry and
-event writer, dispatch scopes and the null tracer."""
+"""Observability of the port: phase timers, metrics, histograms and
+sketches, the event writer, the span tracer and the device profiler's
+capture, the readers and exports (``export``), dispatch scopes."""

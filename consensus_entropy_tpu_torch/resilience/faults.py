@@ -17,10 +17,12 @@ Actions:
   first row to NaN;
 - ``delay`` sleeps ``delay_s`` (``delay=0.5``).
 
-``multihost.sync`` fires at each cross-process barrier.  Of the serve
-points only ``serve.dispatch`` (the fleet scheduler's device dispatches)
-is here; the others, the fabric points and the gray
-``stall``/``slow`` actions wait for the serving layer (ROADMAP A10).
+``multihost.sync`` fires at each cross-process barrier.  The single-host
+serve points are here: ``serve.admit``, ``serve.journal.append``,
+``serve.dispatch`` and ``serve.collect``, and ``fabric.compact``, which
+the admission journal's compaction fires.  The other fabric points and
+the gray ``stall``/``slow`` actions wait for the multi-host fabric
+(ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -45,7 +47,11 @@ FAULT_POINTS = frozenset({
     "io.write.eio",       # raise -> OSError(EIO) before any byte
     "io.fsync",           # raise -> the fsync is dropped
     "io.rename",          # raise -> the atomic rename fails with EIO
+    "serve.admit",        # FleetServer slot refill, before the admit record
+    "serve.journal.append",  # AdmissionJournal.append, before the write
     "serve.dispatch",     # FleetScheduler, each device dispatch
+    "serve.collect",      # FleetServer completion, before the finish record
+    "fabric.compact",     # AdmissionJournal compaction (checkpoint, truncate)
     "multihost.sync",     # parallel.multihost.sync barriers
 })
 

@@ -229,3 +229,153 @@ def test_evidence_sweep_cli_matches_jax(tmp_path, capsys):
     assert reports["port"] == reports["jax"]
     assert set(reports["port"]["tests"]) == {"mc>rand", "hc>rand",
                                              "mix>rand"}
+
+
+def _fresh_models(port_models, root):
+    shutil.copytree(os.path.join(port_models, "pretrained"),
+                    os.path.join(root, "pretrained"))
+    return str(root)
+
+
+def test_serve_cli_matches_the_sequential_cli(trees, tmp_path, capsys):
+    """``--serve 2`` selects the sequential CLI's songs for each user
+    (tolerance 0); its spans go to ``--trace-dir`` without orphans, its
+    journal shows every user finished, its metrics stream validates, and
+    ``--torch-profile`` writes a Chrome trace of the first dispatches; a
+    rerun skips the finished users."""
+    from consensus_entropy_tpu_torch.obs import export
+    from consensus_entropy_tpu_torch.serve import journal
+
+    roots, _, port_models = trees
+    seq = _fresh_models(port_models, tmp_path / "seq")
+    assert amg_test.main(AL + ["-m", "mc"] + _port_flags(roots, seq)) == 0
+    served = _fresh_models(port_models, tmp_path / "serve")
+    spans, prof = str(tmp_path / "spans"), str(tmp_path / "prof")
+    flags = AL + ["-m", "mc", "--serve", "2", "--bucket-widths", "64,128",
+                  "--trace-dir", spans, "--torch-profile", prof,
+                  "--torch-profile-n", "3"] + _port_flags(roots, served)
+    assert amg_test.main(flags) == 0
+    out = capsys.readouterr().out
+    assert "serve summary: " in out and "device profile: " in out
+    ours = _user_metrics(served, "mc")
+    assert len(ours) == 2 and ours == _user_metrics(seq, "mc")
+    users = os.path.join(served, "users")
+    st = journal._replay(os.path.join(users, "serve_journal.jsonl"))
+    assert st.finished == set(ours)
+    assert export.validate_metrics_file(
+        os.path.join(users, "fleet_metrics.jsonl")) == []
+    merged = export.load_spans(export.find_span_files(spans))
+    assert merged and export.orphan_spans(merged) == []
+    assert {"run", "user", "al_iter"} <= {s["name"] for s in merged}
+    (trace_file,) = os.listdir(prof)
+    with open(os.path.join(prof, trace_file)) as f:
+        assert json.load(f)["traceEvents"]
+    assert amg_test.main(flags) == 0
+    out = capsys.readouterr().out
+    assert "recovering — 2 finished" in out
+    assert out.count("Skipping user") == 2
+    assert journal._replay(os.path.join(
+        users, "serve_journal.jsonl")).finished == set(ours)
+
+
+@pytest.mark.parametrize("kill_at", [3, 6])
+def test_serve_cli_killed_at_a_journal_append_restarts(trees, tmp_path,
+                                                       capsys, kill_at):
+    """Killed at the K-th ``serve.journal.append``, the same command
+    restarted from the journal loses no user, skips the finished ones and
+    ends on the sequential CLI's songs."""
+    from consensus_entropy_tpu_torch.resilience import faults
+    from consensus_entropy_tpu_torch.resilience.faults import FaultRule
+    from consensus_entropy_tpu_torch.serve import journal
+
+    roots, _, port_models = trees
+    seq = _fresh_models(port_models, tmp_path / "seq")
+    assert amg_test.main(AL + ["-m", "hc"] + _port_flags(roots, seq)) == 0
+    served = _fresh_models(port_models, tmp_path / "serve")
+    flags = AL + ["-m", "hc", "--serve", "2"] + _port_flags(roots, served)
+    with faults.inject(FaultRule("serve.journal.append", "kill",
+                                 at=kill_at)) as inj:
+        with pytest.raises(faults.InjectedKill):
+            amg_test.main(flags)
+    assert inj.fired
+    jpath = os.path.join(served, "users", "serve_journal.jsonl")
+    finished = journal._replay(jpath).finished
+    users = os.path.join(served, "users")
+    # a user persisted by on_result whose finish record the kill cut off
+    # is DONE on disk: the restart skips it as a finished workspace
+    done = {u for u in os.listdir(users)
+            if os.path.exists(os.path.join(users, u, "hc", "DONE"))}
+    assert finished <= done
+    capsys.readouterr()
+    assert amg_test.main(flags) == 0
+    out = capsys.readouterr().out
+    assert "serve journal: recovering" in out
+    assert out.count("final mean F1") == 2 - len(done)
+    assert out.count("Skipping user") == len(done)
+    ours = _user_metrics(served, "hc")
+    assert len(ours) == 2 and ours == _user_metrics(seq, "hc")
+    for u in ours:
+        assert os.path.exists(os.path.join(users, u, "hc", "DONE"))
+    assert journal._replay(jpath).finished | done == set(ours)
+    assert bool(done) == (kill_at == 6)  # 6: the second finish record
+
+
+@pytest.mark.parametrize("extra", [
+    ["--fleet", "2", "--serve", "2"],
+    ["--serve", "0"],
+    ["--serve", "2", "--pad-pool-to", "64"],
+    ["--serve", "2", "--mesh", "auto"],
+    ["--serve", "2", "--distributed", "127.0.0.1:1,1,0"],
+    ["--admit-window-ms", "5"],
+    ["--watchdog-s", "1"],
+    ["--no-serve-journal"],
+    ["--serve", "2", "--failure-budget", "0"],
+    ["--serve", "2", "--slo-batch-s", "0"],
+    ["--bucket-widths", "8,16"],
+    ["--serve", "2", "--bucket-widths", "x"],
+    ["--serve", "2", "--bucket-widths", "16,8"],
+    ["--serve", "2", "--mesh", "3"],
+], ids=["fleet-and-serve", "serve-0", "pad-pool-to", "mesh-auto",
+        "distributed", "admit-window-alone", "watchdog-alone",
+        "journal-alone", "budget-0", "slo-0", "widths-alone", "widths-x",
+        "widths-unsorted", "mesh-3"])
+def test_serve_flag_errors_are_the_jax_clis(trees, capsys, extra):
+    roots, jax_flags, port_models = trees
+    assert jax_amg_test.main(AL + ["-m", "mc"] + extra + jax_flags) == 1
+    theirs = capsys.readouterr().out
+    assert amg_test.main(AL + ["-m", "mc"] + extra
+                         + _port_flags(roots, port_models)) == 1
+    assert capsys.readouterr().out == theirs
+    assert "--" in theirs
+
+
+def test_torch_profile_needs_the_engine_and_unpoison(trees, tmp_path,
+                                                     capsys):
+    """``--torch-profile`` (the JAX CLI's ``--jax-profile``) is refused
+    without ``--fleet`` or ``--serve``; ``--unpoison`` removes a poisoned
+    user with a journaled record and reports one that is not listed."""
+    from consensus_entropy_tpu_torch.serve import journal
+
+    roots, _, port_models = trees
+    assert amg_test.main(AL + ["-m", "mc", "--torch-profile", "p"]
+                         + _port_flags(roots, port_models)) == 1
+    assert "--torch-profile" in capsys.readouterr().out
+    models = str(tmp_path)
+    users = os.path.join(models, "users")
+    os.makedirs(users)
+    plist = journal.PoisonList(os.path.join(users, "serve_poison.jsonl"))
+    plist.add("7", error="boom", attempts=3)
+    plist.close()
+    jr = journal.AdmissionJournal(os.path.join(users,
+                                               "serve_journal.jsonl"))
+    jr.append("poison", "7", error="boom", attempts=3)
+    jr.close()
+    flags = AL + ["-m", "mc", "--unpoison", "7,8"] + _port_flags(roots,
+                                                                 models)
+    assert amg_test.main(flags) == 1  # 8 was not on the list
+    out = capsys.readouterr().out
+    assert "unpoisoned user 7" in out and "user 8 is not" in out
+    assert "7" not in journal.PoisonList(os.path.join(
+        users, "serve_poison.jsonl"))
+    st = journal._replay(os.path.join(users, "serve_journal.jsonl"))
+    assert st.last["7"] == "unpoison" and "7" not in st.admits

@@ -51,7 +51,8 @@ print(len(names))
 #: modules of the slices that must stay in the walk (slice 6: the harmonic
 #: frontend, the trunks, full-song scoring and the reference importer;
 #: slice 7: the fleet engine and the obs pieces it imports; slice 8:
-#: pre-training and the evidence experiment; slice 9: the meshes)
+#: pre-training and the evidence experiment; slice 9: the meshes; slice
+#: 10: single-host serving, the span tracer, export and the workload)
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "models.committee", "convert", "prng", "cli.amg_test",
                  "fleet.scheduler", "fleet.report", "fleet.session",
@@ -60,7 +61,10 @@ SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "train.pretrain", "cli.deam_classifier", "al.evidence",
                  "cli.evidence", "parallel.mesh", "parallel.sharding",
                  "parallel.pool_mesh", "parallel.sequence",
-                 "parallel.multihost")
+                 "parallel.multihost", "serve.buckets", "serve.breaker",
+                 "serve.watchdog", "serve.planner", "serve.journal",
+                 "serve.server", "obs.export", "resilience.io",
+                 "workload.trace", "workload.driver", "workload.grade")
 
 
 def test_every_port_module_imports_without_jax():
@@ -142,4 +146,14 @@ def test_default_device_is_the_card_and_never_falls_back(tmp_path):
         short_cnn.init_variables(prng.key(0, "cpu"), res)
     with pytest.raises(RuntimeError):
         HostWaveformStore(str(tmp_path), [], 8192)
+    # slice 10: serving runs its engine on the card, the CLI's too
+    from consensus_entropy_tpu_torch.cli import amg_test
+    from consensus_entropy_tpu_torch.serve import FleetServer, ServeConfig
+
+    with pytest.raises(RuntimeError):
+        FleetServer(FleetScheduler(ALConfig(), scoring_by_width=True),
+                    ServeConfig())
+    with pytest.raises(RuntimeError):
+        amg_test.main(["-q", "2", "-e", "1", "-m", "mc", "-n", "1",
+                       "--serve", "2", "--models-root", str(tmp_path)])
     assert resolve_device("cpu") == torch.device("cpu")
