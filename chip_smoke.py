@@ -83,7 +83,8 @@ Phases, one line of output each (or a few):
     + 5 vgg members for mc and qbdc (K=20), FULL_EPOCHS iterations of 100
     retrain epochs: queried songs disjoint, the pool shrinking by q, finite
     F1s, the state committed; the ``StepTimer`` medians and the busy share
-    of one mc iteration; iteration 0 at a narrow CNN against the CPU;
+    of the traced FULL_PROFILED_MODE iteration; iteration 0 at a narrow
+    CNN against the CPU;
 15. trunks: res, harm, se1d and musicnn at full width (``CNNConfig(arch=
     a)``), each as phase 13 holds vgg: 5 members from ``init_variables``
     x 256 crops on the card (ms per crop per member beside the trunk's FLOP
@@ -182,7 +183,29 @@ Phases, one line of output each (or a few):
     phase 11's GBDT + vgg registry (run inside phase 11): the queried songs
     of the sequential CLI on the same two users, spans without orphans, a
     ``torch.profiler`` trace holding CUDA kernel events; no hand kernel
-    launched.
+    launched;
+20. fabric: the multi-host serve fabric, ``amg_test --serve 1 --hosts
+    2`` run as a subprocess (the coordinator never touches the card; each
+    worker is a process of its own on it), on phase 11's tree (run inside
+    phase 11, reported here).  (a) FABRIC_USERS users with the GBDT + vgg
+    registry placed two a worker; the script tails the journal and
+    SIGKILLs h1 (its pid from ``fabric/lease_h1.json``) once h1 has one
+    user finished and one in flight: every user finishes once (one
+    ``finish`` record each) on the sequential CLI's queried songs, the
+    journal validates, the merged spans have no orphans; each worker's
+    spawn to first lease and largest heartbeat gap, the card's
+    ``memory.used`` rise, kill to
+    ``revoke`` and ``revoke`` to the moved user's re-admission, users/s
+    against phase 19 (c); (b) the same run killed by
+    ``CETPU_FAULTS=fabric.assign:kill@FABRIC_USERS+1`` (the failover's
+    assign) and run again: no worker of the killed run outlives the
+    restart, the finished users are skipped, every user ends once on
+    (a)'s songs; (c), on a thread beside (b), FABRIC_C_USERS users with
+    the host registry from 1 host to 2 (one ``spawn`` under the backlog)
+    and back (one ``drain``, an in-flight user's ``fence`` acked with its
+    generation, its ``assign`` elsewhere, ``drain_done``), every user's
+    metrics and state equal its sequential run's.  ``linear_mc``
+    launches are counted in every process (0).
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -204,6 +227,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -341,8 +365,8 @@ SELECT_REPS, SELECT_ROUNDS, SELECT_WARMUP, PROFILED_SELECTS = 50, 5, 5, 10
 # the host-member committee runs, AL_EPOCHS iterations each (cut from 10:
 # at 10, and 4 iterations in phase 14, the script took 684.5 s on one
 # card machine's host and 1034.3 s on a slower one, too near its 1200 s
-# limit; then from 5 to 3 to pay for phase 15).
-AL_EPOCHS, TRAIN_SIZE, AL_MODES = 3, 0.85, ("mc", "hc", "mix", "rand", "wmc")
+# limit; then from 5 to 3 to pay for phase 15, and to 2 for phase 20).
+AL_EPOCHS, TRAIN_SIZE, AL_MODES = 2, 0.85, ("mc", "hc", "mix", "rand", "wmc")
 # Labelled rows each member is fitted on (its own seeded draw), the class
 # centres' spread, and the iteration traced for the busy share.
 GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 1
@@ -403,16 +427,19 @@ FIT_SONGS, FIT_TEST_SONGS, FIT_EPOCHS = 10, 60, 3
 # annotated songs of USER_FRAMES frames, 5 members of each kind, the
 # CNNs' short fit before the run, q=10 for FULL_EPOCHS[mode] iterations
 # (cut from the paper's 10 to keep the script inside its time limit, and
-# from 4 and 3 to pay for phase 15, then to 2 and 1 for phase 17; widths
-# and the 100 retrain epochs are not cut), mc's iteration 1 traced, so
-# each mode's medians stand on 1 untraced iteration; the narrow CNN
-# of the card-vs-CPU run, one iteration with its retrain epochs cut
-# (iteration 0's selection, which it checks, comes before any retrain).
+# from 4 and 3 to pay for phase 15, then to 2 and 1 for phase 17, and to
+# 1 and 1 for phase 20; widths and the 100 retrain epochs are not cut),
+# FULL_PROFILED_MODE's iteration FULL_PROFILED_EPOCH traced (its medians
+# then stand on that traced iteration, mc's on an untraced one); the
+# narrow CNN of the card-vs-CPU run, one iteration with its retrain
+# epochs cut (iteration 0's selection, which it checks, comes before any
+# retrain).
 FULL_SONGS, USER_SONGS, USER_FRAMES, FULL_MEMBERS = 1608, 400, 6, 5
-FULL_EPOCHS, FULL_PROFILED_EPOCH = {"mc": 2, "qbdc": 1}, 1
+FULL_EPOCHS = {"mc": 1, "qbdc": 1}
+FULL_PROFILED_MODE, FULL_PROFILED_EPOCH = "qbdc", 0
 PRE_FIT_SONGS, PRE_FIT_EPOCHS = 20, 2
 NARROW_CNN, NARROW_EPOCHS = {"n_channels": 16, "input_length": 32768}, 1
-NARROW_RETRAIN_EPOCHS = 2
+NARROW_RETRAIN_EPOCHS = 1  # 2 until phase 20 needed the time
 FULL_PHASES = ("score", "select", "update_host", "retrain_cnn", "evaluate",
                "checkpoint", "ckpt_join")
 # Phase 15: the four other trunk families at full width (CNNConfig(arch=a)),
@@ -433,8 +460,9 @@ FEAT_TOL = {"rtol": 1e-4, "atol": 1e-4}
 SONGS, SONG_SECONDS, SONG_HOP, SONG_CHECK = 64, (15, 30), 29524, 8
 # The harm AL run: phase 14's user with 5 GaussianNB + 5 SGD and
 # HARM_MEMBERS full-width harm members scoring full songs at HARM_HOP;
-# HARM_EPOCHS iterations of HARM_RETRAIN retrain epochs, mc.
-HARM_MEMBERS, HARM_HOP, HARM_EPOCHS, HARM_RETRAIN = 2, 59049, 2, 10
+# HARM_EPOCHS iterations of HARM_RETRAIN retrain epochs, mc (cut from 2
+# iterations to pay for phase 20).
+HARM_MEMBERS, HARM_HOP, HARM_EPOCHS, HARM_RETRAIN = 2, 59049, 1, 10
 # Phase 16, the fleet engine.  (a) FLEET_USERS users' configs[4]-scale
 # tables through the fleet scorers, timed over FLEET_REPS; (b) a cohort of
 # HOST_COHORT AMG1608 users with REG_MEMBERS GaussianNB + REG_MEMBERS SGD,
@@ -443,12 +471,13 @@ HARM_MEMBERS, HARM_HOP, HARM_EPOCHS, HARM_RETRAIN = 2, 59049, 2, 10
 # between calls); (c) FULL_COHORT users with phase 14's committee kinds,
 # FULL_FLEET_EPOCHS iterations of FLEET_RETRAIN retrain epochs (cut from
 # 100, and from 4 users and 2 mc iterations after the whole script's
-# phase 16 took 251.1 s on a card machine, for the time limit; widths
-# are not cut); (d) the CLI's --fleet 2 for FLEET_CLI_EPOCHS iterations
-# (a prefix of phase 11's sequential run).
+# phase 16 took 251.1 s on a card machine, for the time limit; then from
+# 3 users of 5 retrain epochs to 2 of 1, and (b) from 2 rounds to 1, to
+# pay for phase 20; widths are not cut); (d) the CLI's --fleet 2 for FLEET_CLI_EPOCHS
+# iterations (a prefix of phase 11's sequential run).
 FLEET_USERS, FLEET_REPS = 4, 20
-HOST_COHORT, FLEET_EPOCHS, FLEET_HOST_WORKERS, FLEET_ROUNDS = 8, 3, 4, 2
-FULL_COHORT, FULL_FLEET_EPOCHS, FLEET_RETRAIN = 3, {"mc": 1, "qbdc": 1}, 5
+HOST_COHORT, FLEET_EPOCHS, FLEET_HOST_WORKERS, FLEET_ROUNDS = 8, 3, 4, 1
+FULL_COHORT, FULL_FLEET_EPOCHS, FLEET_RETRAIN = 2, {"mc": 1, "qbdc": 1}, 1
 FLEET_FIT_USERS, FLEET_FIT_MEMBERS, FLEET_FIT_EPOCHS = 2, 2, 2
 FLEET_CLI_EPOCHS = 3
 # Phase 17: DEAM pre-training at the dataset's scale (DEAM_SONGS songs of
@@ -457,7 +486,7 @@ FLEET_CLI_EPOCHS = 3
 # PRE_CNN_EPOCHS epochs at full width; the registry through amg_test
 # (PIPELINE_ARGS) on phase 11's tree; the evidence sweep (GaussianNB
 # committees; mc, hc, mix, rand) on the card and the CPU.
-DEAM_CLIP_S, PRE_CV, PRE_CNN_EPOCHS = 45, 5, 2
+DEAM_CLIP_S, PRE_CV, PRE_CNN_EPOCHS = 45, 2, 1  # 5 and 2 before phase 20
 # the SGD core against its Python plain version in (b): one one-vs-all
 # problem over every DEAM frame, with the fit's stopping rule tracked
 SGD_CHECK_EPOCHS = 2
@@ -488,6 +517,19 @@ SERVE_TRACE_SEED, SERVE_POOLS, SERVE_KILL_AT = 7, (150, 400), 20
 SERVE_CLI_ARGS = ["-q", "10", "-e", str(CLI_CNN_EPOCHS), "-n", "150",
                   "--max-users", "2", "--retrain-epochs", "2"]
 SERVE_CLI_WIDTHS, SERVE_PROFILE_N = "512,1024", 10
+# Phase 20: the multi-host fabric, ``amg_test --serve 1 --hosts 2`` as a
+# subprocess.  (a) and (b): FABRIC_USERS users of phase 11's tree with its
+# GBDT + vgg registry (phase 19 (c)'s flags at 1 iteration, for the time
+# limit), placed least-loaded so each worker holds two; (c): FABRIC_C_USERS users (phase 11's songs, their own
+# annotators) with its host registry, FABRIC_C_ARGS, from 1 host up to 2
+# (the backlog of 10 queued users passes 8 a host) and down again after
+# FABRIC_SCALE_DOWN_S s of low water.  A run may take FABRIC_TIMEOUT_S s.
+FABRIC_DEVICE, FABRIC_USERS, FABRIC_TIMEOUT_S = "cuda", 4, 300
+FABRIC_ARGS = ["-q", "10", "-e", "1", "-n", "150", "--max-users",
+               str(FABRIC_USERS), "--retrain-epochs", "2"]
+FABRIC_C_USERS, FABRIC_SCALE_DOWN_S = 10, 0.5
+FABRIC_C_ARGS = ["-q", "10", "-e", "4", "-n", "150", "--max-users",
+                 str(FABRIC_C_USERS)]
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -1347,32 +1389,39 @@ def phase_al_loop(x, card):
     return stats, busy
 
 
-def write_amg_tree(root, seed=SEED + 6):
+def write_amg_tree(root, seed=SEED + 6, users=AMG_USERS, feats_from=None):
     """An AMG1608-shaped tree: per-song openSMILE CSVs with the 260 feature
-    columns, ``.mat`` annotations, nothing from pandas."""
+    columns, ``.mat`` annotations of ``users`` annotators, nothing from
+    pandas.  ``feats_from``: link another tree's feature CSVs (the same
+    seed draws the same songs) and write the annotations only."""
     rng = np.random.default_rng(seed)
     middle = [f"feat_{i}" for i in range(F - 2)]
     cols = [FEATURE_SLICE_START] + middle + [FEATURE_SLICE_STOP]
     feats = os.path.join(root, "amg1608", "feats")
     anno = os.path.join(root, "amg1608", "anno")
-    os.makedirs(feats)
     os.makedirs(anno)
+    if feats_from is None:
+        os.makedirs(feats)
+    else:
+        os.symlink(feats_from, feats)
     centers = rng.normal(0, 2.0, (C, F)) + rng.uniform(-5, 5, F)
     song_ids = np.arange(1, AMG_SONGS + 1)
     song_class = rng.integers(0, C, AMG_SONGS)
     for sid, c in zip(song_ids, song_class):
         k = int(rng.integers(*AMG_FRAMES))
         rows = centers[c] + rng.standard_normal((k, F)) * 3.0
+        if feats_from is not None:
+            continue
         with open(os.path.join(feats, f"{sid}.csv"), "w", newline="") as f:
             w = csv.writer(f, delimiter=";", lineterminator="\n")
             w.writerow(["frameTime"] + cols)
             for t, row in enumerate(rows.astype(np.float32)):
                 w.writerow([f"{t * 0.5:.1f}"] + [repr(float(v)) for v in row])
-    lab = np.full((AMG_SONGS, AMG_USERS, 2), np.nan)
+    lab = np.full((AMG_SONGS, users, 2), np.nan)
     for i, c in enumerate(song_class):
         a_sign = 1.0 if c in (0, 1) else -1.0
         v_sign = 1.0 if c in (0, 3) else -1.0
-        for u in range(AMG_USERS):
+        for u in range(users):
             if rng.uniform() < ANNOTATE_P:
                 lab[i, u] = (v_sign * rng.uniform(0.1, 1.0),
                              a_sign * rng.uniform(0.1, 1.0))
@@ -1476,6 +1525,7 @@ def phase_al_cli(card):
         cnn = phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
         mesh_cli = mesh_cli_runs(root, amg_root, cnn)
         serve_cli = serve_cli_runs(root, amg_root, cnn)
+        fabric_cli = fabric_cli_runs(root, amg_root, cnn, roots["cuda"])
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
           f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
           f"written in {tree_s:.1f} s), {REG_MEMBERS} GaussianNB + "
@@ -1483,7 +1533,7 @@ def phase_al_cli(card):
           f"(queried songs and F1s, every epoch) in {walls['cuda']:.1f} s / "
           f"{walls['cpu']:.1f} s; killed at state.save hit 2, the rerun "
           f"resumed to the uninterrupted run's metrics and state")
-    return fleet_cli, mesh_cli, serve_cli
+    return fleet_cli, mesh_cli, serve_cli, fabric_cli
 
 
 # -- slice 5: the boosted slot and the CNN members -------------------------
@@ -1921,8 +1971,8 @@ def phase_al_loop_full(card, user):
             linear_mc.launches = 0
             committee = Committee(copy.deepcopy(host), copy.deepcopy(cnns),
                                   cfg, device="cuda")
-            timer = IterTimer(FULL_PROFILED_EPOCH if mode == "mc"
-                                  else None)
+            timer = IterTimer(FULL_PROFILED_EPOCH
+                              if mode == FULL_PROFILED_MODE else None)
             path = os.path.join(root, mode)
             picks, res = run_al_user(mode, committee, data, path, "cuda",
                                        epochs, timer)
@@ -1936,12 +1986,15 @@ def phase_al_loop_full(card, user):
                                      "selects")
             iters = [r for r in timer.records
                      if r["epoch"] >= 0 and r["epoch"] != timer.profile_epoch]
+            # a mode whose only iteration is traced reports that one
+            over = f"{len(iters)} untraced" if iters else "1 traced"
+            iters = iters or [r for r in timer.records if r["epoch"] >= 0]
             stats[mode] = {k: statistics.median(r.get(f"{k}_s", 0.0)
                                                 for r in iters) * 1e3
                            for k in FULL_PHASES + ("iteration",)}
             stats[mode]["final_f1"] = recs[epochs - 1]["mean_f1"]
-            stats[mode]["untraced"] = len(iters)
-            if mode == "mc":
+            stats[mode]["over"] = over
+            if mode == FULL_PROFILED_MODE:
                 busy = timer.busy
             del committee
             torch.cuda.empty_cache()
@@ -1993,12 +2046,13 @@ def phase_al_loop_full(card, user):
           ", ".join(f"{k} {v:.1f}" for k, v in narrow_s.items()))
     for mode, st in stats.items():
         print(f"[al-loop-full] {card}: {mode} median ms per iteration "
-              f"(StepTimer, host clock, over {st['untraced']} untraced): "
+              f"(StepTimer, host clock, over {st['over']}): "
               + ", ".join(
                   f"{k} {st[k]:.3f}" for k in FULL_PHASES + ("iteration",))
               + f"; final mean F1 {st['final_f1']:.4f}")
-    print(f"[al-loop-full] {card}: device busy over mc iteration "
-          f"{FULL_PROFILED_EPOCH} (torch.profiler, device events only): " + (
+    print(f"[al-loop-full] {card}: device busy over {FULL_PROFILED_MODE} "
+          f"iteration {FULL_PROFILED_EPOCH} (torch.profiler, device events "
+          "only): " + (
               "not measured (no device events)" if busy is None else
               f"{busy[0]:.2%} of the iteration, {busy[1]:.3f} ms"))
     return host
@@ -3841,7 +3895,7 @@ def serve_cli_runs(root, amg_root, cnn):
     the queried songs equal every epoch, the spans have no orphans, the
     profile holds CUDA kernel events."""
     t_all = time.perf_counter()
-    runs = {}
+    runs, walls = {}, {}
     spans_dir = os.path.join(root, "serve_spans")
     prof_dir = os.path.join(root, "serve_prof")
     for name, extra in (("seq", []), ("serve", [
@@ -3852,10 +3906,12 @@ def serve_cli_runs(root, amg_root, cnn):
         shutil.copytree(os.path.join(cnn["bases"]["vgg"], "pretrained"),
                         os.path.join(models, "pretrained"))
         linear_mc.launches = 0
+        t0 = time.perf_counter()
         text = run_cli(SERVE_CLI_ARGS + [
             "-m", "mc", "--models-root", models, "--amg-root", amg_root,
             "--device", "cuda", "--cnn-config-json", json.dumps(CLI_CNN)]
             + extra)
+        walls[name] = time.perf_counter() - t0
         if linear_mc.launches:
             raise AssertionError(f"serve-cli {name}: linear_mc launched")
         users = os.path.join(models, "users")
@@ -3889,7 +3945,523 @@ def serve_cli_runs(root, amg_root, cnn):
         raise AssertionError("serve-cli: the device profile holds no CUDA "
                              "kernel events")
     return {"args": SERVE_CLI_ARGS, "f1_diff": f1_diff, "spans": len(spans),
-            "kernels": kernels, "wall_s": time.perf_counter() - t_all}
+            "kernels": kernels, "wall_s": time.perf_counter() - t_all,
+            "serve_wall_s": walls["serve"], "users": len(runs["serve"])}
+
+
+# -- slice 11: the multi-host serve fabric ---------------------------------
+
+
+#: ``sitecustomize`` put on the fabric processes' path: each launch of the
+#: ``linear_mc`` kernel in any of them appends a line to the file named by
+#: CHIP_SMOKE_LAUNCH_LOG, so a worker killed mid-run still leaves its count
+LAUNCH_HOOK = """\
+import os as _os
+_log = _os.environ.get("CHIP_SMOKE_LAUNCH_LOG")
+if _log:
+    from consensus_entropy_tpu_torch.kernels import linear_mc as _lm
+    _launch = _lm._launch
+
+    def _counted(*args, **kwargs):
+        out = _launch(*args, **kwargs)
+        with open(_log, "a") as _f:
+            _f.write(f"{_os.getpid()}\\n")
+        return out
+
+    _lm._launch = _counted
+"""
+
+
+def _proc_start_wall(pid):
+    """Wall-clock seconds at which process ``pid`` started (``/proc``), or
+    None once it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/stat") as f:
+            btime = next(int(line.split()[1]) for line in f
+                         if line.startswith("btime"))
+    except (OSError, StopIteration, ValueError, IndexError):
+        return None
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _gpu_memory_used():
+    """The card's ``memory.used`` in MiB from ``nvidia-smi``, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=10).stdout.split()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return int(out[0]) if out and out[0].isdigit() else None
+
+
+class FabricWatch:
+    """Follows one ``amg_test --hosts`` run from outside: the main
+    journal's records (with the wall time each was seen), every worker's
+    lease beats and pid, the card's memory in use (``nvidia-smi`` lists
+    no process inside the card machine's container, so no per-process
+    figure); ``on_poll(self)`` may act (the drills' SIGKILL).  Kills the coordinator and every worker it saw on
+    the way out, so no process outlives the phase."""
+
+    def __init__(self, users_dir):
+        from consensus_entropy_tpu_torch.serve.journal import JsonlTail
+
+        self.users_dir = users_dir
+        self.fabric_dir = os.path.join(users_dir, "fabric")
+        self.tail = JsonlTail(os.path.join(users_dir,
+                                           "serve_journal.jsonl"))
+        self.records = []
+        self.beats = {}      # host -> {beat: t}
+        self.pids = {}       # host -> set of pids
+        self.started = {}    # pid -> wall start
+        #: the card's memory.used before the run and its peak during it
+        self.used_before = self.used_peak = None
+        self._mem_t = 0.0
+        self.runs = 0
+
+    def last(self):
+        """``{user: (last event, host it is assigned to)}``."""
+        out, host = {}, {}
+        for r in self.records:
+            u = r.get("user")
+            if u is None:
+                continue
+            if r["event"] == "assign":
+                host[u] = r.get("host")
+            if r["event"] in ("enqueue", "admit", "finish", "fail",
+                              "poison"):
+                out[u] = r["event"]
+        return {u: (e, host.get(u)) for u, e in out.items()}
+
+    def poll(self):
+        now = time.time()
+        for rec, _ in self.tail.poll():
+            self.records.append(dict(rec, seen=now))
+        if os.path.isdir(self.fabric_dir):
+            for name in os.listdir(self.fabric_dir):
+                if not (name.startswith("lease_") and name.endswith(".json")):
+                    continue
+                try:
+                    with open(os.path.join(self.fabric_dir, name)) as f:
+                        lease = json.load(f)
+                except (OSError, ValueError):
+                    continue  # mid-rename
+                h, pid = lease["host"], int(lease["pid"])
+                self.beats.setdefault(h, {})[lease["beat"]] = lease["t"]
+                if pid not in self.pids.setdefault(h, set()):
+                    self.pids[h].add(pid)
+                    self.started[pid] = _proc_start_wall(pid)
+        if now - self._mem_t > 1.0:
+            self._mem_t = now
+            used = _gpu_memory_used()
+            if used is not None:
+                self.used_peak = max(used, self.used_peak or used)
+
+    def run(self, cmd, env, on_poll=None, timeout=FABRIC_TIMEOUT_S):
+        """Run the coordinator ``cmd`` to its end; returns (exit code, its
+        output, wall s)."""
+        self.runs += 1
+        log = os.path.join(os.path.dirname(self.users_dir),
+                           f"coordinator_{self.runs}.log")
+        here = os.path.dirname(os.path.abspath(__file__))
+        if self.used_before is None:
+            self.used_before = _gpu_memory_used()
+        t0 = time.perf_counter()
+        with open(log, "wb") as out:
+            proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+            try:
+                while proc.poll() is None:
+                    if time.perf_counter() - t0 > timeout:
+                        raise AssertionError(f"fabric: {cmd[-12:]} ran past "
+                                             f"{timeout} s")
+                    self.poll()
+                    if on_poll is not None:
+                        on_poll(self)
+                    time.sleep(0.02)
+                self.poll()
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                self.kill_workers()
+        wall = time.perf_counter() - t0
+        with open(log, errors="replace") as f:
+            return proc.returncode, f.read(), wall
+
+    def kill_workers(self):
+        for pids in self.pids.values():
+            for pid in pids:
+                if _pid_alive(pid):
+                    with contextlib.suppress(OSError):
+                        os.kill(pid, 9)
+
+    def lease_pid(self, host):
+        with open(os.path.join(self.fabric_dir, f"lease_{host}.json")) as f:
+            return int(json.load(f)["pid"])
+
+    def host_stats(self):
+        """Per host: spawn to first lease (s) and the largest beat gap
+        (s)."""
+        out = {}
+        for h, beats in sorted(self.beats.items()):
+            ts = [beats[b] for b in sorted(beats)]
+            gaps = [b - a for a, b in zip(ts, ts[1:])]
+            pids = sorted(self.pids.get(h, ()))
+            starts = [self.started.get(p) for p in pids]
+            first = beats[min(beats)]
+            out[h] = {
+                "spawn_to_lease_s": (round(first - starts[0], 3)
+                                     if starts and starts[0] else None),
+                "first_beat": min(beats),
+                "max_gap_s": round(max(gaps), 3) if gaps else None}
+        return out
+
+    def finish_counts(self):
+        counts = {}
+        for r in self.records:
+            if r["event"] == "finish":
+                counts[r["user"]] = counts.get(r["user"], 0) + 1
+        return counts
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    with contextlib.suppress(OSError):
+        with open(f"/proc/{pid}/stat") as f:
+            if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                return False
+    return True
+
+
+def fabric_env(root, launch_log, faults_spec=None):
+    """The coordinator's environment: the repo and the launch hook (written
+    by ``fabric_cli_runs``) on the path, the launch log named,
+    CETPU_FAULTS set or cleared."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    hook = os.path.join(root, "launch_hook")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([hook, here]),
+               CHIP_SMOKE_LAUNCH_LOG=launch_log)
+    env.pop("CETPU_FAULTS", None)
+    if faults_spec:
+        env["CETPU_FAULTS"] = faults_spec
+    return env
+
+
+def _users_runs(models, mode="mc"):
+    users = os.path.join(models, "users")
+    return {u: os.path.join(users, u, mode) for u in sorted(os.listdir(users))
+            if os.path.isdir(os.path.join(users, u, mode))}
+
+
+def _queried_match(paths, refs, what):
+    """Phase 19 (c)'s check of CNN-member runs made in other processes:
+    each user's queried songs equal the reference's every epoch.  Returns
+    the largest |F1 difference| and the (user, epoch) pairs where an F1
+    differs (cuDNN picks its algorithms anew in each process)."""
+    diff, where = 0.0, []
+    for u in sorted(refs):
+        m, r = read_metrics(paths[u]), read_metrics(refs[u])
+        if sorted(m) != sorted(r):
+            raise AssertionError(f"{what} user {u}: epochs {sorted(m)}")
+        for e in r:
+            if m[e].get("queried") != r[e].get("queried"):
+                raise AssertionError(f"{what} user {u} epoch {e}: queried "
+                                     "songs differ")
+            d = float(np.max(np.abs(np.subtract(m[e]["f1"], r[e]["f1"]))))
+            if d:
+                where.append((u, e))
+            diff = max(diff, d)
+    return diff, where
+
+
+def _timeline(watch):
+    """The journal's records as (event, host, user, s since the first)."""
+    t0 = watch.records[0]["t"] if watch.records else 0.0
+    return [(r["event"], r.get("host"), r.get("user"), round(r["t"] - t0, 2))
+            for r in watch.records]
+
+
+def _fabric_check(watch, users, what, orphans_ok=False):
+    """Every user finished with exactly one ``finish`` record, the
+    journal validates (port validator), the merged spans have no orphans
+    (``orphans_ok``: counted only; a session released at a fence never
+    ends the iteration span its host steps name, in the JAX package as
+    here).  Returns (spans, orphans)."""
+    from consensus_entropy_tpu_torch.serve import validate_journal_file
+
+    counts = watch.finish_counts()
+    if sorted(counts) != sorted(users) or set(counts.values()) != {1}:
+        raise AssertionError(f"{what}: finish records {counts}, users "
+                             f"{sorted(users)}")
+    jerr = validate_journal_file(os.path.join(watch.users_dir,
+                                              "serve_journal.jsonl"))
+    spans = load_spans([os.path.join(watch.users_dir, "spans.jsonl")])
+    orphans = len(orphan_spans(spans))
+    if jerr or not spans or (orphans and not orphans_ok):
+        raise AssertionError(f"{what}: journal {jerr[:3]}, {len(spans)} "
+                             f"spans, {orphans} orphans")
+    return len(spans), orphans
+
+
+def fabric_cli_runs(root, amg_root, cnn, host_models):
+    """Phase 20, on phase 11's tree (run inside phase 11): ``amg_test
+    --serve 1 --hosts 2`` as a subprocess on the card, (a) a worker
+    SIGKILLed mid-run, (b) the coordinator killed and restarted, (c) the
+    elastic fleet's scale-up and fenced scale-down."""
+    t_all = time.perf_counter()
+    parent_launches = linear_mc.launches
+    launch_log = os.path.join(root, "fabric_launches.log")
+    open(launch_log, "w").close()
+    os.makedirs(os.path.join(root, "launch_hook"))
+    with open(os.path.join(root, "launch_hook", "sitecustomize.py"),
+              "w") as f:
+        f.write(LAUNCH_HOOK)
+    cmd = [sys.executable, "-m", "consensus_entropy_tpu_torch.cli.amg_test"]
+    cnn_flags = ["--cnn-config-json", json.dumps(CLI_CNN)]
+
+    def models_for(name, base):
+        models = os.path.join(root, f"models_fabric_{name}")
+        shutil.copytree(os.path.join(base, "pretrained"),
+                        os.path.join(models, "pretrained"))
+        return models
+
+    def flags(models, tree, args):
+        return args + ["-m", "mc", "--models-root", models, "--amg-root",
+                       tree, "--device", FABRIC_DEVICE]
+
+    # the sequential references, in this process on the card
+    seq = models_for("seq", cnn["bases"]["vgg"])
+    t0 = time.perf_counter()
+    run_cli(flags(seq, amg_root, FABRIC_ARGS) + cnn_flags)
+    seq_wall = time.perf_counter() - t0
+    seq_paths = _users_runs(seq)
+    users = sorted(seq_paths)
+    if len(users) != FABRIC_USERS:
+        raise AssertionError(f"fabric: sequential users {users}")
+    fabric_args = FABRIC_ARGS + ["--serve", "1", "--hosts", "2",
+                                 "--placement", "load"]
+
+    # (a) h1 SIGKILLed once it holds one finished and one in-flight user
+    kill = {}
+
+    def kill_h1(watch):
+        if kill:
+            return
+        on_h1 = {u: e for u, (e, h) in watch.last().items() if h == "h1"}
+        if "finish" in on_h1.values() and "admit" in on_h1.values():
+            pid = watch.lease_pid("h1")
+            os.kill(pid, 9)
+            kill.update(t=time.time(), pid=pid,
+                        moved=[u for u, e in on_h1.items() if e == "admit"])
+
+    a_models = models_for("a", cnn["bases"]["vgg"])
+    a = FabricWatch(os.path.join(a_models, "users"))
+    rc, out, a_wall = a.run(cmd + flags(a_models, amg_root, fabric_args)
+                            + cnn_flags, fabric_env(root, launch_log),
+                            kill_h1)
+    if rc != 0 or "fabric summary: " not in out or not kill:
+        raise AssertionError(f"fabric (a): exit {rc}, kill {kill}:\n"
+                             f"{out[-3000:]}")
+    n_spans, _ = _fabric_check(a, users, "fabric (a)")
+    a_paths = _users_runs(a_models)
+    f1_a = _queried_match(a_paths, seq_paths, "fabric (a)")
+    revoke = [r for r in a.records if r["event"] == "revoke"
+              and r.get("host") == "h1"]
+    readmit = [r for r in a.records if r["event"] == "admit"
+               and r.get("user") in kill["moved"] and r.get("host") != "h1"]
+    if len(revoke) != 1 or not readmit:
+        raise AssertionError(f"fabric (a): revoke {revoke}, re-admission "
+                             f"{readmit}")
+    a_stats, a_kill = a.host_stats(), dict(kill)
+    a_mem = (None if a.used_peak is None or a.used_before is None
+             else a.used_peak - a.used_before)
+
+    # (c)'s tree and sequential runs here; its fabric then runs on a
+    # thread beside (b): its host-member processes use little of the card,
+    # and (b) times nothing
+    c_tree = write_amg_tree(os.path.join(root, "fabric_c"),
+                            users=FABRIC_C_USERS,
+                            feats_from=os.path.join(amg_root, "feats"))
+    c_seq = models_for("c_seq", host_models)
+    run_cli(flags(c_seq, c_tree, FABRIC_C_ARGS))
+    c_models = models_for("c", host_models)
+    c_res = {}
+
+    def run_c():
+        try:
+            c_res.update(fabric_elastic_run(
+                cmd + flags(c_models, c_tree, FABRIC_C_ARGS),
+                _users_runs(c_seq), c_models, launch_log, root))
+        except BaseException as e:  # re-raised on the main thread
+            c_res["error"] = e
+
+    # (b) the same run killed at the failover's fabric.assign, restarted
+    b_models = models_for("b", cnn["bases"]["vgg"])
+
+    c_thread = threading.Thread(target=run_c, name="fabric-c")
+    c_thread.start()
+    try:
+        b = FabricWatch(os.path.join(b_models, "users"))
+        kill.clear()
+        rc, out, _ = b.run(cmd + flags(b_models, amg_root, fabric_args)
+                           + cnn_flags, fabric_env(
+                               root, launch_log,
+                               f"fabric.assign:kill@{FABRIC_USERS + 1}"),
+                           kill_h1)
+        if rc == 0 or "injected kill" not in out or not kill:
+            raise AssertionError(f"fabric (b): exit {rc}, kill {kill}:\n"
+                                 f"{out[-3000:]}")
+        done_before = sorted(u for u, (e, _) in b.last().items()
+                             if e == "finish")
+        if not done_before or len(done_before) == FABRIC_USERS:
+            raise AssertionError(f"fabric (b): the kill was not mid-run: "
+                                 f"{done_before} finished")
+        old_pids = {p for pids in b.pids.values() for p in pids}
+        orphans = sorted(p for p in old_pids if _pid_alive(p))
+        rc, out, _ = b.run(cmd + flags(b_models, amg_root, fabric_args)
+                           + cnn_flags, fabric_env(root, launch_log))
+        if rc != 0 or "fabric summary: " not in out:
+            raise AssertionError(f"fabric (b) restart: exit {rc}:\n"
+                                 f"{out[-3000:]}")
+        if any(_pid_alive(p) for p in old_pids):
+            raise AssertionError("fabric (b): a worker of the killed run "
+                                 "outlived the restart")
+        _fabric_check(b, users, "fabric (b)")
+        b_paths = _users_runs(b_models)
+        f1_b = _queried_match(b_paths, a_paths, "fabric (b)")
+        skipped = sum(1 for e in read_jsonl_tolerant(os.path.join(
+            b.users_dir, "fleet_metrics.jsonl"))
+            if e.get("event") == "skip_done")
+    finally:
+        c_thread.join()
+    if "error" in c_res:
+        raise c_res["error"]
+    with open(launch_log) as f:
+        launches = sum(1 for _ in f) + linear_mc.launches - parent_launches
+    return {
+        "wall_s": time.perf_counter() - t_all, "seq_wall": seq_wall,
+        "a_wall": a_wall, "a_stats": a_stats, "f1_a": f1_a, "f1_b": f1_b,
+        "moved_users": a_kill["moved"], "a_mem": a_mem,
+        "kill_to_revoke_s": revoke[0]["t"] - a_kill["t"],
+        "revoke_to_readmit_s": readmit[0]["t"] - revoke[0]["t"],
+        "moved": len(a_kill["moved"]), "spans": n_spans,
+        "b_done_before": done_before, "b_orphans": orphans,
+        "b_skipped": skipped, "launches": launches, **c_res}
+
+
+def fabric_elastic_run(cmd, c_seq_paths, c_models, launch_log, root):
+    """Phase 20 (c): FABRIC_C_USERS host-member users on phase 11's songs
+    with annotators of their own (``cmd``), from 1 host to 2 under the
+    backlog and back through a fenced migration; each user against its
+    sequential CLI run (``c_seq_paths``)."""
+    c_users = sorted(c_seq_paths)
+    c = FabricWatch(os.path.join(c_models, "users"))
+    rc, out, c_wall = c.run(cmd + [
+        "--serve", "1", "--hosts", "1", "--min-hosts", "1", "--max-hosts",
+        "2", "--scale-down-s", str(FABRIC_SCALE_DOWN_S)],
+        fabric_env(root, launch_log))
+    if rc != 0 or "fabric summary: " not in out:
+        raise AssertionError(f"fabric (c): exit {rc}:\n{out[-3000:]}")
+    _, c_orphans = _fabric_check(c, c_users, "fabric (c)",
+                                 orphans_ok=True)
+    _same_runs([_users_runs(c_models)[u] for u in c_users],
+               [c_seq_paths[u] for u in c_users], "fabric (c)")
+    kinds = [(r["event"], r.get("host"), r.get("user")) for r in c.records]
+    spawns = [r for r in c.records if r["event"] == "spawn"]
+    drains = [r for r in c.records if r["event"] == "drain"]
+    if [r.get("reason") for r in spawns] != ["scale_up"] or len(drains) != 1:
+        raise AssertionError(f"fabric (c): {len(spawns)} spawns, "
+                             f"{len(drains)} drains: {_timeline(c)}")
+    victim = drains[0]["host"]
+    i_drain = kinds.index(("drain", victim, None))
+    fences = [(i, r) for i, r in enumerate(c.records) if i > i_drain
+              and r["event"] == "fence" and r.get("host") == victim
+              and r.get("ok") and isinstance(r.get("gen"), int)]
+    done = [i for i, r in enumerate(c.records) if r["event"] == "drain_done"
+            and r.get("host") == victim]
+    if not fences or len(done) != 1:
+        raise AssertionError(f"fabric (c): no fenced migration off "
+                             f"{victim}: {_timeline(c)}")
+    i_fence, fence = fences[0]
+    moved = [i for i, r in enumerate(c.records) if i > i_fence
+             and r["event"] == "assign" and r.get("user") == fence["user"]
+             and r.get("host") != victim]
+    if not moved or not moved[0] < done[0]:
+        raise AssertionError(f"fabric (c): fence {fence}, then "
+                             f"{_timeline(c)}")
+    return {"c_users": len(c_users), "c_wall": c_wall,
+            "c_stats": c.host_stats(), "c_victim": victim,
+            "c_fence": {"user": fence["user"], "gen": fence["gen"]},
+            "c_orphans": c_orphans}
+
+
+def phase_fabric(card, fab, serve_cli):
+    """Phase 20's lines (its runs are made inside phase 11)."""
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip()
+
+    def hosts(stats):
+        return "; ".join(
+            f"{h}: spawn to first lease {st['spawn_to_lease_s']} s (beat "
+            f"{st['first_beat']}), largest heartbeat gap {st['max_gap_s']} s"
+            " of the 5 s default lease" for h, st in stats.items())
+
+    print(f"[fabric] {card}: (a) amg_test {' '.join(FABRIC_ARGS)} -m mc "
+          f"--serve 1 --hosts 2 --placement load, phase 11's GBDT + vgg "
+          f"registry, as a subprocess: h1 SIGKILLed with one user finished "
+          f"and {fab['moved']} in flight ({fab['moved_users']}); every user "
+          f"finished once (one finish record each), its queried songs the "
+          f"sequential CLI's every epoch (max |F1 diff| "
+          f"{fab['f1_a'][0]:.3e}, at (user, epoch) {fab['f1_a'][1]}); "
+          f"validate_journal_file clean; {fab['spans']} "
+          f"merged spans, 0 orphans; kill to revoke "
+          f"{fab['kill_to_revoke_s']:.3f} s, revoke to the moved user's "
+          f"re-admission {fab['revoke_to_readmit_s']:.3f} s; the card's "
+          f"memory.used peaked "
+          + ("not measured" if fab["a_mem"] is None
+             else f"{fab['a_mem']} MiB above its level before the run "
+                  "(the 2 workers)")
+          + "; " + hosts(fab["a_stats"]))
+    print(f"[fabric] {card} ({power}): (a) users/s served by 2 hosts "
+          f"{FABRIC_USERS / fab['a_wall']:.4f} ({fab['a_wall']:.2f} s, "
+          f"the coordinator's and workers' start-up and the failover "
+          f"included) vs phase 19 (c)'s single-host --serve 2 "
+          f"{serve_cli['users'] / serve_cli['serve_wall_s']:.4f} "
+          f"({serve_cli['serve_wall_s']:.2f} s, in-process); the "
+          f"sequential CLI {FABRIC_USERS / fab['seq_wall']:.4f}")
+    print(f"[fabric] {card}: (b) the same run's coordinator killed at "
+          f"fabric.assign hit {FABRIC_USERS + 1} (the failover's) with "
+          f"{fab['b_done_before']} finished, restarted: "
+          f"{len(fab['b_orphans'])} worker(s) of the killed run alive at "
+          f"the restart, none after it; {fab['b_skipped']} finished users "
+          f"skipped; every user finished once, on (a)'s queried songs (max "
+          f"|F1 diff| {fab['f1_b'][0]:.3e} at {fab['f1_b'][1]}); journal "
+          f"clean, 0 orphan spans")
+    print(f"[fabric] {card}: (c), run beside (b): {fab['c_users']} users, "
+          f"5 GaussianNB + 5 "
+          f"SGD, amg_test {' '.join(FABRIC_C_ARGS)} --serve 1 --hosts 1 "
+          f"--min-hosts 1 --max-hosts 2 --scale-down-s "
+          f"{FABRIC_SCALE_DOWN_S}: one spawn (scale_up), then drain of "
+          f"{fab['c_victim']}: fence of {fab['c_fence']['user']} acked at "
+          f"generation {fab['c_fence']['gen']}, assign elsewhere, "
+          f"drain_done; every user's metrics and state equal its sequential"
+          f" run's; journal clean; {fab['c_orphans']} orphan spans (the "
+          f"fenced iteration's host steps: its al_iter span is never "
+          f"ended); {fab['c_wall']:.1f} s; " + hosts(fab["c_stats"]))
+    if fab["launches"]:
+        raise AssertionError(f"fabric: {fab['launches']} linear_mc launches")
+    print(f"[fabric] {card}: linear_mc launches over phase 20, every "
+          f"process counted: {fab['launches']}; phase 20 "
+          f"{fab['wall_s']:.1f} s")
 
 
 def main():
@@ -3924,7 +4496,7 @@ def main():
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    fleet_cli, mesh_cli, serve_cli = phase_al_cli(card)
+    fleet_cli, mesh_cli, serve_cli, fabric_cli = phase_al_cli(card)
     lap("11")
     phase_gbdt(card)
     lap("12")
@@ -3949,18 +4521,21 @@ def main():
     lap("18")
     serve = phase_serve(card, serve_cli)
     lap("19")
+    phase_fabric(card, fabric_cli, serve_cli)
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f}; 19 (c): "
-        f"{serve_cli['wall_s']:.1f})"
+        f"{serve_cli['wall_s']:.1f}; 20: {fabric_cli['wall_s']:.1f})"
         + f"; total {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
-        "launches": launches + mesh["launches"] + serve["launches"],
+        "launches": launches + mesh["launches"] + serve["launches"]
+        + fabric_cli["launches"],
         "launches_by_phase": {"5": launches, "18": mesh["launches"],
-                              "19": serve["launches"]},
+                              "19": serve["launches"],
+                              "20": fabric_cli["launches"]},
         "max_abs_err": max(max_err, mesh["max_abs_err"]), **times,
         "sharded_ms": mesh["sharded_ms"],
         "sharded_shards": MESH_B2_SHARDS}]}))

@@ -43,10 +43,11 @@ Ported so far:
   paper's paired t-tests;
 - ``fleet`` and ``parallel`` — cohorts of users stacked into one dispatch,
   and pools split over a device mesh;
-- ``serve``, ``workload`` and ``obs`` — single-host serving (bucketed
-  continuous admission, the admission journal, the watchdog, the breaker,
-  the SLO planner), trace-driven load and its grader, the span tracer and
-  its export;
+- ``serve``, ``workload`` and ``obs`` — serving (bucketed continuous
+  admission, the admission journal, the watchdog, the breaker, the SLO
+  planner; the multi-host fabric with lease failover, the elastic and
+  self-healing planes, and its alerts), trace-driven load and its grader,
+  the span tracer and its export;
 - ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
   and JAX-layout weights, members (CNN checkpoints included), workspaces
   and keys carried across.

@@ -36,9 +36,24 @@ the poison list and exits.  Fleet and serve runs write spans to
 ``--jax-profile``) captures the first ``--torch-profile-n`` device
 dispatches with ``torch.profiler``.  On the sequential path
 ``--trace-dir DIR`` takes a ``torch.profiler`` trace of each user's run,
-as the JAX CLI's takes a ``jax.profiler`` one.  The multi-host fabric's
-flags (``--hosts``, the elastic, remedy and introspection flags) are not
-ported yet.
+as the JAX CLI's takes a ``jax.profiler`` one.
+
+``--serve N --hosts H`` (``amg_test.py:1124-1352`` of the JAX CLI) runs
+the multi-host fabric: this process becomes the coordinator (it owns
+``users/serve_journal.jsonl`` and never touches the device) and starts H
+worker processes, each ``python -m consensus_entropy_tpu_torch.cli.
+amg_test ... --fabric-worker h<i> --fabric-dir users/fabric`` with the
+same flags (``--device`` passed through) serving N sessions; a worker
+that dies or stops heartbeating (``--lease-s``) is killed and its users
+move to the others, resuming from their workspaces.  ``--min-hosts`` /
+``--max-hosts`` turn the autoscaler on, ``--scale-down-s`` graceful
+scale-down, ``--drain-host`` an operator drain, ``--fence-deadline-s``
+the fence deadline and ``--remedy`` (with ``--remedy-hold-s``,
+``--remedy-cooldown-s``, ``--remedy-skew``) the skew remediation;
+``--mesh-devices K`` serves each worker on a K-way pool mesh (K entries
+of ``cuda:0``, or of the CPU with ``--device cpu``) and ``--placement``
+picks the cross-host routing.  The introspection flags
+(``--no-introspection``, ``--alert-sink``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -171,6 +186,74 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="KB",
                    help="serve mode: compact the admission journal "
                         "whenever it grows past this size (0 = never)")
+    p.add_argument("--hosts", type=int, default=None, metavar="N",
+                   help="multi-host fabric: shard admitted users across N "
+                        "worker processes (each running its own --serve "
+                        "engine), coordinated through the admission "
+                        "journal; a worker that dies or stops heartbeating "
+                        "(--lease-s) is killed and its users fail over to "
+                        "the others, in-flight users resuming from their "
+                        "workspaces (requires --serve)")
+    p.add_argument("--lease-s", type=float, default=5.0, metavar="S",
+                   help="fabric: worker heartbeat lease; a host whose last "
+                        "heartbeat is older is declared dead (default 5)")
+    p.add_argument("--min-hosts", type=int, default=None, metavar="N",
+                   help="elastic fabric: turn the autoscaler on and keep "
+                        "at least N live workers (a dead worker is "
+                        "replaced under a fresh host id; queued users "
+                        "rebalance onto joiners)")
+    p.add_argument("--max-hosts", type=int, default=None, metavar="N",
+                   help="elastic fabric: scale-up ceiling for the backlog "
+                        "and SLO-headroom signals (default: --hosts when "
+                        "--min-hosts is given)")
+    p.add_argument("--scale-down-s", type=float, default=0.0, metavar="S",
+                   help="elastic fabric: once the scale-up signals stay "
+                        "quiet at one host fewer for S seconds above "
+                        "--min-hosts, drain one surplus host (queued "
+                        "users rebalance, in-flight users migrate through "
+                        "a checkpoint fence); requires --min-hosts/"
+                        "--max-hosts (default 0: never)")
+    p.add_argument("--mesh-devices", default=None, metavar="N|N0,N1,...",
+                   help="fabric: devices per worker; one int applies "
+                        "fleet-wide, a comma list gives per-host widths "
+                        "(length must equal --hosts).  Each worker serves "
+                        "on a pool mesh of that width and advertises it "
+                        "in its heartbeat (requires --hosts)")
+    p.add_argument("--placement", choices=("bucket", "load"),
+                   default="bucket",
+                   help="fabric: cross-host routing; 'bucket' co-locates "
+                        "users of one pool-width bucket (within a load "
+                        "skew bound), 'load' is least-loaded")
+    p.add_argument("--drain-host", default=None, metavar="H",
+                   help="elastic fabric operator command: drain host H "
+                        "through the scale-down machinery once it is live "
+                        "(requires --min-hosts/--max-hosts)")
+    p.add_argument("--fence-deadline-s", type=float, default=0.0,
+                   metavar="S",
+                   help="elastic fabric: a checkpoint-fence migration not "
+                        "acked within S seconds falls back to "
+                        "evict+resume at the next step boundary (default "
+                        "0: wait for the checkpoint; requires --min-hosts/"
+                        "--max-hosts)")
+    p.add_argument("--remedy", action="store_true",
+                   help="elastic fabric: a placement-skew alert held for "
+                        "--remedy-hold-s sheds the overloaded host's "
+                        "surplus users (queued by drop-ack, in flight by "
+                        "checkpoint fence), journaled (requires "
+                        "--min-hosts/--max-hosts)")
+    p.add_argument("--remedy-hold-s", type=float, default=1.0, metavar="S",
+                   help="remedy: how long a skew alert must hold before "
+                        "the pump acts (default 1)")
+    p.add_argument("--remedy-cooldown-s", type=float, default=5.0,
+                   metavar="S",
+                   help="remedy: minimum spacing between remediations, "
+                        "fleet-wide (default 5)")
+    p.add_argument("--remedy-skew", type=int, default=None, metavar="N",
+                   help="remedy: load above the fleet minimum that counts "
+                        "as skew, the alert threshold and the shed target "
+                        "(default: the placement skew bound)")
+    p.add_argument("--fabric-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--fabric-dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--unpoison", default=None, metavar="USER[,USER...]",
                    help="operator command: remove users from the poison "
                         "list (journaled records), then exit")
@@ -227,6 +310,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # the fabric coordinator re-execs its workers with these flags
+    args._raw_argv = list(sys.argv[1:] if argv is None else argv)
     if args.unpoison is not None:
         # an operator action on the journal and poison files: no dataset
         return _run_unpoison(args)
@@ -264,7 +349,10 @@ def main(argv=None) -> int:
         PreemptionGuard,
     )
 
-    device = resolve_device(args.device)
+    # the fabric coordinator never scores: it leaves the device (and
+    # CUDA) to its workers
+    coordinator = args.hosts is not None
+    device = None if coordinator else resolve_device(args.device)
     paths = PathsConfig(models_root=args.models_root,
                         amg_root=args.amg_root)
     cfg = ALConfig(queries=args.queries, epochs=args.epochs, mode=args.mode,
@@ -309,7 +397,7 @@ def main(argv=None) -> int:
     pool = amg.load_feature_pool(paths.amg_dataset_csv,
                                  paths.amg_features_dir)
     store = None
-    if has_cnn:
+    if has_cnn and not coordinator:
         from consensus_entropy_tpu_torch.data.audio import (
             device_store_from_npy,
         )
@@ -317,14 +405,17 @@ def main(argv=None) -> int:
         # CNN scoring and retraining crop from the device store
         store = device_store_from_npy(paths.amg_npy_dir, pool.song_ids,
                                       cnn_cfg.input_length, device)
-    meshes = _meshes(args, device, store)
-    if meshes is None:
-        return 1
-    mesh, train_mesh = meshes
-    loop = ALLoop(cfg, tie_break=args.tie_break,
-                  retrain_epochs=args.retrain_epochs,
-                  pad_pool_to=args.pad_pool_to,
-                  fuse_step=not args.no_fuse_step, device=device, mesh=mesh)
+    mesh = train_mesh = loop = None
+    if not coordinator:
+        meshes = _meshes(args, device, store)
+        if meshes is None:
+            return 1
+        mesh, train_mesh = meshes
+        loop = ALLoop(cfg, tie_break=args.tie_break,
+                      retrain_epochs=args.retrain_epochs,
+                      pad_pool_to=args.pad_pool_to,
+                      fuse_step=not args.no_fuse_step, device=device,
+                      mesh=mesh)
     results = []
     try:
         with PreemptionGuard() as guard:
@@ -413,6 +504,14 @@ def _run_users(args, cfg, paths, users, pool, anno, hc_table, store,
     if args.fleet is not None:
         _run_users_fleet(args, cfg, paths, users, pool, anno, hc_table,
                          store, cnn_cfg, guard, device, results, mesh)
+        return
+    if args.fabric_worker is not None:
+        _run_users_fabric_worker(args, cfg, paths, users, pool, anno,
+                                 hc_table, store, cnn_cfg, guard, device,
+                                 mesh)
+        return
+    if args.hosts is not None:
+        _run_users_fabric(args, cfg, paths, users, pool, anno, guard)
         return
     if args.serve is not None:
         _run_users_serve(args, cfg, paths, users, pool, anno, hc_table,
@@ -612,6 +711,10 @@ def _refused(args) -> bool:
               "requires --fleet or --serve (use --trace-dir for sequential "
               "runs)")
         return True
+    if args.torch_profile is not None and args.hosts is not None:
+        # fabric workers would race each other's profile files in one DIR
+        print("--torch-profile is single-process (drop --hosts)")
+        return True
     if args.torch_profile_n < 1:
         print(f"--torch-profile-n must be >= 1, got {args.torch_profile_n}")
         return True
@@ -632,7 +735,12 @@ def _refused(args) -> bool:
                           args.breaker_cooldown_s != 30.0),
                          ("--breaker-probes", args.breaker_probes != 0),
                          ("--journal-compact-kb",
-                          args.journal_compact_kb != 0)):
+                          args.journal_compact_kb != 0),
+                         ("--hosts", args.hosts is not None),
+                         ("--lease-s", args.lease_s != 5.0),
+                         ("--min-hosts", args.min_hosts is not None),
+                         ("--max-hosts", args.max_hosts is not None),
+                         ("--scale-down-s", args.scale_down_s != 0.0)):
         if is_set and args.serve is None:
             print(f"{flag} requires --serve")
             return True
@@ -653,6 +761,8 @@ def _refused(args) -> bool:
                                    or args.priority_aging_s < 0):
         print("--slo-interactive-s and --slo-batch-s must be > 0, "
               "--priority-aging-s >= 0")
+        return True
+    if _fabric_refused(args):
         return True
     args._bucket_widths = None
     if args.bucket_widths is not None:
@@ -696,6 +806,76 @@ def _refused(args) -> bool:
     return False
 
 
+def _fabric_refused(args) -> bool:
+    """The JAX CLI's fabric refusals (``amg_test.py:482-563``, their order
+    and words, the ``--alert-sink`` ones aside); builds
+    ``args._fabric_config`` for ``--hosts``."""
+    args._fabric_config = None
+    if args.hosts is not None:
+        if args.hosts < 1 or args.lease_s <= 0:
+            print("--hosts must be >= 1 and --lease-s > 0")
+            return True
+        if args.no_serve_journal:
+            print("--hosts requires the admission journal (it is the "
+                  "fabric's source of truth); drop --no-serve-journal")
+            return True
+        from consensus_entropy_tpu_torch.serve import FabricConfig
+
+        if args.mesh_devices is not None and args.mesh:
+            print("--mesh-devices and --mesh are two spellings of the "
+                  "same fleet shape: give the fabric --mesh-devices "
+                  "(per-host) OR --mesh N (fleet-wide), not both")
+            return True
+        mesh_devices = _mesh_width(args.mesh) or 1 if args.mesh else 1
+        if args.mesh_devices is not None:
+            try:
+                parts = tuple(int(x) for x in
+                              str(args.mesh_devices).split(",")
+                              if x.strip())
+                if not parts:
+                    raise ValueError
+            except ValueError:
+                print(f"--mesh-devices must be an int or comma-separated "
+                      f"ints, got {args.mesh_devices!r}")
+                return True
+            mesh_devices = parts[0] if len(parts) == 1 else parts
+        try:
+            args._fabric_config = FabricConfig(
+                hosts=args.hosts, lease_s=args.lease_s,
+                mesh_devices=mesh_devices,
+                min_hosts=args.min_hosts, max_hosts=args.max_hosts,
+                scale_down_s=args.scale_down_s,
+                drain_host=args.drain_host,
+                placement=args.placement,
+                fence_deadline_s=args.fence_deadline_s,
+                remedy=args.remedy,
+                remedy_hold_s=args.remedy_hold_s,
+                remedy_cooldown_s=args.remedy_cooldown_s,
+                **({} if args.remedy_skew is None
+                   else {"remedy_skew": args.remedy_skew}),
+                # the fleet planner must not fight explicit operator
+                # edges or a disabled local planner
+                fleet_planner=(not args.no_slo_planner
+                               and args.bucket_widths is None))
+        except ValueError as e:
+            print(f"invalid fabric config: {e}")
+            return True
+    elif args.min_hosts is not None or args.max_hosts is not None \
+            or args.scale_down_s or args.drain_host is not None \
+            or args.fence_deadline_s or args.remedy \
+            or args.mesh_devices is not None:
+        print("--min-hosts/--max-hosts/--scale-down-s/--drain-host/"
+              "--fence-deadline-s/--remedy/--mesh-devices require "
+              "--hosts (the elastic fabric scales a multi-host fleet)")
+        return True
+    if args.fabric_worker is not None and (args.fabric_dir is None
+                                           or args.serve is None):
+        print("--fabric-worker is internal (spawned by --hosts) and "
+              "needs --fabric-dir and --serve")
+        return True
+    return False
+
+
 def _serve_config(args, mesh=None):
     """The ``ServeConfig`` of the serve flags (``amg_test.py:771`` of the
     JAX CLI); a pool mesh sets its width."""
@@ -726,15 +906,18 @@ def _interactive_set(args) -> set:
             if u.strip()}
 
 
-def _build_tracer(args, cfg, paths):
-    """The span tracer of fleet and serve runs: ``spans.jsonl`` in
-    ``--trace-dir`` or the users directory.  Its run id comes from mode and
-    seed, so a restarted run continues the same traces."""
+def _build_tracer(args, cfg, paths, *, path=None, host=None):
+    """The span tracer of fleet, serve and fabric runs: ``spans.jsonl`` in
+    ``--trace-dir`` or the users directory (a fabric worker's ``path`` is
+    its span WAL).  Its run id comes from mode and seed, so a restarted
+    run, and every worker of one fabric, continue the same traces."""
     from consensus_entropy_tpu_torch.obs.trace import Tracer
 
-    return Tracer(os.path.join(args.trace_dir or paths.users_dir,
-                               "spans.jsonl"),
-                  run_id=f"{cfg.mode}-{cfg.seed}", enabled=not args.no_trace)
+    if path is None:
+        path = os.path.join(args.trace_dir or paths.users_dir,
+                            "spans.jsonl")
+    return Tracer(path, run_id=f"{cfg.mode}-{cfg.seed}", host=host,
+                  enabled=not args.no_trace)
 
 
 def _run_users_serve(args, cfg, paths, users, pool, anno, hc_table, store,
@@ -860,6 +1043,228 @@ def _run_users_serve(args, cfg, paths, users, pool, anno, hc_table, store,
         raise RuntimeError(
             f"{len(failed)} serve user(s) failed terminally after "
             f"eviction/resume: {failed}")
+
+
+def _pool_sizes(pool, anno, users) -> dict:
+    """Each user's enqueue-time pool size (annotated songs in the feature
+    pool), journaled on ``enqueue`` so bucket-aware placement co-locates
+    same-bucket users as a pure function of the journal."""
+    pool_songs = set(pool.song_ids)
+    sizes = {}
+    for u in users:
+        mine = set(anno.song_id[anno.user_id == u].tolist())
+        sizes[str(u)] = sum(1 for s in mine if s in pool_songs)
+    return sizes
+
+
+def _run_users_fabric(args, cfg, paths, users, pool, anno, guard) -> None:
+    """The fabric coordinator (``amg_test.py:1124-1265`` of the JAX CLI):
+    shard the users across ``--hosts`` worker processes, each this CLI
+    re-run with ``--fabric-worker``, coordinated through the admission
+    journal (``serve.fabric``).  The coordinator owns the journal, the
+    routing and the failover and never touches the device; the workers
+    own the engines and the per-user persistence."""
+    import json
+    import subprocess
+
+    from consensus_entropy_tpu_torch.fleet import FleetReport
+    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
+    from consensus_entropy_tpu_torch.serve import (
+        AdmissionJournal,
+        FabricCoordinator,
+        PoisonList,
+    )
+    from consensus_entropy_tpu_torch.serve.hosts import fabric_paths
+
+    fabric_dir = os.path.join(paths.users_dir, "fabric")
+    os.makedirs(fabric_dir, exist_ok=True)
+    journal = AdmissionJournal(
+        os.path.join(paths.users_dir, "serve_journal.jsonl"),
+        compact_bytes=args.journal_compact_kb * 1024 or None)
+    poison = PoisonList(os.path.join(paths.users_dir,
+                                     "serve_poison.jsonl"))
+    report = FleetReport(os.path.join(paths.users_dir,
+                                      "fleet_metrics.jsonl"))
+    worker_argv = _worker_argv(args._raw_argv)
+    # workers import this package whatever their working directory
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = pkg_root + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    fabric_cfg = args._fabric_config
+
+    def spawn(host_id):
+        # a host of K devices serves on a K-entry pool mesh: K times the
+        # one card (or the CPU under --device cpu); --device passes
+        # through unchanged in worker_argv
+        digits = "".join(ch for ch in host_id if ch.isdigit())
+        n_dev = fabric_cfg.devices_for(int(digits) if digits else 0)
+        mesh_argv = []
+        if n_dev > 1:
+            one = "cpu" if args.device == "cpu" else "cuda:0"
+            mesh_argv = ["--mesh", ",".join([one] * n_dev)]
+        log = open(fabric_paths(fabric_dir, host_id)["log"], "ab")
+        try:
+            # fork then exec: the coordinator holds no CUDA state to share
+            return subprocess.Popen(
+                [sys.executable, "-m",
+                 "consensus_entropy_tpu_torch.cli.amg_test", *worker_argv,
+                 *mesh_argv, "--fabric-worker", host_id,
+                 "--fabric-dir", fabric_dir],
+                stdout=log, stderr=subprocess.STDOUT, env=env)
+        finally:
+            log.close()  # the child holds its own descriptor
+
+    # the coordinator's tracer owns spans.jsonl; the workers' span WALs
+    # (fabric/spans_<h>.jsonl) are transcribed into it
+    tracer = _build_tracer(args, cfg, paths, host="coordinator")
+    coord = FabricCoordinator(
+        journal, fabric_dir, fabric_cfg, poison=poison, report=report,
+        preemption=guard, tracer=tracer,
+        alerts=AlertWatcher(report, log=print))
+    interactive = _interactive_set(args)
+    todo = [str(u) for u in users[: args.max_users]]
+    try:
+        summary = coord.run(
+            todo, spawn, classes={u: "interactive" for u in interactive},
+            pools=_pool_sizes(pool, anno, users[: args.max_users]))
+    finally:
+        tracer.close()
+        journal.close()
+        poison.close()
+        report.close()
+    if summary.get("drain_host_unserviced"):
+        print(f"WARNING: --drain-host {summary['drain_host_unserviced']} "
+              "was never serviced (host never live+joined this run) — "
+              "nothing was drained")
+    print("fabric summary: " + json.dumps(
+        {"users": summary["users"], "finished": len(summary["finished"]),
+         "failed": len(summary["failed"]),
+         "poisoned": len(summary["poisoned"]),
+         "revocations": summary["revocations"],
+         "reassignments": summary["reassignments"],
+         "spawns": summary["spawns"], "joins": summary["joins"],
+         "migrations": summary["migrations"],
+         "compactions": summary["compactions"]}, sort_keys=True))
+    bad = summary["failed"] + summary["poisoned"]
+    if bad:
+        raise RuntimeError(
+            f"{len(bad)} fabric user(s) failed terminally: {bad}")
+
+
+#: coordinator-only flags (with a value), stripped from the worker argv
+COORDINATOR_FLAGS = ("--hosts", "--min-hosts", "--max-hosts",
+                     "--placement", "--scale-down-s", "--drain-host",
+                     "--fence-deadline-s", "--remedy-hold-s",
+                     "--remedy-cooldown-s", "--remedy-skew",
+                     "--mesh-devices", "--mesh")
+#: coordinator-only switches (no value)
+COORDINATOR_SWITCHES = ("--remedy",)
+
+
+def _worker_argv(raw_argv) -> list:
+    """The coordinator's argv minus its own flags, in both the ``--flag
+    value`` and ``--flag=value`` spellings: a surviving ``--min-hosts``
+    would fail the worker's own validation (it needs ``--hosts``)."""
+    out, skip_next = [], False
+    for arg in raw_argv:
+        if skip_next:
+            skip_next = False
+            continue
+        if arg in COORDINATOR_FLAGS:
+            skip_next = True
+            continue
+        if arg in COORDINATOR_SWITCHES:
+            continue
+        if any(arg.startswith(f + "=") for f in COORDINATOR_FLAGS):
+            continue
+        out.append(arg)
+    return out
+
+
+def _run_users_fabric_worker(args, cfg, paths, users, pool, anno,
+                             hc_table, store, cnn_cfg, guard, device,
+                             mesh=None) -> None:
+    """A fabric worker (``amg_test.py:1266-1352`` of the JAX CLI): one
+    serve engine on ``device`` fed from the coordinator's assignment file
+    (``serve.hosts.run_worker``); each finished user is persisted the
+    moment it finishes, as on the single-host serve path."""
+    from consensus_entropy_tpu_torch.al import workspace
+    from consensus_entropy_tpu_torch.al.loop import UserData
+    from consensus_entropy_tpu_torch.data import amg
+    from consensus_entropy_tpu_torch.fleet import (
+        FleetReport,
+        FleetScheduler,
+        FleetUser,
+    )
+    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
+    from consensus_entropy_tpu_torch.serve.hosts import (
+        fabric_paths,
+        run_worker,
+    )
+
+    experiment = {"seed": cfg.seed, "queries": cfg.queries,
+                  "train_size": cfg.train_size}
+    by_id = {str(u): u for u in users}
+    report = FleetReport(os.path.join(
+        paths.users_dir, f"fleet_metrics_{args.fabric_worker}.jsonl"))
+    # the per-host span WAL the coordinator tails; the shared run id
+    # keeps a failed-over user's trace continuous across hosts
+    tracer = _build_tracer(
+        args, cfg, paths,
+        path=fabric_paths(args.fabric_dir, args.fabric_worker)["spans"],
+        host=args.fabric_worker)
+    scheduler = FleetScheduler(
+        cfg, tie_break=args.tie_break, retrain_epochs=args.retrain_epochs,
+        host_workers=args.fleet_host_workers, report=report,
+        scoring_by_width=True, stack_cnn=not args.no_stack_cnn,
+        plan_chunk=args.plan_chunk, fuse_step=not args.no_fuse_step,
+        device=device, mesh=mesh, tracer=tracer)
+
+    def build_entry(uid):
+        u_id = by_id.get(uid, uid)
+        user_path, skip = workspace.create_user(
+            paths.users_dir, paths.pretrained_dir, u_id, cfg.mode,
+            experiment=experiment)
+        if skip:
+            print(f"Skipping user {u_id}, already exists!")
+            return None
+
+        def factory(user_path=user_path):
+            return workspace.load_committee(
+                user_path, cnn_cfg, device_members=args.device_members,
+                full_song_hop=args.full_song_hop, device=device)
+
+        sub_pool, labels = amg.user_pool(pool, anno, u_id)
+        data = UserData(u_id, sub_pool, labels,
+                        hc_rows=hc_table.rows_for(sub_pool.song_ids),
+                        store=store)
+        return FleetUser(u_id, factory(), data, user_path, seed=cfg.seed,
+                         committee_factory=factory)
+
+    def on_result(rec):
+        if rec["error"] is not None:
+            print(f"user {rec['user']} FAILED: {rec['error']}")
+            return
+        user_path = workspace.user_dir(paths.users_dir, rec["user"],
+                                       cfg.mode)
+        rec["committee"].save(user_path)
+        workspace.mark_done(user_path)
+        print(f"user {rec['user']}: final mean F1 = "
+              f"{rec['result']['final_mean_f1']:.4f}")
+
+    try:
+        run_worker(
+            args.fabric_dir, args.fabric_worker, build_entry=build_entry,
+            scheduler=scheduler, config=_serve_config(args, mesh),
+            on_result=on_result, lease_s=args.lease_s, preemption=guard,
+            alerts=AlertWatcher(report))
+    finally:
+        tracer.close()
+        # this host's summary carries its admission-to-finish latencies
+        report.write_summary(cohort=args.serve)
+        report.close()
 
 
 def _run_unpoison(args) -> int:

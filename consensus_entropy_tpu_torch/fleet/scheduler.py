@@ -46,8 +46,12 @@ dispatch; ``hold`` sizes how long a partly formed stacked dispatch waits
 for host steps in flight; ``on_terminal`` lets the server take a failed
 user back for backoff re-admission; ``tracer`` writes the dispatch and
 host-step spans; ``profile_dir`` captures the first ``profile_n`` device
-dispatches with ``torch.profiler``.  The fence's release hooks belong to
-the multi-host fabric and are not ported yet.
+dispatches with ``torch.profiler``.  The fabric's release hooks (JAX
+``scheduler.py:659-702``): ``request_release`` closes a session at its
+next checkpoint boundary, ``force_release`` at its next step,
+``take_released`` hands the released users with their checkpoint
+generation to the server; ``step_wall_ema`` is the dispatch-wall EMA a
+fabric worker's heartbeat carries.
 """
 
 from __future__ import annotations
@@ -108,6 +112,15 @@ class _SessionState:
     n_pad: int = 0
     started: bool = False
     resumes: int = 0
+    #: fence mark (:meth:`FleetScheduler.request_release`): release at the
+    #: next completed checkpoint boundary
+    release: bool = False
+    #: the deadline fallback's mark (:meth:`FleetScheduler.
+    #: force_release`): release at the next ready pop, any step boundary
+    force_release: bool = False
+    #: label of the host step that just completed (``"checkpoint"`` is
+    #: the release point of a fence-marked session)
+    last_label: str | None = None
 
 
 class FleetScheduler:
@@ -184,6 +197,10 @@ class FleetScheduler:
         #: ``"full"`` or ``"cheap"`` (each committee capped at its
         #: ``min_members`` floor): see :meth:`set_depth`
         self.depth = "full"
+        #: EMA of recent device-dispatch walls (seconds): the gray
+        #: detector's per-host signal, carried by a fabric worker's lease
+        #: heartbeats.  Telemetry only; ``None`` until the first dispatch
+        self.step_wall_ema: float | None = None
         self._opened = False
 
     # -- engine lifecycle --------------------------------------------------
@@ -215,6 +232,9 @@ class FleetScheduler:
         #: sessions holding a slot, in admission order
         self._live: dict = {}
         self._score_wait: list = []   # (state, ScoreStep | DeviceStep)
+        #: uid -> checkpoint generation of sessions released since the
+        #: driver last called :meth:`take_released`
+        self._released: dict = {}
         self._host_wait: dict = {}    # Future -> (state, HostStep)
         #: Future -> submit time (the hold's host-step telemetry)
         self._host_t0: dict = {}
@@ -257,6 +277,16 @@ class FleetScheduler:
         self._reap_hung_hosts()
         while self._ready:
             state, value, exc = self._ready.popleft()
+            if exc is None and (state.force_release
+                                or (state.release
+                                    and state.last_label == "checkpoint")):
+                # the fence point: the checkpoint this session just
+                # committed is the migration's resume unit.  A force mark
+                # releases at any step: the close discards the current
+                # iteration and the workspace stays at its last commit
+                self._release(state)
+                continue
+            state.last_label = None
             self._live[state] = None
             self._track(state, self._advance(state, value, exc))
         if self._score_wait:
@@ -429,7 +459,10 @@ class FleetScheduler:
                        return_when=FIRST_COMPLETED)
         note = getattr(self.hold, "note_host_step", None)
         for fut in done:
-            state, _ = self._host_wait.pop(fut)
+            state, step = self._host_wait.pop(fut)
+            # the release check in pump reads this: a completed
+            # "checkpoint" step is a fence-marked session's release point
+            state.last_label = getattr(step, "label", None)
             t0 = self._host_t0.pop(fut, None)
             if note is not None and t0 is not None:
                 note(time.monotonic() - t0)
@@ -482,6 +515,58 @@ class FleetScheduler:
             "user": state.entry.user_id, "result": result,
             "committee": state.session.committee,
             "resumes": state.resumes, "error": None}
+
+    def request_release(self, user_id) -> bool:
+        """Mark a live session for release at its next completed
+        checkpoint boundary (the fence): its generator is closed there,
+        joining the staged commit, and the user leaves the engine with no
+        result and no failure; the driver places it elsewhere, where
+        resume replays the fenced workspace.  False when no live session
+        matches (finished or evicted first: the fence is refused)."""
+        uid = str(user_id)
+        for st in list(self._live) + [s for s, _, _ in self._ready]:
+            if str(st.entry.user_id) == uid:
+                st.release = True
+                return True
+        return False
+
+    def force_release(self, user_id) -> bool:
+        """The fence deadline's fallback: release the session at its
+        next ready pop, any step boundary.  The current iteration's
+        in-memory progress is dropped (the generator's close path); the
+        workspace stays at its last committed generation, which resume
+        elsewhere replays.  False when no live session matches."""
+        uid = str(user_id)
+        for st in list(self._live) + [s for s, _, _ in self._ready]:
+            if str(st.entry.user_id) == uid:
+                st.force_release = True
+                return True
+        return False
+
+    def take_released(self) -> dict:
+        """``{user_id: checkpoint generation}`` of the sessions released
+        since the last call (``None`` when one never committed a
+        generation: the target starts the user from its unstarted
+        workspace)."""
+        out, self._released = self._released, {}
+        return out
+
+    def _release(self, state: _SessionState) -> None:
+        """Close a marked session at its boundary: the generator's close
+        joins its checkpointer (the commit is durable before the release
+        is reported), the slot frees, and the user surfaces through
+        :meth:`take_released` with its generation.  A session whose
+        checkpoints run inline never reaches this point for a fence and
+        finishes where it is."""
+        self._live.pop(state, None)
+        try:
+            state.gen.close()
+        except Exception:
+            pass
+        uid = str(state.entry.user_id)
+        self._released[uid] = state.session.ckpt_epoch
+        self.report.event("fence_release", user=uid,
+                          gen=state.session.ckpt_epoch)
 
     def _evict(self, state: _SessionState, exc: Exception) -> None:
         """Tear one faulted session down and, when possible, resume the
@@ -632,6 +717,9 @@ class FleetScheduler:
                 rounds.append(group)
 
         def grade(fn_key, batch, width, wall, h2d=(None, None), w0=None):
+            self.step_wall_ema = (
+                wall if self.step_wall_ema is None
+                else 0.8 * self.step_wall_ema + 0.2 * wall)
             self.report.dispatch(
                 fn_key, batch,
                 self._active_in_bucket(width) if self.scoring_by_width
@@ -742,9 +830,14 @@ class FleetScheduler:
                         batch=len(group))
             stacked = [self._stack([step.inputs[pos] for _, step in group])
                        for pos in range(len(group[0][1].inputs))]
+            d0 = time.perf_counter()
             with jit_telemetry.dispatch_scope(fn_key, width=width,
                                               n_devices=self._n_devices()):
-                return self._group_fns(width)[fn_key](*stacked)
+                res = self._group_fns(width)[fn_key](*stacked)
+            # a pending ``slow`` rule stretches the call on this thread,
+            # inside the watchdog's deadline
+            faults.slow_hold("serve.dispatch", time.perf_counter() - d0)
+            return res
 
         try:
             batched = self._guarded(dispatch, f"dispatch {fn_key}@{width}")
@@ -786,8 +879,11 @@ class FleetScheduler:
         def dispatch():
             faults.fire("serve.dispatch", fn=fn_key, width=width,
                         batch=len(group))
+            d0 = time.perf_counter()
             with jit_telemetry.dispatch_scope(fn_key, width=width):
-                return committee_mod.stage_device_plans(plans)
+                res = committee_mod.stage_device_plans(plans)
+            faults.slow_hold("serve.dispatch", time.perf_counter() - d0)
+            return res
 
         computed = self._guarded(dispatch, f"dispatch {fn_key}@{width}")
         results = committee_mod.commit_device_plans(plans, computed)
@@ -802,9 +898,13 @@ class FleetScheduler:
         def dispatch():
             faults.fire("serve.dispatch", fn=fn_key,
                         width=step.session.acq.n_pad, batch=1)
+            d0 = time.perf_counter()
             if isinstance(step, DeviceStep):
-                return step.single()
-            return step.session.acq.run_scoring(step.fn_key, step.inputs)
+                res = step.single()
+            else:
+                res = step.session.acq.run_scoring(step.fn_key, step.inputs)
+            faults.slow_hold("serve.dispatch", time.perf_counter() - d0)
+            return res
 
         return self._guarded(dispatch, f"dispatch {fn_key}x1")
 

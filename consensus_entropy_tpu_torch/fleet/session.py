@@ -219,6 +219,11 @@ class UserSession:
             self.trajectory = []
             self.queried_hist = []
             self.start_epoch = 0
+        #: the checkpoint generation this session last staged (a fence
+        #: release reports it after the generator's close joined the
+        #: commit); a fresh session has none until its baseline commits
+        self.ckpt_epoch: int | None = (self.start_epoch if st is not None
+                                       else None)
 
         hc_rows = None
         if data.hc_rows is not None:
@@ -373,6 +378,7 @@ class UserSession:
             bg_times.update(bg)
 
         self.ckpt.submit(commit)
+        self.ckpt_epoch = next_epoch
 
     def _join_and_drain(self) -> None:
         """Join the previous background checkpoint in its own phase and

@@ -10,8 +10,8 @@ process lane per host, one thread lane per user, bucket or run within it,
 and a ``control-plane`` process for the ``ctl.*`` decisions.  The span
 merge dedupes by the deterministic span id, keeping the longest duration
 (a partially written eviction span loses to the completed re-run).
-Alerts are not emitted by the port yet (the alert watchers come with the
-multi-host fabric), so :func:`alert_counts` finds none.
+:func:`alert_counts` counts the ``alert`` events the watchers of
+``obs.alerts`` emit, by kind, across every host's stream.
 """
 
 from __future__ import annotations

@@ -273,6 +273,17 @@ class QuantileSketch(Histogram):
                             if self._samples is not None else None)}
 
     @classmethod
+    def merge_all(cls, sketches) -> "QuantileSketch":
+        """Fold sketch dicts (the journaled form of the hosts' planner
+        records) into one fresh sketch; the fabric's fleet planner feeds
+        them sorted by host id (JAX ``obs/metrics.py:317``)."""
+        out = None
+        for d in sketches:
+            sk = cls.from_dict(d)
+            out = sk if out is None else out.merge(sk)
+        return out if out is not None else cls()
+
+    @classmethod
     def from_dict(cls, d: dict) -> "QuantileSketch":
         sk = cls(growth=float(d.get("growth", 2 ** 0.25)),
                  max_samples=int(d.get("max_samples", 4096)))

@@ -268,6 +268,18 @@ class Tracer:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def transcribe(self, rec: dict, *, host: str | None = None) -> None:
+        """Re-emit a span record tailed from a worker's span WAL into this
+        tracer's sink (the fabric coordinator merging worker spans as it
+        transcribes event WALs).  At-least-once is fine: ids are
+        deterministic and the merge dedupes."""
+        if not self.enabled or rec.get("ev") != "span":
+            return
+        rec = dict(rec)
+        if host is not None and "host" not in rec:
+            rec["host"] = host
+        self._emit(rec)
+
     def close(self, **attrs) -> None:
         """Write the run span and any still-open user roots (flagged
         ``open``), then close the sink."""

@@ -15,14 +15,19 @@ Actions:
   absorbs;
 - ``corrupt`` flips a file payload's last byte, or sets an array payload's
   first row to NaN;
-- ``delay`` sleeps ``delay_s`` (``delay=0.5``).
+- ``delay`` sleeps ``delay_s`` (``delay=0.5``);
+- ``stall`` holds the hit ``stall_s`` seconds (``stall=inf`` hangs until
+  the process is killed): the gray species, a process alive (its
+  heartbeat thread beats on) whose guarded operation wedges;
+- ``slow`` multiplies the guarded operation's wall by ``slow_factor``:
+  :func:`fire` arms the factor and the site calls :func:`slow_hold` with
+  its measured elapsed time after the operation, which sleeps
+  ``elapsed * (factor - 1)``.  It slows work down and changes no value.
 
-``multihost.sync`` fires at each cross-process barrier.  The single-host
-serve points are here: ``serve.admit``, ``serve.journal.append``,
-``serve.dispatch`` and ``serve.collect``, and ``fabric.compact``, which
-the admission journal's compaction fires.  The other fabric points and
-the gray ``stall``/``slow`` actions wait for the multi-host fabric
-(ROADMAP A10b).
+``multihost.sync`` fires at each cross-process barrier.  The serve points
+(``serve.admit``, ``serve.journal.append``, ``serve.dispatch``,
+``serve.collect``, ``serve.feed.poll``) and the fabric's (``fabric.*``,
+JAX ``resilience/faults.py:62-140``) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,11 +56,22 @@ FAULT_POINTS = frozenset({
     "serve.journal.append",  # AdmissionJournal.append, before the write
     "serve.dispatch",     # FleetScheduler, each device dispatch
     "serve.collect",      # FleetServer completion, before the finish record
+    "serve.feed.poll",    # JsonlTail.poll (a stall is a lagging tail)
     "fabric.compact",     # AdmissionJournal compaction (checkpoint, truncate)
+    "fabric.assign",      # coordinator routing, before the assign record
+    "fabric.lease",       # worker heartbeat, before the lease file write
+    "fabric.spawn",       # autoscaler, before the spawn record
+    "fabric.drain",       # scale-down decision, before the drain record
+    "fabric.migrate.fence",   # in-flight migration, before the fence record
+    "fabric.migrate.commit",  # after the fence ack, before the re-assign
+    "fabric.remedy",      # remediation decision, before the remedy record
+    "fabric.epoch",       # coordinator epoch claim, before the epoch record
+    "fabric.gray",        # gray-ladder rung, before the probation record
     "multihost.sync",     # parallel.multihost.sync barriers
 })
 
-ACTIONS = ("kill", "raise", "transient", "corrupt", "delay")
+ACTIONS = ("kill", "raise", "transient", "corrupt", "delay", "stall",
+           "slow")
 
 
 class InjectedFault(Exception):
@@ -83,6 +99,10 @@ class FaultRule:
     times: int = 1
     delay_s: float = 0.01
     member: str | None = None
+    #: ``stall`` hold in seconds; ``float("inf")`` hangs until killed
+    stall_s: float = 1.0
+    #: ``slow`` wall-time multiplier honored by :func:`slow_hold`
+    slow_factor: float = 2.0
 
     def __post_init__(self):
         if self.point not in FAULT_POINTS:
@@ -93,6 +113,11 @@ class FaultRule:
                              f"(have {ACTIONS})")
         if self.at < 1:
             raise ValueError(f"at must be >= 1 (1-based hit), got {self.at}")
+        if self.stall_s < 0:
+            raise ValueError(f"stall_s must be >= 0, got {self.stall_s}")
+        if self.slow_factor < 1:
+            raise ValueError("slow_factor must be >= 1 (a multiplier on "
+                             f"the guarded op's wall), got {self.slow_factor}")
 
     def matches(self, hit: int, ctx: dict) -> bool:
         if self.member is not None and ctx.get("member") != self.member:
@@ -126,6 +151,9 @@ class FaultInjector:
         self.member_hits: dict[tuple, int] = {}
         self.fired: list[dict] = []
         self._lock = threading.Lock()
+        #: (thread id, point) -> the slow factor a matched ``slow`` rule
+        #: armed, consumed by that thread's :meth:`slow_hold`
+        self._slow_pending: dict[tuple, float] = {}
 
     def fire(self, point: str, payload=None, **ctx):
         with self._lock:
@@ -141,6 +169,10 @@ class FaultInjector:
             for r in todo:
                 self.fired.append({"point": point, "action": r.action,
                                    "hit": hit, **ctx})
+                if r.action == "slow":
+                    skey = (threading.get_ident(), point)
+                    self._slow_pending[skey] = max(
+                        self._slow_pending.get(skey, 1.0), r.slow_factor)
         for r in todo:
             where = f"{point} hit {hit}" + (
                 f" ({ctx['member']})" if "member" in ctx else "")
@@ -152,9 +184,23 @@ class FaultInjector:
                 raise TransientFault(f"injected transient error at {where}")
             if r.action == "delay":
                 time.sleep(r.delay_s)
+            elif r.action == "stall":
+                # the rest of the process (heartbeat, intake) runs on
+                while r.stall_s == float("inf"):
+                    time.sleep(3600)
+                time.sleep(r.stall_s)
             elif r.action == "corrupt":
                 payload = self._corrupt(payload, where)
         return payload
+
+    def slow_hold(self, point: str, elapsed_s: float) -> None:
+        """Honor the ``slow`` factor this thread's last :meth:`fire` of
+        ``point`` armed: sleep ``elapsed * (factor - 1)``."""
+        with self._lock:
+            factor = self._slow_pending.pop(
+                (threading.get_ident(), point), None)
+        if factor is not None and factor > 1.0 and elapsed_s > 0:
+            time.sleep(elapsed_s * (factor - 1.0))
 
     @staticmethod
     def _corrupt(payload, where: str):
@@ -188,6 +234,16 @@ def fire(point: str, payload=None, **ctx):
     return inj.fire(point, payload=payload, **ctx)
 
 
+def slow_hold(point: str, elapsed_s: float) -> None:
+    """The ``slow`` action's hook: a site times its guarded operation and
+    passes the elapsed seconds; a factor armed by this thread's preceding
+    :func:`fire` of ``point`` stretches the operation to ``elapsed *
+    factor``.  A no-op without an injector or a matched rule."""
+    inj = _injector
+    if inj is not None:
+        inj.slow_hold(point, elapsed_s)
+
+
 @contextlib.contextmanager
 def inject(*rules):
     """Install an injector for the block; yields it (``.fired`` is the
@@ -201,11 +257,37 @@ def inject(*rules):
         install(prev)
 
 
+#: the valued actions and the :class:`FaultRule` field each value sets
+_VALUED_ACTIONS = {"delay": "delay_s", "stall": "stall_s",
+                   "slow": "slow_factor"}
+
+
+def _parse_action(token: str) -> tuple[str, dict]:
+    """``action`` or ``action=value`` -> ``(action, rule overrides)``,
+    with the JAX package's errors for a malformed float or a value on an
+    action that takes none."""
+    action, sep, value = token.partition("=")
+    if not sep:
+        return action, {}
+    field = _VALUED_ACTIONS.get(action)
+    if field is None:
+        keys = ", ".join(f"{k}=" for k in sorted(_VALUED_ACTIONS))
+        raise ValueError(f"action {action!r} takes no '=value' suffix "
+                         f"(valued actions: {keys})")
+    try:
+        parsed = float(value)
+    except ValueError:
+        raise ValueError(f"malformed float {value!r} for "
+                         f"{action}=") from None
+    return action, {field: parsed}
+
+
 def parse_spec(spec: str) -> list[FaultRule]:
     """Parse the ``CETPU_FAULTS`` grammar: comma-separated
     ``point:action[=value][@at][xTIMES]``, e.g.
-    ``state.save:kill@2,member.predict:corrupt@1x2``; ``delay=0.5`` is the
-    one valued action."""
+    ``state.save:kill@2,member.predict:corrupt@1x2``.  Valued actions:
+    ``delay=0.5`` (seconds a firing), ``stall=5`` (``stall=inf`` hangs)
+    and ``slow=20`` (a wall multiplier)."""
     rules = []
     for part in filter(None, (p.strip() for p in spec.split(","))):
         try:
@@ -218,13 +300,7 @@ def parse_spec(spec: str) -> list[FaultRule]:
             if "@" in rest:
                 rest, at_s = rest.split("@", 1)
                 at = int(at_s)
-            action, sep, value = rest.partition("=")
-            overrides = {}
-            if sep:
-                if action != "delay":
-                    raise ValueError(f"action {action!r} takes no '=value' "
-                                     "suffix (valued actions: delay=)")
-                overrides["delay_s"] = float(value)
+            action, overrides = _parse_action(rest)
             rules.append(FaultRule(point=point, action=action, at=at,
                                    times=times, **overrides))
         except ValueError as e:

@@ -35,6 +35,7 @@ import base64
 import errno
 import json
 import os
+import time
 import zlib
 
 from consensus_entropy_tpu_torch.resilience import faults
@@ -119,7 +120,9 @@ def fsync(f, *, path: str, member: str = "wal") -> None:
     except faults.InjectedFault:
         _notify("io.fsync", path)
         return
+    t0 = time.perf_counter()
     os.fsync(f.fileno())
+    faults.slow_hold("io.fsync", time.perf_counter() - t0)
 
 
 def replace(src: str, dst: str, *, member: str = "wal") -> None:

@@ -1,8 +1,9 @@
 """The admission journal: a durable WAL of the serve layer's user state.
 
 Counterpart of ``consensus_entropy_tpu/serve/journal.py`` (``:125-964``),
-``JsonlTail`` (the fabric worker's feed) aside.  ``FleetServer`` journals
-every admission transition to ``users/serve_journal.jsonl``:
+``JsonlTail`` (the fabric's feed and event-WAL follower) included.
+``FleetServer`` journals every admission transition to
+``users/serve_journal.jsonl``:
 
 - **append-fsync**: each transition (``enqueue`` / ``admit`` / ``finish``
   / ``fail`` / ``poison`` / ``unpoison``) is one CRC-framed line
@@ -19,9 +20,9 @@ every admission transition to ``users/serve_journal.jsonl``:
 - **poison list**: a sibling append-fsync file (:class:`PoisonList`) of
   users past their failure budget; ``--unpoison`` appends removals.
 - **fabric records** (``assign``, ``lease``, ``remedy``, ``epoch``, ...):
-  the multi-host fabric writes them into the same journal.  The port has
-  no fabric yet, but :class:`JournalState` replays them whole, so any
-  journal the JAX package wrote replays here to an equal state.
+  the multi-host fabric (``serve.fabric``) writes them into the same
+  journal, and :class:`JournalState` replays them whole, so a journal
+  either package wrote replays in the other to an equal state.
 - **compaction**: :meth:`AdmissionJournal.compact` checkpoints the state to
   ``<journal>.ckpt`` and truncates the journal, each by write-new-then-
   rename; every record carries a monotonic ``seq`` and the checkpoint the
@@ -607,6 +608,73 @@ class _AppendFsyncFile:
         if self._lockf is not None:
             self._lockf.close()  # releases the flock
             self._lockf = None
+
+
+class JsonlTail:
+    """Partial-line-safe follower of an append-only JSONL file written by
+    another process (the fabric coordinator tailing a worker's event WAL,
+    a worker tailing its assignment feed); JAX ``serve/journal.py:636``.
+
+    :meth:`poll` returns ``(record, offset_after)`` for every complete line
+    appended since the last poll; a line still missing its newline (the
+    writer is mid-append, or died there) is left unconsumed.  Framed and
+    legacy lines both parse (``resilience.io.parse_frame``) and the
+    ``{"wal": N}`` header is consumed silently.  A complete line that
+    fails its frame is bit-rot, not a crash: it is counted on
+    :attr:`corrupt`, quarantined into the sidecar and skipped.  ``seek``
+    resumes from a durable cursor (the coordinator journals each
+    transcription's ``offset_after``)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = None
+        self.offset = 0
+        #: complete-but-corrupt lines skipped so far (the coordinator
+        #: surfaces deltas as ``record_quarantined`` events)
+        self.corrupt = 0
+
+    def seek(self, offset: int) -> None:
+        self.offset = max(int(offset), 0)
+        if self._f is not None:
+            self._f.seek(self.offset)
+
+    def poll(self) -> list:
+        # the lagging-tail gray seam: ``serve.feed.poll:stall=S`` holds the
+        # reader here, ``slow=F`` stretches the read below
+        faults.fire("serve.feed.poll", path=self.path)
+        t0 = time.perf_counter()
+        if self._f is None:
+            if not os.path.exists(self.path):
+                return []
+            self._f = open(self.path, "rb")
+            self._f.seek(self.offset)
+        out = []
+        while True:
+            line = self._f.readline()
+            if not line.endswith(b"\n"):
+                # incomplete tail: rewind so the next poll re-reads it
+                self._f.seek(self.offset)
+                break
+            self.offset += len(line)
+            status, rec = dio.parse_frame(line)
+            if status == "corrupt":
+                self.corrupt += 1
+                try:
+                    dio.quarantine_append(
+                        self.path, off=self.offset - len(line), raw=line,
+                        reason="corrupt frame (reader skip)")
+                except OSError:
+                    pass  # the quarantine is audit only
+                continue
+            if isinstance(rec, dict) and not dio.is_header(rec):
+                out.append((rec, self.offset))
+        faults.slow_hold("serve.feed.poll", time.perf_counter() - t0)
+        return out
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
 
 
 class AdmissionJournal:

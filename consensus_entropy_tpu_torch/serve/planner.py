@@ -159,6 +159,9 @@ class AdmissionPlanner:
         self.sketch = QuantileSketch()
         self.edges: tuple = ()
         self.edge_updates = 0
+        #: set once the fabric coordinator broadcast fleet-level edges
+        #: (:meth:`set_fleet_edges`): local derivation stops overriding
+        self.fleet_edges = False
         self.admission_hold_rounds = 0
         self.dispatch_hold_rounds = 0
         self._holding = False
@@ -280,6 +283,27 @@ class AdmissionPlanner:
             self._step_ema = ema(self._step_ema,
                                  max(float(dur_s), 0.0))
 
+    def set_fleet_edges(self, edges) -> None:
+        """Adopt the fabric coordinator's fleet-level bucket edges (JAX
+        ``serve/planner.py:301-321``): the router updates in place (future
+        admissions route by them; pinned pads stay pinned) and local epoch
+        derivation stops overriding, so cross-host routing stays aligned
+        with cross-host placement.  The local sketch keeps journaling per
+        epoch (the coordinator's per-host feed), and one planner record is
+        appended now so this worker's WAL pins the edges in force."""
+        with self._lock:
+            new = tuple(int(e) for e in edges)
+            self.fleet_edges = True
+            self.adapt_edges = False
+            if new and new != self.edges:
+                self.edges = new
+                self.edge_updates += 1
+                self.router.update(new)
+            if self.journal is not None and not self._restoring:
+                self.journal.append("planner", edges=list(self.edges),
+                                    sketch=self.sketch.to_dict(),
+                                    fleet=True)
+
     def note_admit(self, user, cls: str, waited_s: float = 0.0) -> None:
         """The user took a slot; ``waited_s`` is the queue wait it
         already spent — the SLO latency clock starts at enqueue, so the
@@ -348,4 +372,6 @@ class AdmissionPlanner:
             "host_step_ema_s": (round(self._step_ema, 4)
                                 if self._step_ema is not None else None),
         }
+        if self.fleet_edges:
+            out["fleet_edges"] = True
         return out

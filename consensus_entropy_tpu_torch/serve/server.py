@@ -1,9 +1,12 @@
 """The admission layer: a long-running driver for the fleet engine.
 
 Counterpart of ``consensus_entropy_tpu/serve/server.py`` (``:95-1292``),
-single-host: the fabric's fence and eviction seams (``fence``, ``evict``)
-and the live introspection plane (``status``, ``alerts``) come with the
-multi-host fabric.  ``FleetServer`` holds a :class:`~consensus_entropy_
+the fabric's seams included: ``fence`` and ``evict`` release an in-flight
+user at its next checkpoint or step for a migration, ``apply_fleet_edges``
+adopts the coordinator's bucket edges, ``set_depth`` is the gray ladder's
+dial, and the ``status`` / ``alerts`` limbs take the introspection plane
+(``status`` stays ``None`` until ``obs/status.py`` is ported).
+``FleetServer`` holds a :class:`~consensus_entropy_
 tpu_torch.fleet.scheduler.FleetScheduler` open (``open`` / ``admit`` /
 ``pump`` / ``close``) and feeds it continuously:
 
@@ -456,7 +459,8 @@ class FleetServer:
     """
 
     def __init__(self, scheduler: FleetScheduler, config: ServeConfig, *,
-                 preemption=None, journal=None, poison=None):
+                 preemption=None, journal=None, poison=None,
+                 status=None, alerts=None):
         if scheduler.preemption is not None:
             raise ValueError(
                 "serve mode owns preemption: build the FleetScheduler with "
@@ -525,10 +529,32 @@ class FleetServer:
             dict(journal.state.admits) if journal is not None else {})
         #: ``(due_monotonic, entry)`` backoff re-admissions not yet due
         self._requeue: list = []
+        #: fence requests from the intake thread, applied (and their
+        #: deferred acks journaled) on the serve-loop thread
+        self._fence_req: list = []
+        #: evict requests (the fence deadline's fallback): force-released
+        #: at the next ready pop and acked as ``drop`` records
+        self._evict_req: list = []
+        #: uids whose deferred release acks as a ``drop`` (evicted), not
+        #: a ``fence``; insertion-ordered for deterministic acks
+        self._evicting: dict[str, None] = {}
+        self._fence_lock = threading.Lock()
+        #: the coordinator epoch this worker's feed latched
+        #: (``serve.hosts.EpochGate``), echoed on every fence/drop ack so a
+        #: coordinator discards acks addressed to a predecessor; ``None``
+        #: outside a fabric
+        self.epoch: int | None = None
         #: serve-local control-lane bookkeeping (``ctl.*`` spans): the last
         #: observed journal compaction count and breaker width states
         self._ctl_compactions = 0
         self._ctl_breaker: dict = {}
+        #: the introspection plane: ``status`` a status writer the serve
+        #: loop refreshes (``None`` until ``obs/status.py`` is ported),
+        #: ``alerts`` an ``obs.alerts.AlertWatcher`` evaluated on the
+        #: same cadence.  Observation only: neither feeds a journaled
+        #: decision
+        self.status = status
+        self.alerts = alerts
         self._backoff_rng = np.random.default_rng(config.backoff_seed)
         # the fault-domain engine hooks: install from config unless the
         # caller wired its own instances into the scheduler already
@@ -670,6 +696,106 @@ class FleetServer:
         self.report.event("withdraw", user=uid)
         return True
 
+    def fence(self, user_id) -> bool | None:
+        """The fabric's in-flight migration seam (intake thread): release
+        ``user_id`` so it can run elsewhere.  Still queued: withdrawn now,
+        True.  In flight: the release is requested and the ack deferred,
+        None; the serve loop releases the session at its next checkpoint
+        boundary and journals ``ok`` with the generation then
+        (:meth:`_apply_fences`).  Unknown or finished: False (refused; the
+        user's own finish record resolves it)."""
+        uid = str(user_id)
+        if self.withdraw(uid):
+            return True
+        if uid in self._live_cls:
+            with self._fence_lock:
+                self._fence_req.append(uid)
+            return None
+        return False
+
+    def evict(self, user_id) -> bool | None:
+        """The fence deadline's fallback (intake thread): as
+        :meth:`fence`, but an in-flight session is force-released at its
+        next step boundary, dropping the current iteration's in-memory
+        progress (the workspace stays at its last committed generation,
+        which resume elsewhere replays), and acks as a ``drop``."""
+        uid = str(user_id)
+        if self.withdraw(uid):
+            return True
+        if uid in self._live_cls:
+            with self._fence_lock:
+                self._evict_req.append(uid)
+            return None
+        return False
+
+    def ack_epoch(self) -> dict:
+        """The latched coordinator epoch as ack fields (empty outside a
+        fabric, so standalone journals keep their bytes)."""
+        return {"ep": self.epoch} if isinstance(self.epoch, int) else {}
+
+    def _apply_fences(self) -> None:
+        """Serve-loop half of the fence: turn intake-thread requests into
+        engine release marks, and journal the deferred acks of sessions
+        that released.  A release is booked like a withdraw (slot freed,
+        no result): the user's run continues on another host."""
+        with self._fence_lock:
+            reqs, self._fence_req = self._fence_req, []
+            evicts, self._evict_req = self._evict_req, []
+        for uid in reqs:
+            if not self.scheduler.request_release(uid):
+                # finished or evicted since the request: refused
+                self._journal("fence", uid, ok=False, **self.ack_epoch())
+        for uid in evicts:
+            if self.scheduler.force_release(uid):
+                self._evicting[uid] = None
+            else:
+                # finished, or its fence released it just before the
+                # deadline's demotion arrived: that record resolves it
+                self._journal("drop", uid, ok=False, **self.ack_epoch())
+        for uid, gen in self.scheduler.take_released().items():
+            self._live_cls.pop(uid, None)
+            for e in self._admitted:
+                if str(e.user_id) == uid:
+                    self._pending.pop(id(e), None)
+            if self.planner is not None:
+                self.planner.note_resolved(uid)
+            fields = {"ok": True, **self.ack_epoch()}
+            if gen is not None:
+                fields["gen"] = int(gen)
+            # an evicted session acks as a drop (the coordinator's
+            # drop-ack path completes the move), a fenced one as the
+            # deferred fence ack; either way the workspace is durable at
+            # ``gen`` and the run continues elsewhere from it
+            kind = "drop" if uid in self._evicting else "fence"
+            self._evicting.pop(uid, None)
+            self._journal(kind, uid, **fields)
+            tracer = self.scheduler.tracer
+            if tracer.enabled and self.journal is not None:
+                tracer.control_event(
+                    "ctl.release", key=self.journal.state.seq,
+                    flow_user=uid, kind=kind,
+                    gen=None if gen is None else int(gen))
+
+    def apply_fleet_edges(self, edges) -> None:
+        """Adopt the coordinator's fleet-level bucket edges: future
+        admissions route by them (pinned pads stay pinned) and the local
+        planner stops deriving its own.  The fabric CLI never broadcasts
+        when ``--bucket-widths`` is set."""
+        new = tuple(int(e) for e in edges)
+        if not new:
+            return
+        if self.planner is not None:
+            self.planner.set_fleet_edges(new)
+        else:
+            self.router.update(new)
+        self.report.event("fleet_edges", edges=list(new))
+
+    def set_depth(self, depth: str) -> None:
+        """The gray ladder's degradation dial: ``"cheap"`` caps every
+        committee at its minimum size, ``"full"`` restores
+        (``FleetScheduler.set_depth``; an unknown depth raises)."""
+        self.scheduler.set_depth(depth)
+
     @property
     def draining(self) -> bool:
         return self._draining
@@ -708,7 +834,8 @@ class FleetServer:
         sched.open(cfg.target_live)
         try:
             while True:
-                self._ctl_spans()
+                self._apply_fences()
+                self._introspect()
                 if (self.preemption is not None
                         and self.preemption.requested
                         and not self._draining):
@@ -790,6 +917,7 @@ class FleetServer:
             sched.close()
             self.queue.close()
             self._collect(on_result)
+            self._apply_fences()  # acks of releases in the final round
             # admission-ordered, whatever order completions landed in (a
             # backoff-re-admitted user keeps its FIRST admission slot)
             self.results = [sched.results[id(e)] for e in self._admitted
@@ -803,6 +931,72 @@ class FleetServer:
         return self.results
 
     # -- internals ---------------------------------------------------------
+
+    def _introspect(self) -> None:
+        """One introspection round: refresh the status snapshot (rate
+        limited inside the writer; it evaluates the alerts on the same
+        cadence) and write the control-lane spans."""
+        if self.status is not None:
+            self.status.maybe_write(self._status_payload)
+        self._ctl_spans()
+
+    def _evaluate_alerts(self) -> list:
+        from consensus_entropy_tpu_torch.obs import alerts as alerts_mod
+
+        slo = self.planner.slo if self.planner is not None else {
+            "interactive": self.config.slo_interactive_s,
+            "batch": self.config.slo_batch_s}
+        out = alerts_mod.slo_headroom_alerts(self.report.class_p95s(),
+                                             slo)
+        out += alerts_mod.batch_aging_alerts(self.queue.head_waits(),
+                                             self.config.aging_s)
+        breaker = self.scheduler.breaker
+        if breaker is not None:
+            out += alerts_mod.breaker_alerts(breaker.summary())
+        return out
+
+    def _status_payload(self) -> dict:
+        """This host's live state as the status snapshot's payload (the
+        JAX payload's ``jit`` section aside: the port compiles nothing at
+        run time)."""
+        if self.alerts is not None:
+            self.alerts.update(self._evaluate_alerts())
+        sched = self.scheduler
+        depths = self.queue.depths()
+        live_cls: dict = {}
+        for c in self._live_cls.values():
+            live_cls[c] = live_cls.get(c, 0) + 1
+        with self._fence_lock:
+            fences_pending = (len(self._fence_req) + len(self._evict_req)
+                              + len(self._evicting))
+        payload = {
+            "queued": depths,
+            "queue_total": sum(depths.values()),
+            "live": sched.n_live,
+            "live_cls": live_cls,
+            "target_live": self.config.target_live,
+            "draining": self._draining,
+            "intake_open": self._intake_open,
+            "fences_pending": fences_pending,
+            "requeued": len(self._requeue),
+            "users_done": self.report.users_done,
+            "users_failed": self.report.users_failed,
+        }
+        if self.planner is not None:
+            payload["planner"] = self.planner.summary()
+        breaker = sched.breaker
+        if breaker is not None:
+            degraded = breaker.summary()
+            if degraded:
+                payload["breaker"] = {str(w): s
+                                      for w, s in degraded.items()}
+        per_bucket = self.report.per_bucket_occupancy
+        if per_bucket is not None:
+            payload["buckets"] = {str(w): b
+                                  for w, b in per_bucket.items()}
+        if self.alerts is not None:
+            payload["alerts"] = self.alerts.active
+        return payload
 
     def _ctl_spans(self) -> None:
         """The serve-local control-plane trace lane: journal compactions

@@ -2,12 +2,12 @@
 
 ``trace`` decides the load shape (pure, seeded, serializable; the same
 bytes as the JAX package's for the same spec); ``driver`` plays a trace
-against a ``FleetServer`` through its enqueue and backpressure surface;
-``grade`` turns the run's durable artifacts into a summary.
+against a ``FleetServer`` or a ``FabricCoordinator`` through its enqueue
+and backpressure surface; ``grade`` turns the run's durable artifacts into a summary.
 """
 
 from consensus_entropy_tpu_torch.workload.driver import (  # noqa: F401
-    DriverStats, ServerTarget, TraceDriver)
+    DriverStats, FabricTarget, ServerTarget, TraceDriver)
 from consensus_entropy_tpu_torch.workload.grade import (  # noqa: F401
     deterministic_equal, grade_run, percentile)
 from consensus_entropy_tpu_torch.workload.trace import (  # noqa: F401

@@ -3,8 +3,8 @@
 serving target through its enqueue and backpressure surface.
 
 Counterpart of ``consensus_entropy_tpu/workload/driver.py``
-(``:41-237``), without ``FabricTarget`` (the multi-host fabric is not
-ported yet).  The driver owns no policy; it adds the mechanics of a
+(``:41-237``): ``ServerTarget`` plays into a ``FleetServer``,
+``FabricTarget`` into a ``FabricCoordinator``.  The driver owns no policy; it adds the mechanics of a
 well-behaved producer:
 
 - **paced playback**: each event fires at ``t0 + event.t * time_scale``
@@ -12,9 +12,10 @@ well-behaved producer:
   compressed;
 - **backoff on ``QueueFull``**: the shared seeded-jitter schedule
   (:func:`resilience.retry.backoff_delay`), every retry counted;
-- **lifecycle verbs**: ``disconnect`` withdraws a still-queued user;
-  ``reconnect`` re-submits, which lands on the journal's re-admission
-  path.
+- **lifecycle verbs**: ``disconnect`` withdraws a still-queued user or
+  evicts an in-flight one at its next step boundary (its workspace keeps
+  its last committed generation); ``reconnect`` re-submits, which lands
+  on the journal's re-admission path.
 
 The driver thread builds each user's entry (``ServerTarget.build_entry``)
 while the serve loop runs the engine on its own thread.  Both reach the
@@ -69,17 +70,33 @@ class ServerTarget:
         self.server.submit(entry)
 
     def disconnect(self, uid: str) -> None:
-        # still queued → clean withdraw.  Releasing an IN-FLIGHT user at
-        # a step boundary needs the scheduler's fence hooks, which come
-        # with the multi-host fabric: refuse, and the driver counts the
-        # user as gone (its later churn events are skipped)
+        # still queued -> clean withdraw; in flight -> evict (released at
+        # the next step boundary, the workspace at its committed
+        # generation: what a dropped connection leaves behind)
         if not self.server.withdraw(uid):
-            raise RuntimeError(
-                f"user {uid} is not queued: disconnecting an in-flight "
-                "user needs the fabric's release hooks (not ported)")
+            self.server.evict(uid)
 
     def close(self) -> None:
         self.server.close_intake()
+
+
+class FabricTarget:
+    """Adapt a :class:`~consensus_entropy_tpu_torch.serve.fabric.
+    FabricCoordinator` running with ``keep_open=True``: submissions land
+    in the coordinator's bounded intake (the same ``QueueFull``
+    backpressure), disconnects ride the journaled evict path."""
+
+    def __init__(self, coordinator):
+        self.coordinator = coordinator
+
+    def submit(self, uid: str, *, cls: str, pool: int) -> None:
+        self.coordinator.submit(uid, cls=cls, pool=pool)
+
+    def disconnect(self, uid: str) -> None:
+        self.coordinator.disconnect(uid)
+
+    def close(self) -> None:
+        self.coordinator.close_intake()
 
 
 class TraceDriver:
