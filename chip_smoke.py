@@ -80,9 +80,9 @@ Phases, one line of output each (or a few):
     member-epoch of retraining, peak device memory;
 14. al-loop-full: one AMG1608 user (1608 30-s clips on the card, 400
     annotated songs) through ``ALLoop`` with 5 GaussianNB + 5 SGD + 5 GBDT
-    + 5 vgg members for mc and qbdc (K=20), FULL_EPOCHS iterations of 100
-    retrain epochs: queried songs disjoint, the pool shrinking by q, finite
-    F1s, the state committed; the ``StepTimer`` medians and the busy share
+    + 5 vgg members for mc and qbdc (K=20), FULL_EPOCHS iterations of
+    FULL_RETRAIN_EPOCHS retrain epochs: queried songs disjoint, the pool
+    shrinking by q, finite F1s, the state committed; the ``StepTimer`` medians and the busy share
     of the traced FULL_PROFILED_MODE iteration; iteration 0 at a narrow
     CNN against the CPU;
 15. trunks: res, harm, se1d and musicnn at full width (``CNNConfig(arch=
@@ -205,7 +205,30 @@ Phases, one line of output each (or a few):
     and back (one ``drain``, an in-flight user's ``fence`` acked with its
     generation, its ``assign`` elsewhere, ``drain_done``), every user's
     metrics and state equal its sequential run's.  ``linear_mc``
-    launches are counted in every process (0).
+    launches are counted in every process (0);
+21. operator: the operator plane over phase 20's runs (the plane is on by
+    default).  (a) a thread reads (a)'s ``users/status/`` every
+    STATUS_POLL_S s: live snapshots of the coordinator, h0 and h1, each
+    clean under ``validate_status``, all three in one ``top`` frame, h1
+    STALE within STATUS_STALE_S s of its SIGKILL, ``top --once`` on the
+    directory; snapshots per host and the largest gap between them; (b)
+    (c) runs with ``--alert-sink jsonl:<path>``: every record parses, no
+    snapshot counts a sink failure; (c) ``fsck`` exits 0 over (a)'s and
+    (c)'s users directories (files by class, wall time), 1 on a copy with
+    a byte flipped in the journal's middle line and in a member ``.npz``
+    (both named), and after ``--repair`` the line is quarantined, the
+    member still reported and the journal valid; (d) ``report --validate
+    --out`` over (a)'s directory, ``soak gen`` with phase 19 (a)'s trace
+    parameters to its digest (``digest`` too), ``soak grade`` on phase 19
+    (a)'s run to ``grade_run``'s deterministic section;
+22. generic: phase 11's registry plus one frozen generic member of each
+    kind at F = 260 (knn fitted by ``train.pretrain`` on phase 12's
+    DEAM-scale rows; rf, gbc, svc and gpc from seeded synthetic fitted
+    state of GENERIC_SIZES, scikit-learn's), ``amg_test`` GENERIC_ARGS on
+    the card and on the CPU (run inside phase 11): the queried songs equal
+    every epoch, each generic member's probabilities unchanged by every
+    update, the workspaces' generic members the registry's; each kind's
+    host-clock ms of ``predict_proba`` and ``predict`` at the pool's size.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -226,6 +249,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import signal
 import tempfile
 import threading
 import time
@@ -241,17 +265,23 @@ from consensus_entropy_tpu_torch.al.linear_pool import LinearPoolScorer  # noqa:
 from consensus_entropy_tpu_torch.al import state as al_state  # noqa: E402
 from consensus_entropy_tpu_torch.al.loop import ALLoop, UserData  # noqa: E402
 from consensus_entropy_tpu_torch.cli import amg_test  # noqa: E402
+from consensus_entropy_tpu_torch.cli import fsck as fsck_cli  # noqa: E402
+from consensus_entropy_tpu_torch.cli import report as report_cli  # noqa: E402
+from consensus_entropy_tpu_torch.cli import soak as soak_cli  # noqa: E402
+from consensus_entropy_tpu_torch.cli import top as top_cli  # noqa: E402
 from consensus_entropy_tpu_torch.config import (  # noqa: E402
     FEATURE_SLICE_START,
     FEATURE_SLICE_STOP,
     ALConfig,
     CNNConfig,
+    PathsConfig,
     TrainConfig,
 )
 from consensus_entropy_tpu_torch.convert import (  # noqa: E402
     device_members_from_numpy,
     linear_members_from_jax,
 )
+from consensus_entropy_tpu_torch.data import amg  # noqa: E402
 from consensus_entropy_tpu_torch.data.audio import (  # noqa: E402
     DeviceWaveformStore,
 )
@@ -273,6 +303,10 @@ from consensus_entropy_tpu_torch.models.gbdt import (  # noqa: E402
     NativeGBDTMember,
     QuantileBinner,
 )
+from consensus_entropy_tpu_torch.models.generic_members import (  # noqa: E402
+    GENERIC_KINDS,
+    GenericMember,
+)
 from consensus_entropy_tpu_torch.models.members import (  # noqa: E402
     GNBMember,
     SGDMember,
@@ -291,6 +325,10 @@ from consensus_entropy_tpu_torch.obs.export import (  # noqa: E402
     validate_metrics_file,
 )
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer  # noqa: E402
+from consensus_entropy_tpu_torch.obs.status import (  # noqa: E402
+    read_status_dir,
+    validate_status,
+)
 from consensus_entropy_tpu_torch.obs.trace import Tracer  # noqa: E402
 from consensus_entropy_tpu_torch.parallel import (  # noqa: E402
     multihost,
@@ -320,7 +358,9 @@ from consensus_entropy_tpu_torch.workload import (  # noqa: E402
     generate,
     grade_run,
     percentile,
+    trace_digest,
 )
+from consensus_entropy_tpu_torch.train import pretrain  # noqa: E402
 from consensus_entropy_tpu_torch.ops.entropy import (  # noqa: E402
     shannon_entropy,
 )
@@ -381,8 +421,11 @@ CLI_ARGS = ["-q", "10", "-e", str(CLI_EPOCHS), "-m", "mc", "-n", "150",
             "--max-users", "2"]
 # Phase 11's CNN registry: 4-s clips in npy/ (AMG1608's are 30 s), two
 # GBDT and two vgg members at a narrow width, so the CPU run keeps up; two
-# iterations of two retrain epochs, one user.
+# iterations of two retrain epochs, one user; the CPU's reference run stops
+# after the iteration it is compared on (CLI_CNN_CPU_EPOCHS), for the time
+# limit.
 CLI_CLIP_SAMPLES, CLI_XGB, CLI_CNN_MEMBERS, CLI_CNN_EPOCHS = 4 * 16000, 2, 2, 2
+CLI_CNN_CPU_EPOCHS = 1
 CLI_CNN = {"n_channels": 8, "input_length": 32768}
 CLI_CNN_ARGS = ["-q", "10", "-e", str(CLI_CNN_EPOCHS), "-n", "150",
                 "--max-users", "1", "--retrain-epochs", "2"]
@@ -428,14 +471,15 @@ FIT_SONGS, FIT_TEST_SONGS, FIT_EPOCHS = 10, 60, 3
 # CNNs' short fit before the run, q=10 for FULL_EPOCHS[mode] iterations
 # (cut from the paper's 10 to keep the script inside its time limit, and
 # from 4 and 3 to pay for phase 15, then to 2 and 1 for phase 17, and to
-# 1 and 1 for phase 20; widths and the 100 retrain epochs are not cut),
+# 1 and 1 for phase 20; widths are not cut) of FULL_RETRAIN_EPOCHS retrain
+# epochs (the paper's 100, then 50, until phase 22 needed the time),
 # FULL_PROFILED_MODE's iteration FULL_PROFILED_EPOCH traced (its medians
 # then stand on that traced iteration, mc's on an untraced one); the
 # narrow CNN of the card-vs-CPU run, one iteration with its retrain
 # epochs cut (iteration 0's selection, which it checks, comes before any
 # retrain).
 FULL_SONGS, USER_SONGS, USER_FRAMES, FULL_MEMBERS = 1608, 400, 6, 5
-FULL_EPOCHS = {"mc": 1, "qbdc": 1}
+FULL_EPOCHS, FULL_RETRAIN_EPOCHS = {"mc": 1, "qbdc": 1}, 25
 FULL_PROFILED_MODE, FULL_PROFILED_EPOCH = "qbdc", 0
 PRE_FIT_SONGS, PRE_FIT_EPOCHS = 20, 2
 NARROW_CNN, NARROW_EPOCHS = {"n_channels": 16, "input_length": 32768}, 1
@@ -473,20 +517,23 @@ HARM_MEMBERS, HARM_HOP, HARM_EPOCHS, HARM_RETRAIN = 2, 59049, 1, 10
 # 100, and from 4 users and 2 mc iterations after the whole script's
 # phase 16 took 251.1 s on a card machine, for the time limit; then from
 # 3 users of 5 retrain epochs to 2 of 1, and (b) from 2 rounds to 1, to
-# pay for phase 20; widths are not cut); (d) the CLI's --fleet 2 for FLEET_CLI_EPOCHS
+# pay for phase 20; widths are not cut; (b) from 3 iterations to 2 for
+# phase 22); (d) the CLI's --fleet 2 for FLEET_CLI_EPOCHS
 # iterations (a prefix of phase 11's sequential run).
 FLEET_USERS, FLEET_REPS = 4, 20
-HOST_COHORT, FLEET_EPOCHS, FLEET_HOST_WORKERS, FLEET_ROUNDS = 8, 3, 4, 1
+HOST_COHORT, FLEET_EPOCHS, FLEET_HOST_WORKERS, FLEET_ROUNDS = 8, 2, 4, 1
 FULL_COHORT, FULL_FLEET_EPOCHS, FLEET_RETRAIN = 2, {"mc": 1, "qbdc": 1}, 1
 FLEET_FIT_USERS, FLEET_FIT_MEMBERS, FLEET_FIT_EPOCHS = 2, 2, 2
 FLEET_CLI_EPOCHS = 3
 # Phase 17: DEAM pre-training at the dataset's scale (DEAM_SONGS songs of
 # DEAM_FRAMES frames, DEAM_CLIP_S-s clips at 16 kHz on the card): PRE_CV
-# folds of gnb and sgd, one 100-round xgb fold, one vgg fold of
+# folds of gnb and sgd, one PRE_XGB_ROUNDS-round xgb fold, one vgg fold of
 # PRE_CNN_EPOCHS epochs at full width; the registry through amg_test
 # (PIPELINE_ARGS) on phase 11's tree; the evidence sweep (GaussianNB
-# committees; mc, hc, mix, rand) on the card and the CPU.
+# committees; mc, hc, mix, rand) on the card and the CPU.  Phases 17 and
+# 22 run beside phase 11, each in a process of its own (``--beside``).
 DEAM_CLIP_S, PRE_CV, PRE_CNN_EPOCHS = 45, 2, 1  # 5 and 2 before phase 20
+PRE_XGB_ROUNDS = 25
 # the SGD core against its Python plain version in (b): one one-vs-all
 # problem over every DEAM frame, with the fit's stopping rule tracked
 SGD_CHECK_EPOCHS = 2
@@ -530,6 +577,45 @@ FABRIC_ARGS = ["-q", "10", "-e", "1", "-n", "150", "--max-users",
 FABRIC_C_USERS, FABRIC_SCALE_DOWN_S = 10, 0.5
 FABRIC_C_ARGS = ["-q", "10", "-e", "4", "-n", "150", "--max-users",
                  str(FABRIC_C_USERS)]
+# Phase 21: the operator plane over runs of phases 19 and 20.  (a) a thread
+# reads phase 20 (a)'s status directory every STATUS_POLL_S s and renders
+# top's frame with --stale-s STATUS_STALE_S (a snapshot is stale after 3 of
+# its writer's 1 s intervals, so the killed h1's shows STALE within it).
+STATUS_POLL_S, STATUS_STALE_S = 0.5, 5.0
+# (b) phase 20 (c) runs with --alert-sink jsonl:<path> and a batch aging
+# bound of FABRIC_C_AGING_S s, which its queued users pass (every user is
+# batch, so aging reorders none): each worker raises batch_aging alerts
+FABRIC_C_AGING_S = 1.0
+# Phase 22: the generic members at full width (F = 260, C = 4).  The
+# committee is phase 11's REG_MEMBERS GaussianNB + REG_MEMBERS SGD registry
+# plus one member of each generic kind: knn fitted by the port's pretrain
+# on phase 12's DEAM-scale rows (one fold of 80% of the songs), rf, gbc,
+# svc and gpc built from seeded synthetic fitted state of scikit-learn's
+# sizes on those rows (``python -m tests.torch_generic_sizes``, scikit-learn
+# 1.9.0 on a CPU: GENERIC_SIZES), svc and gpc cut to GENERIC_CUT_ROWS
+# training rows (gpc is cubic in its rows).  amg_test GENERIC_ARGS on phase
+# 11's tree, card and CPU.
+GENERIC_ARGS = ["-q", "10", "-e", "2", "-n", "150", "--max-users", "2",
+                "-m", "mc"]
+GENERIC_CUT_ROWS, GENERIC_SAMPLE_ROWS, GPC_NEWTON = 2000, 64, 10
+# rf: nodes per tree (min, median, max; every synthetic tree takes the
+# median), fitted on all 108,120 rows; gbc on the first 20,000 (its
+# depth-2 trees hold 7 nodes whatever the rows); svc and gpc on the
+# first GENERIC_CUT_ROWS, gpc's constants at their lower bound.
+GENERIC_SIZES = {
+    "rf": {"trees": 100, "nodes": (8871, 10076, 11157)},
+    "gbc": {"stages": 100, "nodes": 7, "learning_rate": 0.1},
+    "svc": {"n_support": (244, 230, 267, 241),
+            "gamma": 0.00308341044745519,
+            "prob_a": (-6.154111882547254, -6.1950351494751645,
+                       -6.145894949625295, -6.1008568607709615,
+                       -6.104619146395228, -6.1586379756108585),
+            "prob_b": (0.020345677764727264, -0.0028391717078976014,
+                       -0.0032707096967393174, -0.002426405754358345,
+                       -0.007208612987997491, -0.007158267890744414)},
+    "gpc": {"constant": (9.999999999999997e-06,) * 4,
+            "length_scale": (1.0,) * 4},
+}
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -598,7 +684,7 @@ def check_selection(got, ref, ent_got, ent_ref, what):
     return int(differ.sum())
 
 
-def phase_device():
+def phase_device(quiet=False):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -607,10 +693,11 @@ def phase_device():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}, "
-          f"{torch.cuda.device_count()} device(s)")
-    print(card)
+    if not quiet:
+        print(f"[device] torch {torch.__version__}, CUDA "
+              f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+              f"{torch.cuda.device_count()} device(s)")
+        print(card)
     return card
 
 
@@ -1444,6 +1531,13 @@ def write_registry(models_root, seed=SEED + 7):
         m.save(os.path.join(pre, Committee.member_file(m)))
 
 
+def with_epochs(args, epochs):
+    """``args`` with its ``-e`` value set to ``epochs``."""
+    out = list(args)
+    out[out.index("-e") + 1] = str(epochs)
+    return out
+
+
 def run_cli(args):
     """``amg_test.main`` in this process, its chatter kept off stdout."""
     out = io.StringIO()
@@ -1463,6 +1557,50 @@ def users_metrics(models_root):
             if os.path.isdir(os.path.join(users, u))}
 
 
+class CliProcess:
+    """A command started now, its output and errors into ``log``;
+    ``finish`` waits and returns ``(exit code, log text)``, ``stop`` kills
+    it if it still runs."""
+
+    def __init__(self, cmd, cwd, env, log):
+        self.log = log
+        with open(log, "w") as f:
+            self.proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=f,
+                                         stderr=subprocess.STDOUT)
+
+    def finish(self, timeout):
+        try:
+            rc = self.proc.wait(timeout)
+        finally:
+            self.stop()
+        with open(self.log, errors="replace") as f:
+            return rc, f.read()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def phase_al_cli_compare(got, ref):
+    """The CLI's card and CPU runs: the same two users, the same queried
+    songs and F1s every epoch, the state at CLI_EPOCHS."""
+    if sorted(got) != sorted(ref) or len(got) != 2:
+        raise AssertionError(f"al-cli: users {sorted(got)} vs "
+                             f"{sorted(ref)}")
+    for u in got:
+        (m, st), (rm, rst) = got[u], ref[u]
+        for e in range(-1, CLI_EPOCHS):
+            # host members score and evaluate alike on both devices; the
+            # selection's consensus entropy is the card's or the CPU's
+            if (m[e].get("queried") != rm[e].get("queried")
+                    or m[e]["f1"] != rm[e]["f1"]):
+                raise AssertionError(f"al-cli user {u} epoch {e}: card "
+                                     "and CPU runs differ")
+        if st.next_epoch != CLI_EPOCHS:
+            raise AssertionError(f"al-cli user {u}: {st.next_epoch}")
+
+
 def phase_al_cli(card):
     """The CLI on the card and on the CPU, then the kill/resume drill."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1476,56 +1614,52 @@ def phase_al_cli(card):
         for d in ("cpu", "killed"):
             shutil.copytree(os.path.join(roots["cuda"], "pretrained"),
                             os.path.join(roots[d], "pretrained"))
-        walls = {}
-        for d in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            run_cli(CLI_ARGS + ["--models-root", roots[d], "--amg-root",
-                                amg_root, "--device", d])
-            walls[d] = time.perf_counter() - t0
-        got, ref = users_metrics(roots["cuda"]), users_metrics(roots["cpu"])
-        if sorted(got) != sorted(ref) or len(got) != 2:
-            raise AssertionError(f"al-cli: users {sorted(got)} vs "
-                                 f"{sorted(ref)}")
-        for u in got:
-            (m, st), (rm, rst) = got[u], ref[u]
-            for e in range(-1, CLI_EPOCHS):
-                # host members score and evaluate alike on both devices; the
-                # selection's consensus entropy is the card's or the CPU's
-                if (m[e].get("queried") != rm[e].get("queried")
-                        or m[e]["f1"] != rm[e]["f1"]):
-                    raise AssertionError(f"al-cli user {u} epoch {e}: card "
-                                         "and CPU runs differ")
-            if st.next_epoch != CLI_EPOCHS:
-                raise AssertionError(f"al-cli user {u}: {st.next_epoch}")
+        # the kill drill's subprocesses run beside the runs in this process
         base = CLI_ARGS + ["--models-root", roots["killed"], "--amg-root",
                            amg_root, "--device", "cuda"]
         cmd = [sys.executable, "-m", "consensus_entropy_tpu_torch.cli.amg_test"]
         env = dict(os.environ, PYTHONPATH=here,
                    CETPU_FAULTS="state.save:kill@2")
-        killed = subprocess.run(cmd + base, cwd=here, env=env, timeout=600,
-                                capture_output=True, text=True)
-        if killed.returncode == 0 or "injected kill" not in killed.stderr:
-            raise AssertionError(f"al-cli: the kill drill did not kill "
-                                 f"(exit {killed.returncode}):\n"
-                                 f"{killed.stderr[-2000:]}")
-        env.pop("CETPU_FAULTS")
-        rerun = subprocess.run(cmd + base, cwd=here, env=env, timeout=600,
-                               capture_output=True, text=True)
-        if rerun.returncode != 0:
-            raise AssertionError(f"al-cli: the rerun exited "
-                                 f"{rerun.returncode}:\n{rerun.stderr[-2000:]}")
+        drill = CliProcess(cmd + base, here, env,
+                           os.path.join(root, "killed.log"))
+        try:
+            walls = {}
+            for d in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                run_cli(CLI_ARGS + ["--models-root", roots[d], "--amg-root",
+                                    amg_root, "--device", d])
+                walls[d] = time.perf_counter() - t0
+            rc, log = drill.finish(600)
+            if rc == 0 or "injected kill" not in log:
+                raise AssertionError(f"al-cli: the kill drill did not kill "
+                                     f"(exit {rc}):\n{log[-2000:]}")
+            env.pop("CETPU_FAULTS")
+            drill = CliProcess(cmd + base, here, env,
+                               os.path.join(root, "rerun.log"))
+            got, ref = (users_metrics(roots["cuda"]),
+                        users_metrics(roots["cpu"]))
+            phase_al_cli_compare(got, ref)
+            fleet_cli = fleet_cli_runs(root, amg_root, roots["cuda"],
+                                       {"cuda": got, "cpu": ref})
+            rc, log = drill.finish(600)
+            if rc != 0:
+                raise AssertionError(f"al-cli: the rerun exited {rc}:\n"
+                                     f"{log[-2000:]}")
+        finally:
+            drill.stop()
         resumed = users_metrics(roots["killed"])
         for u in got:
             (m, st), (rm, rst) = got[u], resumed[u]
             if m != rm or st != rst:
                 raise AssertionError(f"al-cli user {u}: the resumed run's "
                                      "metrics or state differ")
-        fleet_cli = fleet_cli_runs(root, amg_root, roots["cuda"],
-                                   {"cuda": got, "cpu": ref})
         cnn = phase_al_cli_cnn(card, root, amg_root, roots["cuda"])
-        mesh_cli = mesh_cli_runs(root, amg_root, cnn)
-        serve_cli = serve_cli_runs(root, amg_root, cnn)
-        fabric_cli = fabric_cli_runs(root, amg_root, cnn, roots["cuda"])
+        # phase 18 (d)'s and 19 (c)'s runs in this process while phase 20's
+        # fabric runs (b) and (c) wait on their processes
+        fabric_cli, (mesh_cli, serve_cli) = fabric_cli_runs(
+            root, amg_root, cnn, roots["cuda"],
+            lambda: (mesh_cli_runs(root, amg_root, cnn),
+                     serve_cli_runs(root, amg_root, cnn)))
     print(f"[al-cli] {card}: amg_test {' '.join(CLI_ARGS)} on an "
           f"AMG1608-shaped tree ({AMG_SONGS} songs, {F} feature columns, "
           f"written in {tree_s:.1f} s), {REG_MEMBERS} GaussianNB + "
@@ -1975,7 +2109,7 @@ def phase_al_loop_full(card, user):
                               if mode == FULL_PROFILED_MODE else None)
             path = os.path.join(root, mode)
             picks, res = run_al_user(mode, committee, data, path, "cuda",
-                                       epochs, timer)
+                                       epochs, timer, FULL_RETRAIN_EPOCHS)
             if linear_mc.launches:
                 raise AssertionError(f"al-loop-full {mode}: linear_mc "
                                      "launched on a path without it")
@@ -2035,7 +2169,7 @@ def phase_al_loop_full(card, user):
           f"clips x {CLIP_SAMPLES} samples on the card "
           f"({FULL_SONGS * CLIP_SAMPLES * 4 / 1e9:.2f} GB, {store_s:.1f} s);"
           f" one user with {USER_SONGS} songs x {USER_FRAMES} frames, q={Q},"
-          f" {TrainConfig().n_epochs_retrain} retrain epochs an iteration, "
+          f" {FULL_RETRAIN_EPOCHS} retrain epochs an iteration, "
           f"iterations {FULL_EPOCHS} (qbdc K={QBDC_K}): queried songs "
           f"disjoint, pool shrinking by q, F1s finite, each state at "
           f"next_epoch = its iterations; kernel launches 0")
@@ -2111,22 +2245,23 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
     for run, (arch, extra) in runs.items():
         mode = run.split("-")[0]
         picks = {}
-        for d in ("cuda", "cpu"):
+        for d, epochs in (("cuda", CLI_CNN_EPOCHS),
+                          ("cpu", CLI_CNN_CPU_EPOCHS)):
             models = os.path.join(root, f"models_cnn_{run}_{d}")
             shutil.copytree(os.path.join(bases[arch], "pretrained"),
                             os.path.join(models, "pretrained"))
             linear_mc.launches = 0
             t0 = time.perf_counter()
             with recorded_scoring() as picks[d]:
-                run_cli(CLI_CNN_ARGS + ["-m", mode, "--models-root", models,
-                                        "--amg-root", amg_root, "--device",
-                                        d, "--cnn-config-json",
-                                        json.dumps(CLI_CNN)] + extra)
+                run_cli(with_epochs(CLI_CNN_ARGS, epochs) + [
+                    "-m", mode, "--models-root", models, "--amg-root",
+                    amg_root, "--device", d, "--cnn-config-json",
+                    json.dumps(CLI_CNN)] + extra)
             walls[f"{run} {d}"] = time.perf_counter() - t0
             if linear_mc.launches:
                 raise AssertionError(f"al-cli {run} {d}: linear_mc launched "
                                      "on a path without it")
-            if len(picks[d]) != CLI_CNN_EPOCHS:
+            if len(picks[d]) != epochs:
                 raise AssertionError(f"al-cli {run} {d}: "
                                      f"{len(picks[d])} selects")
             users = os.path.join(models, "users")
@@ -2134,8 +2269,8 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
             path = paths[(run, d)] = os.path.join(users, uid, mode)
             recs = read_metrics(path)
             st = al_state.ALState.load(path)
-            if (sorted(recs) != list(range(-1, CLI_CNN_EPOCHS))
-                    or st.next_epoch != CLI_CNN_EPOCHS
+            if (sorted(recs) != list(range(-1, epochs))
+                    or st.next_epoch != epochs
                     or not os.path.exists(os.path.join(path, "DONE"))):
                 raise AssertionError(f"al-cli {run} {d}: epochs "
                                      f"{sorted(recs)}, state {st.next_epoch}")
@@ -2157,7 +2292,8 @@ def phase_al_cli_cnn(card, root, amg_root, host_models):
             f"al-cli {run} iteration 0, card vs CPU", **CNN_TOL)
     n_windows = ((CLI_CLIP_SAMPLES - CLI_CNN["input_length"])
                  // CLI_FULL_SONG["hop"] + 1)
-    print(f"[al-cli] {card}: amg_test {' '.join(CLI_CNN_ARGS)} -m mc|qbdc "
+    print(f"[al-cli] {card}: amg_test {' '.join(CLI_CNN_ARGS)} (on the "
+          f"CPU -e {CLI_CNN_CPU_EPOCHS}) -m mc|qbdc "
           f"with {CLI_XGB} GBDT and {CLI_CNN_MEMBERS} vgg members ("
           f"{CLI_CNN}) added to the registry, and -m mc with "
           f"{CLI_FULL_SONG['arch']} members and --full-song-hop "
@@ -3055,6 +3191,19 @@ def run_pretrain_cli(args):
     return out.getvalue()
 
 
+@contextlib.contextmanager
+def xgb_rounds(n):
+    """The boosted member's ``n_estimators`` default set to ``n`` while the
+    block runs (the pre-trainer builds it with its defaults)."""
+    defaults = NativeGBDTMember.__init__.__kwdefaults__
+    before = defaults["n_estimators"]
+    defaults["n_estimators"] = n
+    try:
+        yield
+    finally:
+        defaults["n_estimators"] = before
+
+
 def last_pretrain_record(pre):
     with open(os.path.join(pre, "pretrain_metrics.jsonl")) as f:
         return json.loads(f.readlines()[-1])
@@ -3309,7 +3458,8 @@ def phase_pretrain(card):
             if rec["model"] != model or len(rec["fold_f1"]) != cv:
                 raise AssertionError(f"pretrain {model}: {rec}")
         saved = []
-        with captured(NativeGBDTMember, "save", saved):
+        with captured(NativeGBDTMember, "save", saved), \
+                xgb_rounds(PRE_XGB_ROUNDS):
             t0 = time.perf_counter()
             run_pretrain_cli(["-cv", "1", "-m", "xgb"] + flags
                              + ["--device", "cuda"])
@@ -3319,10 +3469,11 @@ def phase_pretrain(card):
         reloaded = NativeGBDTMember.load(
             os.path.join(pre, "classifier_xgb.it_0.npz"))
         probe = X[:: max(1, len(X) // 20000)]
-        if member.model.n_trees != 100 * C or not np.array_equal(
+        if member.model.n_trees != PRE_XGB_ROUNDS * C or not np.array_equal(
                 reloaded.predict_proba(probe), member.predict_proba(probe)):
-            raise AssertionError("pretrain xgb: the reloaded member's "
-                                 "probabilities differ, or not 100 rounds")
+            raise AssertionError(f"pretrain xgb: the reloaded member's "
+                                 f"probabilities differ, or not "
+                                 f"{PRE_XGB_ROUNDS} rounds")
         del saved, member, reloaded, X, y
         # (d) one CNN fold at full vgg width, then resume
         cnn = pretrain_cnn_fold(deam_root, models,
@@ -3362,7 +3513,8 @@ def phase_pretrain(card):
           f"{walls['sgd']:.1f} s; the SGD core on one one-vs-all problem "
           f"over all {n_rows} frames, {SGD_CHECK_EPOCHS} epochs, "
           f"bit-equal to its plain version: core {sgd_secs['core']:.3f} s, "
-          f"plain {sgd_secs['plain']:.3f} s; -cv 1 xgb (100 rounds x {C} "
+          f"plain {sgd_secs['plain']:.3f} s; -cv 1 xgb ({PRE_XGB_ROUNDS} "
+          f"rounds x {C} "
           f"classes) "
           f"{walls['xgb']:.1f} s, fold F1 {xgb_rec['fold_f1'][0]}, the "
           f"reloaded member's probabilities bit-equal")
@@ -3795,6 +3947,10 @@ def phase_serve(card, serve_cli):
         if launches:
             raise AssertionError(f"serve: {launches} linear_mc launches")
         grade, spans = serve_run_check(run, trace, seq_paths, "serve (a)")
+        # phase 21 (d): soak gen / digest / grade against this run
+        before = linear_mc.launches
+        soak = soak_checks(root, trace, run, grade)
+        soak["launches"] = linear_mc.launches - before
         s = run["summary"]
         widths = sorted(s.get("per_bucket") or {})
         if len(widths) < 2 or s.get("dispatch_failures"):
@@ -3885,7 +4041,7 @@ def phase_serve(card, serve_cli):
           f"orphans; torch.profiler trace of the first "
           f"{SERVE_PROFILE_N} dispatches with {serve_cli['kernels']} CUDA "
           f"kernel events; {serve_cli['wall_s']:.1f} s")
-    return {"launches": launches}
+    return {"launches": launches, "soak": soak}
 
 
 def serve_cli_runs(root, amg_root, cnn):
@@ -3917,7 +4073,7 @@ def serve_cli_runs(root, amg_root, cnn):
         users = os.path.join(models, "users")
         runs[name] = {u: read_metrics(os.path.join(users, u, "mc"))
                       for u in sorted(os.listdir(users))
-                      if os.path.isdir(os.path.join(users, u))}
+                      if os.path.isdir(os.path.join(users, u, "mc"))}
     if "serve summary: " not in text or len(runs["serve"]) != 2 \
             or sorted(runs["serve"]) != sorted(runs["seq"]):
         raise AssertionError(f"serve-cli: users {sorted(runs['serve'])}:\n"
@@ -4210,13 +4366,56 @@ def _fabric_check(watch, users, what, orphans_ok=False):
     return len(spans), orphans
 
 
-def fabric_cli_runs(root, amg_root, cnn, host_models):
+class Job:
+    """``fn()`` on a thread of its own; ``result`` waits for it and returns
+    what it returned or raises what it raised."""
+
+    def __init__(self, fn):
+        self.out = self.error = None
+        self.thread = threading.Thread(target=self._run, args=(fn,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            self.out = fn()
+        except BaseException as e:  # re-raised by result()
+            self.error = e
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
+def kill_h1_mid_run(kill):
+    """The drills' ``on_poll``: SIGKILL h1 once it holds one finished and
+    one in-flight user, noting when, its pid and the users it held in
+    ``kill``."""
+
+    def on_poll(watch):
+        if kill:
+            return
+        on_h1 = {u: e for u, (e, h) in watch.last().items() if h == "h1"}
+        if "finish" in on_h1.values() and "admit" in on_h1.values():
+            pid = watch.lease_pid("h1")
+            os.kill(pid, 9)
+            kill.update(t=time.time(), pid=pid,
+                        moved=[u for u, e in on_h1.items() if e == "admit"])
+
+    return on_poll
+
+
+def fabric_cli_runs(root, amg_root, cnn, host_models, meanwhile):
     """Phase 20, on phase 11's tree (run inside phase 11): ``amg_test
     --serve 1 --hosts 2`` as a subprocess on the card, (a) a worker
     SIGKILLed mid-run, (b) the coordinator killed and restarted, (c) the
-    elastic fleet's scale-up and fenced scale-down."""
+    elastic fleet's scale-up and fenced scale-down.  The runs are waited
+    on from threads: (a) beside the sequential references in this
+    process, (b) and (c) beside ``meanwhile()``.  Returns phase 20's
+    results and what ``meanwhile()`` returned."""
     t_all = time.perf_counter()
-    parent_launches = linear_mc.launches
     launch_log = os.path.join(root, "fabric_launches.log")
     open(launch_log, "w").close()
     os.makedirs(os.path.join(root, "launch_hook"))
@@ -4236,36 +4435,47 @@ def fabric_cli_runs(root, amg_root, cnn, host_models):
         return args + ["-m", "mc", "--models-root", models, "--amg-root",
                        tree, "--device", FABRIC_DEVICE]
 
-    # the sequential references, in this process on the card
-    seq = models_for("seq", cnn["bases"]["vgg"])
-    t0 = time.perf_counter()
-    run_cli(flags(seq, amg_root, FABRIC_ARGS) + cnn_flags)
-    seq_wall = time.perf_counter() - t0
+    fabric_args = FABRIC_ARGS + ["--serve", "1", "--hosts", "2",
+                                 "--placement", "load"]
+
+    # (a) h1 SIGKILLed once it holds one finished and one in-flight user;
+    # phase 21 (a): the operator's view of the same run
+    kill = {}
+    a_models = models_for("a", cnn["bases"]["vgg"])
+    a = FabricWatch(os.path.join(a_models, "users"))
+    poll = StatusPoll(a.users_dir).start()
+
+    def run_a():
+        try:
+            return a.run(cmd + flags(a_models, amg_root, fabric_args)
+                         + cnn_flags, fabric_env(root, launch_log),
+                         kill_h1_mid_run(kill))
+        finally:
+            poll.stop(not_before=kill.get("t", 0) + STATUS_STALE_S + 1)
+
+    a_job = Job(run_a)
+    try:
+        # the sequential references, in this process on the card; their
+        # launches are this process's share of phase 20's
+        inproc = linear_mc.launches
+        seq = models_for("seq", cnn["bases"]["vgg"])
+        t0 = time.perf_counter()
+        run_cli(flags(seq, amg_root, FABRIC_ARGS) + cnn_flags)
+        seq_wall = time.perf_counter() - t0
+        # (c)'s tree and sequential runs
+        c_tree = write_amg_tree(os.path.join(root, "fabric_c"),
+                                users=FABRIC_C_USERS,
+                                feats_from=os.path.join(amg_root, "feats"))
+        c_seq = models_for("c_seq", host_models)
+        run_cli(flags(c_seq, c_tree, FABRIC_C_ARGS))
+        inproc = linear_mc.launches - inproc
+    finally:
+        a_job.thread.join()
+    rc, out, a_wall = a_job.result()
     seq_paths = _users_runs(seq)
     users = sorted(seq_paths)
     if len(users) != FABRIC_USERS:
         raise AssertionError(f"fabric: sequential users {users}")
-    fabric_args = FABRIC_ARGS + ["--serve", "1", "--hosts", "2",
-                                 "--placement", "load"]
-
-    # (a) h1 SIGKILLed once it holds one finished and one in-flight user
-    kill = {}
-
-    def kill_h1(watch):
-        if kill:
-            return
-        on_h1 = {u: e for u, (e, h) in watch.last().items() if h == "h1"}
-        if "finish" in on_h1.values() and "admit" in on_h1.values():
-            pid = watch.lease_pid("h1")
-            os.kill(pid, 9)
-            kill.update(t=time.time(), pid=pid,
-                        moved=[u for u, e in on_h1.items() if e == "admit"])
-
-    a_models = models_for("a", cnn["bases"]["vgg"])
-    a = FabricWatch(os.path.join(a_models, "users"))
-    rc, out, a_wall = a.run(cmd + flags(a_models, amg_root, fabric_args)
-                            + cnn_flags, fabric_env(root, launch_log),
-                            kill_h1)
     if rc != 0 or "fabric summary: " not in out or not kill:
         raise AssertionError(f"fabric (a): exit {rc}, kill {kill}:\n"
                              f"{out[-3000:]}")
@@ -4282,41 +4492,24 @@ def fabric_cli_runs(root, amg_root, cnn, host_models):
     a_stats, a_kill = a.host_stats(), dict(kill)
     a_mem = (None if a.used_peak is None or a.used_before is None
              else a.used_peak - a.used_before)
+    status = status_check(poll, a_kill["t"], a.users_dir)
 
-    # (c)'s tree and sequential runs here; its fabric then runs on a
-    # thread beside (b): its host-member processes use little of the card,
-    # and (b) times nothing
-    c_tree = write_amg_tree(os.path.join(root, "fabric_c"),
-                            users=FABRIC_C_USERS,
-                            feats_from=os.path.join(amg_root, "feats"))
-    c_seq = models_for("c_seq", host_models)
-    run_cli(flags(c_seq, c_tree, FABRIC_C_ARGS))
+    # (b) the same run killed at the failover's fabric.assign, restarted;
+    # (c) beside it: its host-member processes use little of the card, and
+    # (b) times nothing
     c_models = models_for("c", host_models)
-    c_res = {}
-
-    def run_c():
-        try:
-            c_res.update(fabric_elastic_run(
-                cmd + flags(c_models, c_tree, FABRIC_C_ARGS),
-                _users_runs(c_seq), c_models, launch_log, root))
-        except BaseException as e:  # re-raised on the main thread
-            c_res["error"] = e
-
-    # (b) the same run killed at the failover's fabric.assign, restarted
     b_models = models_for("b", cnn["bases"]["vgg"])
 
-    c_thread = threading.Thread(target=run_c, name="fabric-c")
-    c_thread.start()
-    try:
+    def run_b():
         b = FabricWatch(os.path.join(b_models, "users"))
-        kill.clear()
+        kill_b = {}
         rc, out, _ = b.run(cmd + flags(b_models, amg_root, fabric_args)
                            + cnn_flags, fabric_env(
                                root, launch_log,
                                f"fabric.assign:kill@{FABRIC_USERS + 1}"),
-                           kill_h1)
-        if rc == 0 or "injected kill" not in out or not kill:
-            raise AssertionError(f"fabric (b): exit {rc}, kill {kill}:\n"
+                           kill_h1_mid_run(kill_b))
+        if rc == 0 or "injected kill" not in out or not kill_b:
+            raise AssertionError(f"fabric (b): exit {rc}, kill {kill_b}:\n"
                                  f"{out[-3000:]}")
         done_before = sorted(u for u, (e, _) in b.last().items()
                              if e == "finish")
@@ -4334,26 +4527,39 @@ def fabric_cli_runs(root, amg_root, cnn, host_models):
             raise AssertionError("fabric (b): a worker of the killed run "
                                  "outlived the restart")
         _fabric_check(b, users, "fabric (b)")
-        b_paths = _users_runs(b_models)
-        f1_b = _queried_match(b_paths, a_paths, "fabric (b)")
         skipped = sum(1 for e in read_jsonl_tolerant(os.path.join(
             b.users_dir, "fleet_metrics.jsonl"))
             if e.get("event") == "skip_done")
+        return {"b_done_before": done_before, "b_orphans": orphans,
+                "b_skipped": skipped, "f1_b": _queried_match(
+                    _users_runs(b_models), a_paths, "fabric (b)")}
+
+    jobs = [Job(run_b), Job(lambda: fabric_elastic_run(
+        cmd + flags(c_models, c_tree, FABRIC_C_ARGS), _users_runs(c_seq),
+        c_models, launch_log, root))]
+    try:
+        side = meanwhile()
     finally:
-        c_thread.join()
-    if "error" in c_res:
-        raise c_res["error"]
+        for job in jobs:
+            job.thread.join()
+    b_res, c_res = (job.result() for job in jobs)
+    # phase 21 (c), (d): fsck and report over the runs' directories
+    before = linear_mc.launches
+    fsck = fsck_checks(root, a.users_dir, os.path.join(c_models, "users"))
+    report = report_check(root, a.users_dir)
+    ops_launches = linear_mc.launches - before
     with open(launch_log) as f:
-        launches = sum(1 for _ in f) + linear_mc.launches - parent_launches
+        launches = sum(1 for _ in f) + inproc
     return {
         "wall_s": time.perf_counter() - t_all, "seq_wall": seq_wall,
-        "a_wall": a_wall, "a_stats": a_stats, "f1_a": f1_a, "f1_b": f1_b,
+        "a_wall": a_wall, "a_stats": a_stats, "f1_a": f1_a,
         "moved_users": a_kill["moved"], "a_mem": a_mem,
         "kill_to_revoke_s": revoke[0]["t"] - a_kill["t"],
         "revoke_to_readmit_s": readmit[0]["t"] - revoke[0]["t"],
         "moved": len(a_kill["moved"]), "spans": n_spans,
-        "b_done_before": done_before, "b_orphans": orphans,
-        "b_skipped": skipped, "launches": launches, **c_res}
+        "launches": launches, "status": status,
+        "fsck": fsck, "report": report, "ops_launches": ops_launches,
+        **b_res, **c_res}, side
 
 
 def fabric_elastic_run(cmd, c_seq_paths, c_models, launch_log, root):
@@ -4363,10 +4569,12 @@ def fabric_elastic_run(cmd, c_seq_paths, c_models, launch_log, root):
     sequential CLI run (``c_seq_paths``)."""
     c_users = sorted(c_seq_paths)
     c = FabricWatch(os.path.join(c_models, "users"))
+    sink = os.path.join(root, "fabric_c_alerts.jsonl")
     rc, out, c_wall = c.run(cmd + [
         "--serve", "1", "--hosts", "1", "--min-hosts", "1", "--max-hosts",
-        "2", "--scale-down-s", str(FABRIC_SCALE_DOWN_S)],
-        fabric_env(root, launch_log))
+        "2", "--scale-down-s", str(FABRIC_SCALE_DOWN_S),
+        "--alert-sink", f"jsonl:{sink}", "--priority-aging-s",
+        str(FABRIC_C_AGING_S)], fabric_env(root, launch_log))
     if rc != 0 or "fabric summary: " not in out:
         raise AssertionError(f"fabric (c): exit {rc}:\n{out[-3000:]}")
     _, c_orphans = _fabric_check(c, c_users, "fabric (c)",
@@ -4396,10 +4604,27 @@ def fabric_elastic_run(cmd, c_seq_paths, c_models, launch_log, root):
     if not moved or not moved[0] < done[0]:
         raise AssertionError(f"fabric (c): fence {fence}, then "
                              f"{_timeline(c)}")
+    # phase 21 (b): every alert record parses, no sink failed
+    recs = []
+    if os.path.exists(sink):
+        with open(sink) as f:
+            recs = [json.loads(line) for line in f]
+    snaps = read_status_dir(os.path.join(c.users_dir, "status"))
+    errors = {h: s.get("alert_sink_errors") for h, s in snaps.items()}
+    if "coordinator" not in snaps or set(errors.values()) != {0} \
+            or not recs \
+            or any(not isinstance(r.get("kind"), str) for r in recs):
+        raise AssertionError(f"fabric (c) alert sink: {len(recs)} records, "
+                             f"sink errors {errors}")
+    kinds = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
     return {"c_users": len(c_users), "c_wall": c_wall,
             "c_stats": c.host_stats(), "c_victim": victim,
             "c_fence": {"user": fence["user"], "gen": fence["gen"]},
-            "c_orphans": c_orphans}
+            "c_orphans": c_orphans,
+            "alerts": {"records": len(recs), "kinds": kinds,
+                       "snapshots": sorted(errors)}}
 
 
 def phase_fabric(card, fab, serve_cli):
@@ -4464,15 +4689,620 @@ def phase_fabric(card, fab, serve_cli):
           f"{fab['wall_s']:.1f} s")
 
 
+# -- slice 12: the operator plane and the generic members -------------------
+
+
+class StatusPoll:
+    """Phase 21 (a): a thread reading a run's status directory every
+    STATUS_POLL_S s, as an operator's ``top`` would: per host the distinct
+    snapshot times seen and their validation, the frame ``top --once``
+    prints at each read (``--stale-s STATUS_STALE_S``), and the wall time
+    each host's frame first showed STALE."""
+
+    def __init__(self, users_dir):
+        self.dir = os.path.join(users_dir, "status")
+        self.times = {}      # host -> distinct snapshot t, in order
+        self.invalid = []    # (host, errors)
+        self.stale = {}      # host -> [wall times its frame showed STALE]
+        self.all_three = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="status-poll", daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self, not_before=None):
+        """Stop reading (not before wall time ``not_before``)."""
+        if not_before is not None:
+            time.sleep(max(0.0, not_before - time.time()))
+        self._stop.set()
+        self._thread.join()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            self.poll()
+            self._stop.wait(STATUS_POLL_S)
+
+    def poll(self):
+        now = time.time()
+        snaps = read_status_dir(self.dir)
+        for host, snap in snaps.items():
+            seen = self.times.setdefault(host, [])
+            if not seen or seen[-1] != snap.get("t"):
+                seen.append(snap.get("t"))
+                errors = validate_status(snap)
+                if errors:
+                    self.invalid.append((host, errors))
+        frame = top_cli.render(snaps, now=now, stale_s=STATUS_STALE_S)
+        heads = {}
+        for line in frame.splitlines():
+            m = re.match(r"(?:\x1b\[2m)?\[([^\]]+)\]", line)
+            if m:
+                heads[m.group(1)] = line
+        if {"coordinator", "h0", "h1"} <= set(heads):
+            self.all_three = True
+        for host, line in heads.items():
+            if "STALE" in line:
+                self.stale.setdefault(host, []).append(now)
+
+    def largest_gap(self, host):
+        ts = [t for t in self.times.get(host, ()) if t is not None]
+        return max((b - a for a, b in zip(ts, ts[1:])), default=None)
+
+
+def _captured(main, argv):
+    """``main(argv)`` of a CLI in this process: (exit code, stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def fsck_checks(root, a_users, c_users):
+    """Phase 21 (c): fsck over phase 20 (a)'s and (c)'s users directories
+    (exit 0), then over a copy of (a)'s with a byte flipped in the
+    journal's middle line and in a member ``.npz``: exit 1 naming both;
+    ``--repair`` quarantines the line, the member stays reported (exit 1),
+    the repaired journal validates."""
+    from consensus_entropy_tpu_torch.resilience import io as dio
+    from consensus_entropy_tpu_torch.serve import validate_journal_file
+
+    out = {}
+    for name, users in (("a", a_users), ("c", c_users)):
+        t0 = time.perf_counter()
+        rc, text = _captured(fsck_cli.main, [users])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"fsck ({name}): exit {rc}:\n"
+                                 f"{text[-3000:]}")
+        rep = fsck_cli.scan_users_dir(users)
+        out[name] = {"wall_s": wall, "files": {
+            "wal": len(rep["wals"]), "ckpt": len(rep["checkpoints"]),
+            "npz": len(rep["members"]), "state": len(rep["states"]),
+            "tmp": len(rep["stale_tmps"])},
+            "wal_lines": sum(w["lines"] for w in rep["wals"])}
+    copy_dir = os.path.join(root, "fsck_copy", "users")
+    shutil.copytree(a_users, copy_dir)
+    jp = os.path.join(copy_dir, "serve_journal.jsonl")
+    with open(jp, "rb") as f:
+        data = bytearray(f.read())
+    starts = [0] + [i + 1 for i, b in enumerate(data) if b == 0x0A]
+    mid = (len(starts) - 1) // 2
+    data[(starts[mid] + starts[mid + 1]) // 2] ^= 0xFF
+    with open(jp, "wb") as f:
+        f.write(bytes(data))
+    member = next(m["path"] for m in fsck_cli.scan_users_dir(
+        copy_dir)["members"] if "classifier_gnb" in m["path"])
+    with open(member, "r+b") as f:
+        f.seek(os.path.getsize(member) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    rc, text = _captured(fsck_cli.main, [copy_dir])
+    if rc != 1 or f"wal  {jp}" not in text or "1 corrupt" not in text \
+            or f"npz  {member}: CRC32 mismatch" not in text:
+        raise AssertionError(f"fsck (flipped): exit {rc}:\n{text[-3000:]}")
+    rc, text = _captured(fsck_cli.main, [copy_dir, "--repair"])
+    after = fsck_cli.scan_users_dir(copy_dir)
+    if rc != 1 or "quarantined 1 line(s)" not in text \
+            or not os.path.exists(dio.quarantine_path(jp)) \
+            or [m["path"] for m in after["members"] if m["error"]] \
+            != [member] or validate_journal_file(jp):
+        raise AssertionError(f"fsck (repair): exit {rc}:\n{text[-3000:]}")
+    out["flipped"] = {"journal_line": mid + 1, "member":
+                      os.path.relpath(member, copy_dir)}
+    return out
+
+
+def report_check(root, users):
+    """Phase 21 (d): ``report --validate --out`` over phase 20 (a)'s users
+    directory: exit 0, the merged Chrome trace written."""
+    trace_path = os.path.join(root, "report_trace.json")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text = _captured(report_cli.main,
+                             [users, "--validate", "--out", trace_path])
+    if rc != 0 or "schema ok" not in err.getvalue():
+        raise AssertionError(f"report: exit {rc}: {err.getvalue()[-2000:]}")
+    with open(trace_path) as f:
+        events = len(json.load(f)["traceEvents"])
+    return {"text_lines": len(text.splitlines()), "trace_events": events,
+            "validate": err.getvalue().strip().splitlines()[-1]}
+
+
+def soak_checks(root, trace, run, grade):
+    """Phase 21 (d): ``soak gen`` with phase 19 (a)'s trace parameters
+    writes a trace whose digest is that of the trace phase 19 drove (and
+    ``digest`` says so); ``soak grade`` on phase 19 (a)'s run gives the
+    deterministic section ``grade_run`` gave there."""
+    path = os.path.join(root, "soak_trace.jsonl")
+    argv = ["gen", path, "--seed", str(SERVE_TRACE_SEED), "--users",
+            str(SERVE_USERS), "--rate", "4.0", "--class-mix",
+            "interactive=0.5,batch=0.5", "--pool-dist", "skew",
+            "--pool-sizes", *map(str, SERVE_POOLS), "--horizon-s",
+            str(SERVE_TRACE_S)]
+    rc, text = _captured(soak_cli.main, argv)
+    gen = json.loads(text)
+    rc_d, text_d = _captured(soak_cli.main, ["digest", path])
+    want = trace_digest(trace)
+    if rc or rc_d or gen["trace_sha"] != want \
+            or json.loads(text_d)["trace_sha"] != want:
+        raise AssertionError(f"soak gen/digest: {gen} {text_d} vs {want}")
+    rc, text = _captured(soak_cli.main, [
+        "grade", run["users_dir"], "--journal",
+        os.path.join(run["users_dir"], "serve_journal.jsonl"), "--trace",
+        path, "--slo", "interactive=60,batch=600"])
+    graded = json.loads(text)
+    if rc != 0 or graded["deterministic"] != grade["deterministic"]:
+        raise AssertionError(f"soak grade: exit {rc}: "
+                             f"{graded['deterministic']} vs "
+                             f"{grade['deterministic']}")
+    return {"trace_sha": want, "events": gen["events"],
+            "zero_loss": graded["deterministic"]["zero_loss"],
+            "lost": graded["deterministic"]["lost_users"]}
+
+
+def status_check(poll, kill_t, users_dir):
+    """Phase 21 (a)'s verdict on ``poll``: live snapshots of the
+    coordinator, h0 and h1, every one valid; one frame showing all three;
+    h1's frame STALE within STATUS_STALE_S of its SIGKILL at ``kill_t``;
+    ``top --once`` on the run's directory renders the fleet."""
+    hosts = {h: (len(ts), poll.largest_gap(h))
+             for h, ts in sorted(poll.times.items())}
+    stale = [t for t in poll.stale.get("h1", ()) if t >= kill_t]
+    if poll.invalid or not {"coordinator", "h0", "h1"} <= set(hosts) \
+            or not poll.all_three:
+        raise AssertionError(f"status: hosts {hosts}, invalid "
+                             f"{poll.invalid[:3]}, all three in a frame "
+                             f"{poll.all_three}")
+    if not stale or stale[0] - kill_t > STATUS_STALE_S:
+        raise AssertionError(f"status: h1 STALE at {stale[:3]}, killed at "
+                             f"{kill_t}")
+    rc, text = _captured(top_cli.main, [users_dir, "--once", "--stale-s",
+                                        str(STATUS_STALE_S)])
+    if rc != 0 or "[coordinator] fleet" not in text:
+        raise AssertionError(f"top --once: exit {rc}:\n{text[-2000:]}")
+    snaps = read_status_dir(os.path.join(users_dir, "status"))
+    return {"hosts": hosts, "kill_to_stale_s": stale[0] - kill_t,
+            "interval_s": snaps["h0"].get("interval_s")}
+
+
+def phase_operator(card, fab, soak):
+    """Phase 21's lines (its runs are made inside phases 11 and 19)."""
+    st = fab["status"]
+    seen = ", ".join(f"{h}: {n} snapshots, largest gap {g} s"
+                     for h, (n, g) in sorted(st["hosts"].items()))
+    print(f"[operator] {card}: (a) status snapshots of phase 20 (a)'s run, "
+          f"read every {STATUS_POLL_S} s by a thread: {seen}; every one "
+          f"clean under validate_status; top --once showed coordinator, h0 "
+          f"and h1 in one frame, h1 STALE {st['kill_to_stale_s']:.2f} s "
+          f"after its SIGKILL (--stale-s {STATUS_STALE_S}; a snapshot goes "
+          f"stale after 3 of its writer's {st['interval_s']} s intervals)")
+    print(f"[operator] {card}: (b) phase 20 (c) with --alert-sink "
+          f"jsonl:<path> in the coordinator and both workers: "
+          f"{fab['alerts']['records']} records, every one parsed "
+          f"({fab['alerts']['kinds']}); alert_sink_errors 0 in every "
+          f"snapshot ({fab['alerts']['snapshots']})")
+    ops = fab["fsck"]
+    print(f"[operator] {card}: (c) fsck exit 0 over (a)'s users directory "
+          f"({ops['a']['files']} files by class, {ops['a']['wal_lines']} "
+          f"WAL lines, {ops['a']['wall_s']:.2f} s) and (c)'s "
+          f"({ops['c']['files']}, {ops['c']['wal_lines']} WAL lines, "
+          f"{ops['c']['wall_s']:.2f} s); a copy of (a)'s with a byte "
+          f"flipped in journal line {ops['flipped']['journal_line']} and "
+          f"in {ops['flipped']['member']}: exit 1 naming both; --repair "
+          f"quarantined the line, the member still reported (exit 1), the "
+          f"repaired journal validates")
+    rep = fab["report"]
+    print(f"[operator] {card}: (d) report --validate --out over (a)'s "
+          f"users directory: {rep['validate']}; {rep['text_lines']} lines "
+          f"of text, {rep['trace_events']} trace events; soak gen with "
+          f"phase 19 (a)'s parameters: {soak['events']} events, digest "
+          f"{soak['trace_sha'][:16]}... equal to the trace phase 19 drove "
+          f"(digest too); soak grade on phase 19 (a)'s run: zero loss "
+          f"{soak['zero_loss']}, lost {soak['lost']}, its deterministic "
+          f"section grade_run's")
+
+
+def deam_scale_rows():
+    """Phase 12's DEAM-scale rows and labels, and their song ids."""
+    rng = np.random.default_rng(SEED + 8)
+    n = DEAM_SONGS * DEAM_FRAMES
+    y = rng.integers(0, C, n)
+    centers = rng.normal(0, 0.5, (C, F)).astype(np.float32)
+    x = rng.standard_normal((n, F), np.float32) + centers[y]
+    return x, y, np.repeat(np.arange(DEAM_SONGS), DEAM_FRAMES), centers
+
+
+def _random_trees(rng, n_trees, n_nodes, n_class, leaf):
+    """``n_trees`` binary trees of ``n_nodes`` nodes each (one fewer when
+    ``n_nodes`` is even: a binary tree's count is odd), grown level by
+    level from random leaves, as ``generic_members._tree_arrays`` lays
+    them out: a random feature and a threshold a standard normal draw (the
+    rows' scale) at each split, ``leaf(rng, size)`` values at the nodes."""
+    n_nodes -= 1 - n_nodes % 2
+    left, right, feat, thr = [], [], [], []
+    offsets = [0]
+    for _ in range(n_trees):
+        lc, rc = [-1], [-1]
+        frontier = np.array([0])
+        while len(lc) < n_nodes:
+            n_split = min(len(frontier), (n_nodes - len(lc)) // 2)
+            chosen = rng.choice(frontier, n_split, replace=False)
+            new = []
+            for i in chosen:
+                lc[i], rc[i] = len(lc), len(lc) + 1
+                new += [len(lc), len(lc) + 1]
+                lc += [-1, -1]
+                rc += [-1, -1]
+            frontier = np.array(sorted(set(frontier) - set(chosen)) + new)
+        lc, rc = np.asarray(lc), np.asarray(rc)
+        inner = lc >= 0
+        base = offsets[-1]
+        left.append(np.where(inner, lc + base, -1))
+        right.append(np.where(inner, rc + base, -1))
+        feat.append(np.where(inner, rng.integers(0, F, len(lc)), -2))
+        thr.append(np.where(inner, rng.standard_normal(len(lc)), -2.0))
+        offsets.append(base + len(lc))
+    n = offsets[-1]
+    return {"offsets": np.asarray(offsets, np.int64),
+            "left": np.concatenate(left), "right": np.concatenate(right),
+            "feature": np.concatenate(feat).astype(np.int32),
+            "threshold": np.concatenate(thr),
+            "missing_left": np.zeros(n, np.uint8),
+            "value": leaf(rng, n).reshape(n, -1)}
+
+
+def synthetic_generic(kind, rng, x, y):
+    """A ``GenericMember`` of ``kind`` holding seeded synthetic fitted state
+    of scikit-learn's sizes (GENERIC_SIZES), consistent where prediction
+    needs it to be (gpc's ``L_`` is the Cholesky factor of ``I + W^1/2 K
+    W^1/2`` from its own rows); ``x``, ``y`` are the fitting rows."""
+    from scipy.linalg import cho_solve
+    from scipy.spatial.distance import cdist
+
+    size = GENERIC_SIZES[kind]
+    classes = np.arange(C)
+    if kind == "rf":
+        state = _random_trees(
+            rng, size["trees"], size["nodes"][1], C,
+            lambda r, n: r.dirichlet(np.ones(C), n))
+    elif kind == "gbc":
+        state = _random_trees(
+            rng, size["stages"] * C, size["nodes"], C,
+            lambda r, n: r.normal(0, 0.5, n))
+        prior = rng.dirichlet(np.full(C, 50.0))
+        state.update(init_raw=np.log(prior) - np.log(prior).mean(),
+                     learning_rate=size["learning_rate"])
+    elif kind == "svc":
+        n_sv = np.asarray(size["n_support"], np.int64)
+        rows = np.concatenate([rng.choice(np.flatnonzero(y == c), n, False)
+                               for c, n in enumerate(n_sv)])
+        state = {"support_vectors": x[rows].astype(np.float64),
+                 "dual_coef": rng.uniform(-1, 1, (C - 1, n_sv.sum())),
+                 "intercept": rng.normal(0, 0.5, C * (C - 1) // 2),
+                 "n_support": n_sv,
+                 "prob_a": np.asarray(size["prob_a"], np.float64),
+                 "prob_b": np.asarray(size["prob_b"], np.float64),
+                 "gamma": size["gamma"]}
+    else:  # gpc
+        xt = x[:GENERIC_CUT_ROWS]
+        yt = y[:GENERIC_CUT_ROWS]
+        per = {"y_train": [], "pi": [], "w_sr": [], "L": []}
+        for b in range(C):
+            c = size["constant"][b]
+            ls = size["length_scale"][b]
+            k = c * np.exp(-0.5 * cdist(xt / ls, xt / ls, "sqeuclidean"))
+            yb = (yt == b).astype(np.int64)
+            # the Laplace mode by Newton's method (scikit-learn's
+            # _posterior_mode), so pi_, W_sr_ and L_ agree with the kernel
+            f = np.zeros(len(yt))
+            for _ in range(GPC_NEWTON + 1):
+                pi = 1 / (1 + np.exp(-f))
+                w_sr = np.sqrt(pi * (1 - pi))
+                lower = np.linalg.cholesky(
+                    np.eye(len(yt)) + w_sr[:, None] * k * w_sr[None, :])
+                b_vec = pi * (1 - pi) * f + (yb - pi)
+                f = k @ (b_vec - w_sr * cho_solve(
+                    (lower, True), (w_sr[:, None] * k) @ b_vec))
+            per["y_train"].append(yb)
+            per["pi"].append(pi)
+            per["w_sr"].append(w_sr)
+            per["L"].append(lower)
+        state = {"x_train": np.ascontiguousarray(xt),
+                 **{k: np.stack(v) for k, v in per.items()},
+                 "constant": np.asarray(size["constant"], np.float64),
+                 "length_scale": np.asarray(size["length_scale"],
+                                            np.float64)}
+    state["classes"] = classes
+    return GenericMember("it_0", kind, state)
+
+
+def generic_cli_runs(root, amg_root, host_models):
+    """Phase 22, on a copy of phase 11's tree (``beside_main``): the
+    registry of phase 11's host members plus one generic member of each
+    kind, then ``amg_test`` GENERIC_ARGS on the card and on the CPU."""
+    t_all = time.perf_counter()
+    x, y, songs, _ = deam_scale_rows()
+    reg = {d: os.path.join(root, f"models_generic_{d}")
+           for d in ("cuda", "cpu")}
+    pre = os.path.join(reg["cuda"], "pretrained")
+    shutil.copytree(os.path.join(host_models, "pretrained"), pre)
+    # knn: the port's own pre-training, one fold at DEAM scale
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        knn_metrics = pretrain.pretrain_classic("knn", x, y, songs, cv=1,
+                                                out_dir=pre, seed=SEED)
+    knn_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 90)
+    t0 = time.perf_counter()
+    for kind in ("rf", "gbc", "svc", "gpc"):
+        m = synthetic_generic(kind, rng, x, y)
+        m.save(os.path.join(pre, Committee.member_file(m)))
+    synth_s = time.perf_counter() - t0
+    shutil.copytree(pre, os.path.join(reg["cpu"], "pretrained"))
+    files = workspace.member_files(pre)
+    kinds = {k: files.index(f"classifier_{k}.it_0.npz")
+             for k in GENERIC_KINDS}
+    registry = {k: GenericMember.load(os.path.join(
+        pre, f"classifier_{k}.it_0.npz")) for k in GENERIC_KINDS}
+    # every update of a generic member, on either device: its
+    # probabilities on GENERIC_SAMPLE_ROWS pool rows before and after
+    paths = PathsConfig(models_root=reg["cuda"], amg_root=amg_root)
+    real_update = GenericMember.update
+    checked = []
+
+    def update(self, X, y_batch):
+        sample = sample_rows[0]
+        before = self.predict_proba(sample)
+        real_update(self, X, y_batch)
+        checked.append((self.kind, np.array_equal(
+            before, self.predict_proba(sample))))
+
+    sample_rows = []
+    runs, walls = {}, {}
+    launches = 0
+    GenericMember.update = update
+    try:
+        for d in ("cuda", "cpu"):
+            if not sample_rows:
+                # the tree's frame pool: the first CLI run caches it
+                pool = amg.load_feature_pool(paths.amg_dataset_csv,
+                                             paths.amg_features_dir)
+                sample_rows.append(pool.X[:GENERIC_SAMPLE_ROWS])
+            linear_mc.launches = 0
+            t0 = time.perf_counter()
+            run_cli(GENERIC_ARGS + ["--models-root", reg[d], "--amg-root",
+                                    amg_root, "--device", d])
+            walls[d] = time.perf_counter() - t0
+            launches += linear_mc.launches
+            if linear_mc.launches:
+                raise AssertionError(f"generic {d}: linear_mc launched")
+            runs[d] = _users_runs(reg[d])
+    finally:
+        GenericMember.update = real_update
+    if len(checked) != 2 * 2 * 2 * len(GENERIC_KINDS) \
+            or not all(ok for _, ok in checked):
+        raise AssertionError(f"generic: updates {checked}")
+    users = sorted(runs["cuda"])
+    if len(users) != 2 or sorted(runs["cpu"]) != users:
+        raise AssertionError(f"generic: users {users} / "
+                             f"{sorted(runs['cpu'])}")
+    f1_diff, frozen = 0.0, True
+    for u in users:
+        m, r = read_metrics(runs["cuda"][u]), read_metrics(runs["cpu"][u])
+        if sorted(m) != sorted(r) or len(m) != 3:
+            raise AssertionError(f"generic user {u}: epochs {sorted(m)}")
+        for e in r:
+            if m[e].get("queried") != r[e].get("queried"):
+                raise AssertionError(f"generic user {u} epoch {e}: queried "
+                                     "songs differ card / CPU")
+            f1_diff = max(f1_diff, float(np.max(np.abs(np.subtract(
+                m[e]["f1"], r[e]["f1"])))))
+            for i in kinds.values():
+                frozen &= m[e]["f1"][i] == m[min(m)]["f1"][i]
+        for d in ("cuda", "cpu"):
+            for k, ref in registry.items():
+                got = GenericMember.load(os.path.join(
+                    runs[d][u], f"classifier_{k}.it_0.npz"))
+                if any(not np.array_equal(got.state[a], v)
+                       for a, v in ref.state.items()
+                       if not a.startswith("_")):
+                    raise AssertionError(f"generic {d} user {u}: the "
+                                         f"workspace's {k} is not the "
+                                         "registry's")
+    if not frozen:
+        raise AssertionError("generic: a generic member's F1 moved")
+    # each kind's predict_proba and predict at the first user's pool size
+    anno = amg.load_annotations(paths.amg_annotations_mat,
+                                paths.amg_mapping_mat)
+    sub, _ = amg.user_pool(pool, anno, int(users[0]))
+    times = {}
+    for k, mem in registry.items():
+        mem.predict_proba(sub.X[:8])
+        t0 = time.perf_counter()
+        p = mem.predict_proba(sub.X)
+        t1 = time.perf_counter()
+        mem.predict(sub.X)
+        t2 = time.perf_counter()
+        if p.shape != (len(sub.X), C) or not np.isfinite(p).all() \
+                or not np.allclose(p.sum(1), 1.0, atol=1e-9):
+            raise AssertionError(f"generic {k}: probabilities {p[:2]}")
+        times[k] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+    sizes = {k: sum(np.asarray(v).nbytes for a, v in registry[k].state.items()
+                    if not a.startswith("_")) for k in registry}
+    return {"wall_s": time.perf_counter() - t_all, "knn_s": knn_s,
+            "knn_f1": knn_metrics, "knn_rows": len(registry["knn"].state[
+                "fit_X"]), "synth_s": synth_s, "walls": walls,
+            "f1_diff": f1_diff, "updates": len(checked), "times": times,
+            "pool_rows": len(sub.X), "sizes": sizes, "users": users,
+            "order": kinds, "launches": launches}
+
+
+def phase_generic(card, gen):
+    """Phase 22's lines."""
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip()
+    s = GENERIC_SIZES
+    print(f"[generic] {card}: registry of {REG_MEMBERS} GaussianNB + "
+          f"{REG_MEMBERS} SGD members plus knn (the port's pretrain, one "
+          f"fold at DEAM scale: {gen['knn_rows']} stored rows x {F}, "
+          f"{gen['knn_s']:.1f} s with its held-out predict, "
+          f"{gen['knn_f1']}) and synthetic rf ({s['rf']['trees']} trees of "
+          f"{(s['rf']['nodes'][1] - 1) | 1} nodes), gbc ({s['gbc']['stages']} x {C} "
+          f"trees of {s['gbc']['nodes']} nodes), svc "
+          f"({sum(s['svc']['n_support'])} support vectors "
+          f"{s['svc']['n_support']}) and gpc ({C} binary "
+          f"Laplace estimators over {GENERIC_CUT_ROWS} rows) at "
+          f"scikit-learn's sizes, built in {gen['synth_s']:.1f} s; state "
+          f"bytes {gen['sizes']}")
+    print(f"[generic] {card}: amg_test {' '.join(GENERIC_ARGS)} on a copy "
+          f"of phase 11's tree, card {gen['walls']['cuda']:.1f} s and CPU "
+          f"{gen['walls']['cpu']:.1f} s: users {gen['users']}, queried songs "
+          f"equal every epoch, max |F1 diff| {gen['f1_diff']:.3e}; "
+          f"{gen['updates']} updates of generic members, each leaving its "
+          f"probabilities on {GENERIC_SAMPLE_ROWS} pool rows unchanged; "
+          f"their F1s constant over the epochs; every workspace's generic "
+          f"members the registry's; linear_mc launches 0")
+    print(f"[generic] {card} ({power}): host clock ms at the pool's size "
+          f"({gen['pool_rows']} frames x {F}), predict_proba / predict: "
+          + ", ".join(f"{k} {a:.1f} / {b:.1f}"
+                      for k, (a, b) in sorted(gen["times"].items()))
+          + f"; phase 22 {gen['wall_s']:.1f} s")
+
+
+# -- phases 17 and 22 beside phase 11 --------------------------------------
+
+
+#: how long ``main`` waits for the second process once phase 11 is done
+BESIDE_TIMEOUT_S = 600
+
+
+def exit_with_parent():
+    """A daemon thread that kills this process's group once the process
+    that started it is gone (the second process runs in a session of its
+    own, so a signal to the smoke's group does not reach it)."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(0.5)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=watch, name="parent-watch", daemon=True).start()
+
+
+def beside_main(phase, out_json):
+    """``chip_smoke.py --beside PHASE OUT``: phase 22 or 17 in a process of
+    its own, which ``main`` starts as phase 11 begins and joins after it.
+    Neither phase reads phase 11's files: phase 22 writes its own copy of
+    phase 11's seeded tree and host registry, phase 17 its own trees.
+    Prints the phase's lines; writes its kernel launches and wall time to
+    OUT."""
+    exit_with_parent()
+    card = phase_device(quiet=True)
+    t0 = time.perf_counter()
+    launches = 0
+    if phase == "22":
+        with tempfile.TemporaryDirectory() as root:
+            amg_root = write_amg_tree(root)
+            host_models = os.path.join(root, "models_cuda")
+            write_registry(host_models)
+            generic = generic_cli_runs(root, amg_root, host_models)
+        phase_generic(card, generic)
+        launches = generic["launches"]
+    else:
+        phase_pretrain(card)
+    with open(out_json, "w") as f:
+        json.dump({"launches": launches,
+                   "wall_s": time.perf_counter() - t0}, f)
+
+
+class Beside:
+    """Phase ``phase`` in a second process (``beside_main``), started in a
+    session of its own: ``join`` waits for it, prints its lines and fails
+    with it; ``stop`` kills its group if it still runs."""
+
+    def __init__(self, root, phase):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.phase = phase
+        self.out = os.path.join(root, f"beside_{phase}.json")
+        self.logs = [os.path.join(root, f"beside_{phase}.{s}")
+                     for s in ("out", "err")]
+        files = [open(p, "w") for p in self.logs]
+        try:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--beside",
+                 phase, self.out], cwd=here, stdout=files[0],
+                stderr=files[1], start_new_session=True)
+        finally:
+            for f in files:
+                f.close()
+
+    def join(self, timeout):
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(self.logs[0], errors="replace") as f:
+            sys.stdout.write(f.read())
+        with open(self.logs[1], errors="replace") as f:
+            err = f.read()
+        if rc != 0:
+            raise AssertionError(
+                f"beside: phase {self.phase} "
+                + ("ran past its wait" if rc is None else f"exited {rc}")
+                + f":\n{err[-3000:]}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            with contextlib.suppress(OSError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
 def main():
     t0 = time.perf_counter()
     walls = {}
 
     def lap(name):
         walls[name] = time.perf_counter() - t0 - sum(walls.values())
+        # where a cut run stopped shows at the end of its standard error
+        print(f"[progress] {name} done at {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
 
     if sys.argv[1:2] == ["--serve-drill"]:
         serve_drill_main(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--beside"]:
+        beside_main(*sys.argv[2:4])
         return
     card = phase_device()
     if sys.argv[1:] == ["--sgd-fold"]:
@@ -4496,8 +5326,20 @@ def main():
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    fleet_cli, mesh_cli, serve_cli, fabric_cli = phase_al_cli(card)
-    lap("11")
+    # phases 22 and 17 run beside phase 11, each in a process of its own;
+    # all three load the one host library
+    native.build()
+    with tempfile.TemporaryDirectory() as side_root:
+        beside = [Beside(side_root, p) for p in ("22", "17")]
+        try:
+            fleet_cli, mesh_cli, serve_cli, fabric_cli = phase_al_cli(card)
+            lap("11")
+            side = {proc.phase: proc.join(BESIDE_TIMEOUT_S)
+                    for proc in beside}
+        finally:
+            for proc in beside:
+                proc.stop()
+    lap("waiting for 17 and 22")
     phase_gbdt(card)
     lap("12")
     phase_cnn(card)
@@ -4513,8 +5355,6 @@ def main():
     del user, host
     torch.cuda.empty_cache()
     lap("16")
-    phase_pretrain(card)
-    lap("17")
     mesh = phase_mesh(card, x, w, b, mask, tables, hc, mesh_cli)
     del tables, hc
     torch.cuda.empty_cache()
@@ -4522,20 +5362,26 @@ def main():
     serve = phase_serve(card, serve_cli)
     lap("19")
     phase_fabric(card, fabric_cli, serve_cli)
+    phase_operator(card, fabric_cli, serve["soak"])
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f}; 19 (c): "
-        f"{serve_cli['wall_s']:.1f}; 20: {fabric_cli['wall_s']:.1f})"
+        f"{serve_cli['wall_s']:.1f}; 20 and 21 (a)-(c): "
+        f"{fabric_cli['wall_s']:.1f}; beside 11, each in a process of its "
+        f"own: 22 {side['22']['wall_s']:.1f}, 17 {side['17']['wall_s']:.1f})"
         + f"; total {time.perf_counter() - t0:.1f}")
+    ops_launches = fabric_cli["ops_launches"] + serve["soak"]["launches"]
     print(json.dumps({"kernels": [{
         "name": "linear_mc", "route": "cuda", "design": "wgmma-3xtf32",
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
         "launches": launches + mesh["launches"] + serve["launches"]
-        + fabric_cli["launches"],
+        + fabric_cli["launches"] + ops_launches + side["22"]["launches"],
         "launches_by_phase": {"5": launches, "18": mesh["launches"],
                               "19": serve["launches"],
-                              "20": fabric_cli["launches"]},
+                              "20": fabric_cli["launches"],
+                              "21": ops_launches,
+                              "22": side["22"]["launches"]},
         "max_abs_err": max(max_err, mesh["max_abs_err"]), **times,
         "sharded_ms": mesh["sharded_ms"],
         "sharded_shards": MESH_B2_SHARDS}]}))

@@ -7,7 +7,11 @@ marks the user complete, and a partial directory whose ``al_state.json``
 belongs to the same experiment resumes at its next iteration.
 
 Member files are the port's (``classifier_{gnb,sgd,xgb,cnn}.{name}.npz``,
-and ``classifier_cnn_{arch}.{name}.npz`` from the pre-trainer).
+``classifier_cnn_{arch}.{name}.npz`` from the pre-trainer, and the frozen
+generic kinds' ``classifier_{rf,svc,knn,gpc,gbc}.{name}.npz``), loaded in
+sorted file-name order, the order of JAX ``load_committee``
+(``al/workspace.py:135-150``), so the committee's mean sums its members
+in the same order.
 A registry or workspace holding JAX files (scikit-learn and boosted-tree
 pickles, ``.msgpack`` CNN checkpoints) raises an error naming them and
 ``convert.registry_from_jax``, which converts them: nothing is skipped
@@ -32,15 +36,20 @@ class UnportedMemberError(RuntimeError):
 
 
 #: the JAX pickles ``convert.registry_from_jax`` reads
-_PICKLED = {"gnb": "GaussianNB", "sgd": "SGD", "xgb": "boosted-trees"}
+_PICKLED = {"gnb": "GaussianNB", "sgd": "SGD", "xgb": "boosted-trees",
+            "rf": "RandomForestClassifier", "svc": "SVC",
+            "knn": "KNeighborsClassifier",
+            "gpc": "GaussianProcessClassifier",
+            "gbc": "GradientBoostingClassifier"}
 _CONVERT = ("convert it with "
             "consensus_entropy_tpu_torch.convert.registry_from_jax")
 
 
 def _member_kind(fname: str) -> str | None:
-    """``gnb``/``sgd``/``xgb``/``cnn`` for the port's member files (``cnn``
-    for ``classifier_cnn_{arch}`` too), ``None`` for files that are not
-    members; raises for member files the port cannot load."""
+    """``gnb``/``sgd``/``xgb``/``cnn`` or a generic kind for the port's
+    member files (``cnn`` for ``classifier_cnn_{arch}`` too), ``None`` for
+    files that are not members; raises for member files the port cannot
+    load."""
     if fname.endswith(".msgpack"):
         raise UnportedMemberError(
             f"{fname}: a JAX CNN checkpoint; {_CONVERT}")

@@ -52,8 +52,13 @@ the fence deadline and ``--remedy`` (with ``--remedy-hold-s``,
 ``--remedy-cooldown-s``, ``--remedy-skew``) the skew remediation;
 ``--mesh-devices K`` serves each worker on a K-way pool mesh (K entries
 of ``cuda:0``, or of the CPU with ``--device cpu``) and ``--placement``
-picks the cross-host routing.  The introspection flags
-(``--no-introspection``, ``--alert-sink``) are not ported yet.
+picks the cross-host routing.  Serve and fabric runs keep the operator
+plane on (``amg_test.py:804-819`` of the JAX CLI): each process, the
+coordinator and every worker writes ``users/status/status_<host>.json``
+(``obs.status``; ``cli.top`` renders them) and evaluates the SLO and
+fleet alerts, which ``--alert-sink`` routes to sinks;
+``--no-introspection`` turns the plane off.  Per-user results are the
+same bits either way.
 """
 
 from __future__ import annotations
@@ -252,6 +257,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="remedy: load above the fleet minimum that counts "
                         "as skew, the alert threshold and the shed target "
                         "(default: the placement skew bound)")
+    p.add_argument("--alert-sink", action="append", default=None,
+                   metavar="SPEC",
+                   help="route alert transitions to a sink (repeatable): "
+                        "'console' (stderr lines), 'jsonl:<path>' "
+                        "(append one record per transition), or "
+                        "'cmd:<argv>' (run a command per transition, "
+                        "the record as JSON on argv[-1] — webhook-"
+                        "shaped); sink failures count in the status "
+                        "snapshot but never affect serving (requires "
+                        "the introspection plane)")
+    p.add_argument("--no-introspection", action="store_true",
+                   help="serve/fabric: disable the live introspection "
+                        "plane — the coordinator's control-plane trace "
+                        "lane, status_<host>.json snapshots (the top "
+                        "feed) and SLO burn-rate alerts (ON by default; "
+                        "observation only, per-user results are "
+                        "bit-identical either way; the port emits no "
+                        "compile events, so there are none to switch)")
     p.add_argument("--fabric-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--fabric-dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--unpoison", default=None, metavar="USER[,USER...]",
@@ -807,9 +830,10 @@ def _refused(args) -> bool:
 
 
 def _fabric_refused(args) -> bool:
-    """The JAX CLI's fabric refusals (``amg_test.py:482-563``, their order
-    and words, the ``--alert-sink`` ones aside); builds
-    ``args._fabric_config`` for ``--hosts``."""
+    """The JAX CLI's fabric and alert-sink refusals (``amg_test.py:
+    482-563``, their order and words); builds ``args._fabric_config`` for
+    ``--hosts``.  Every ``--alert-sink`` spec is parsed here, before any
+    work starts."""
     args._fabric_config = None
     if args.hosts is not None:
         if args.hosts < 1 or args.lease_s <= 0:
@@ -868,6 +892,21 @@ def _fabric_refused(args) -> bool:
               "--fence-deadline-s/--remedy/--mesh-devices require "
               "--hosts (the elastic fabric scales a multi-host fleet)")
         return True
+    if args.alert_sink:
+        if args.no_introspection:
+            print("--alert-sink needs the introspection plane; drop "
+                  "--no-introspection")
+            return True
+        # a mistyped spec fails here with its reason, not as an alert
+        # dropped minutes into a run
+        from consensus_entropy_tpu_torch.obs.alerts import make_sink
+
+        try:
+            for spec in args.alert_sink:
+                make_sink(spec)
+        except ValueError as e:
+            print(f"invalid --alert-sink: {e}")
+            return True
     if args.fabric_worker is not None and (args.fabric_dir is None
                                            or args.serve is None):
         print("--fabric-worker is internal (spawned by --hosts) and "
@@ -904,6 +943,24 @@ def _interactive_set(args) -> set:
         return set()
     return {u.strip() for u in args.interactive_users.split(",")
             if u.strip()}
+
+
+def _introspection(args, paths, host, report, log=None):
+    """The operator plane's limbs for one process (``amg_test.py:804-819``
+    of the JAX CLI): a ``status_<host>.json`` writer under
+    ``users/status/`` and an alert watcher emitting schema ``alert``
+    events through ``report`` and every ``--alert-sink`` (plus ``log``:
+    the coordinator passes ``print``, so alerts reach its console).
+    ``(None, None)`` under ``--no-introspection``."""
+    if args.no_introspection:
+        return None, None
+    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher, make_sink
+    from consensus_entropy_tpu_torch.obs.status import StatusWriter
+
+    status = StatusWriter(os.path.join(paths.users_dir, "status"), host)
+    sinks = tuple(make_sink(spec, log=log)
+                  for spec in (args.alert_sink or ()))
+    return status, AlertWatcher(report, log=log, sinks=sinks)
 
 
 def _build_tracer(args, cfg, paths, *, path=None, host=None):
@@ -965,8 +1022,10 @@ def _run_users_serve(args, cfg, paths, users, pool, anno, hc_table, store,
         plan_chunk=args.plan_chunk, fuse_step=not args.no_fuse_step,
         device=device, mesh=mesh, tracer=tracer,
         profile_dir=args.torch_profile, profile_n=args.torch_profile_n)
+    status, alerts = _introspection(args, paths, "local", report)
     server = FleetServer(scheduler, _serve_config(args, mesh),
-                         preemption=guard, journal=journal, poison=poison)
+                         preemption=guard, journal=journal, poison=poison,
+                         status=status, alerts=alerts)
     todo = list(users[: args.max_users])
     if journal is not None and journal.recovered:
         st = journal.state
@@ -1068,7 +1127,6 @@ def _run_users_fabric(args, cfg, paths, users, pool, anno, guard) -> None:
     import subprocess
 
     from consensus_entropy_tpu_torch.fleet import FleetReport
-    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
     from consensus_entropy_tpu_torch.serve import (
         AdmissionJournal,
         FabricCoordinator,
@@ -1119,10 +1177,12 @@ def _run_users_fabric(args, cfg, paths, users, pool, anno, guard) -> None:
     # the coordinator's tracer owns spans.jsonl; the workers' span WALs
     # (fabric/spans_<h>.jsonl) are transcribed into it
     tracer = _build_tracer(args, cfg, paths, host="coordinator")
+    status, alerts = _introspection(args, paths, "coordinator", report,
+                                    log=print)
     coord = FabricCoordinator(
         journal, fabric_dir, fabric_cfg, poison=poison, report=report,
-        preemption=guard, tracer=tracer,
-        alerts=AlertWatcher(report, log=print))
+        preemption=guard, tracer=tracer, status=status, alerts=alerts,
+        introspect=not args.no_introspection)
     interactive = _interactive_set(args)
     todo = [str(u) for u in users[: args.max_users]]
     try:
@@ -1198,7 +1258,6 @@ def _run_users_fabric_worker(args, cfg, paths, users, pool, anno,
         FleetScheduler,
         FleetUser,
     )
-    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
     from consensus_entropy_tpu_torch.serve.hosts import (
         fabric_paths,
         run_worker,
@@ -1254,12 +1313,14 @@ def _run_users_fabric_worker(args, cfg, paths, users, pool, anno,
         print(f"user {rec['user']}: final mean F1 = "
               f"{rec['result']['final_mean_f1']:.4f}")
 
+    status, alerts = _introspection(args, paths, args.fabric_worker,
+                                    report)
     try:
         run_worker(
             args.fabric_dir, args.fabric_worker, build_entry=build_entry,
             scheduler=scheduler, config=_serve_config(args, mesh),
             on_result=on_result, lease_s=args.lease_s, preemption=guard,
-            alerts=AlertWatcher(report))
+            status=status, alerts=alerts)
     finally:
         tracer.close()
         # this host's summary carries its admission-to-finish latencies

@@ -32,8 +32,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=MODEL_CHOICES,
                    help="model to train ('cnn' is an alias of 'cnn_jax', "
                         "the vgg ShortChunkCNN; cnn_{arch}_jax another "
-                        "trunk; rf, svc, knn, gpc and gbc have no port "
-                        "member and are refused)")
+                        "trunk; knn is fitted; rf, svc, gpc and gbc are "
+                        "refused: their members load from a JAX registry "
+                        "converted by convert.registry_from_jax)")
     p.add_argument("--epochs", type=int, default=None,
                    help="override CNN epochs (default settings n_epochs_cnn)")
     p.add_argument("--tb-dir", default=None,

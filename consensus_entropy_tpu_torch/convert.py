@@ -171,28 +171,151 @@ def _gbdt_from_jax(member):
         "model": member.model.state()})
 
 
-def _from_estimator(name: str, est):
+#: the scikit-learn estimator of each generic kind, by class name
+GENERIC_ESTIMATORS = {"RandomForestClassifier": "rf", "SVC": "svc",
+                      "KNeighborsClassifier": "knn",
+                      "GaussianProcessClassifier": "gpc",
+                      "GradientBoostingClassifier": "gbc"}
+
+
+def _knn_state(est) -> dict:
+    if est.weights != "uniform" or est.metric not in ("minkowski",
+                                                      "euclidean") or (
+            est.metric == "minkowski" and est.p != 2):
+        raise ValueError("KNeighborsClassifier: only uniform weights and "
+                         "the Euclidean metric are ported")
+    return {"fit_X": np.array(est._fit_X, copy=True),
+            "y": np.asarray(est._y, np.intp).copy(),
+            "classes": np.asarray(est.classes_).copy(),
+            "n_neighbors": int(est.n_neighbors)}
+
+
+def _rf_state(est) -> dict:
+    from consensus_entropy_tpu_torch.models.generic_members import (
+        _tree_arrays,
+    )
+
+    if est.n_outputs_ != 1:
+        raise ValueError("RandomForestClassifier: multi-output forests are "
+                         "not ported")
+    return {"classes": np.asarray(est.classes_).copy(),
+            **_tree_arrays([t.tree_ for t in est.estimators_])}
+
+
+def _gbc_state(est) -> dict:
+    from consensus_entropy_tpu_torch.models.generic_members import (
+        _tree_arrays,
+    )
+
+    stages = np.asarray(est.estimators_)
+    if stages.ndim != 2 or stages.shape[1] < 3:
+        raise ValueError("GradientBoostingClassifier: only the multi-class "
+                         "(3 or more classes) model is ported")
+    if est.init_ == "zero" or type(est.init_).__name__ != "DummyClassifier" \
+            or est.init_.strategy != "prior":
+        raise ValueError("GradientBoostingClassifier: only the default "
+                         "prior init_ is ported")
+    # the prior's link is the same for every row: take it from one
+    probe = np.zeros((1, est.n_features_in_), np.float32)
+    init_raw = np.asarray(est._raw_predict_init(probe), np.float64)[0]
+    return {"classes": np.asarray(est.classes_).copy(),
+            "init_raw": init_raw.copy(),
+            "learning_rate": float(est.learning_rate),
+            **_tree_arrays([t.tree_ for t in stages.ravel()])}
+
+
+def _svc_state(est) -> dict:
+    if est.kernel != "rbf" or not est.probability or est.break_ties:
+        raise ValueError("SVC: only the RBF kernel with probability=True "
+                         "and break_ties=False is ported")
+    return {"classes": np.asarray(est.classes_).copy(),
+            "support_vectors": np.array(est.support_vectors_, np.float64),
+            "dual_coef": np.array(est._dual_coef_, np.float64),
+            "intercept": np.array(est._intercept_, np.float64),
+            "n_support": np.asarray(est._n_support, np.int64).copy(),
+            "prob_a": np.array(est._probA, np.float64),
+            "prob_b": np.array(est._probB, np.float64),
+            "gamma": float(est._gamma)}
+
+
+def _gpc_state(est) -> dict:
+    binaries = getattr(est.base_estimator_, "estimators_", None)
+    if binaries is None or len(binaries) < 3:
+        raise ValueError("GaussianProcessClassifier: only the one-vs-rest "
+                         "multi-class model is ported")
+    x_train = np.array(binaries[0].X_train_, copy=True)
+    const, scale = [], []
+    for b in binaries:
+        k = b.kernel_
+        if (type(k).__name__ != "Product"
+                or type(k.k1).__name__ != "ConstantKernel"
+                or type(k.k2).__name__ != "RBF"
+                or np.ndim(k.k2.length_scale) != 0):
+            raise ValueError(f"GaussianProcessClassifier: kernel {k} is not "
+                             "ported (the member implements C * RBF(l))")
+        if not np.array_equal(b.X_train_, x_train):
+            raise ValueError("GaussianProcessClassifier: the binary "
+                             "estimators' training rows differ")
+        const.append(float(k.k1.constant_value))
+        scale.append(float(k.k2.length_scale))
+    return {"classes": np.asarray(est.classes_).copy(), "x_train": x_train,
+            "y_train": np.stack([np.asarray(b.y_train_)
+                                 for b in binaries]),
+            "pi": np.stack([np.asarray(b.pi_, np.float64)
+                            for b in binaries]),
+            "w_sr": np.stack([np.asarray(b.W_sr_, np.float64)
+                              for b in binaries]),
+            "L": np.stack([np.asarray(b.L_, np.float64) for b in binaries]),
+            "constant": np.asarray(const, np.float64),
+            "length_scale": np.asarray(scale, np.float64)}
+
+
+_GENERIC_STATE = {"knn": _knn_state, "rf": _rf_state, "gbc": _gbc_state,
+                  "svc": _svc_state, "gpc": _gpc_state}
+
+
+def generic_from_estimator(name: str, kind: str, est):
+    """A fitted scikit-learn estimator of a generic kind (``rf``, ``svc``,
+    ``knn``, ``gpc``, ``gbc``) -> the port's ``GenericMember`` holding its
+    fitted arrays, read by attribute."""
+    from consensus_entropy_tpu_torch.models.generic_members import (
+        GenericMember,
+    )
+
+    want = GENERIC_ESTIMATORS.get(type(est).__name__)
+    if want != kind:
+        raise ValueError(f"{name}: a {type(est).__name__} is not a "
+                         f"{kind!r} member")
+    return GenericMember(name, kind, _GENERIC_STATE[kind](est))
+
+
+def _from_estimator(name: str, est, kind: str | None = None):
     if hasattr(est, "theta_") and hasattr(est, "var_smoothing"):
         return _gnb_from_estimator(name, est)
     if hasattr(est, "coef_") and getattr(est, "loss", None):
         return _sgd_from_estimator(name, est)
+    kind = kind or GENERIC_ESTIMATORS.get(type(est).__name__)
+    if kind is not None:
+        return generic_from_estimator(name, kind, est)
     raise ValueError(f"{name}: {type(est).__name__} is not a fitted "
-                     "GaussianNB or SGDClassifier")
+                     "GaussianNB, SGDClassifier or generic-kind estimator")
 
 
 def host_members_from_jax(members) -> list:
-    """The JAX package's host members (``GNBMember``, ``SGDMember`` or
-    their fitted scikit-learn estimators, and ``NativeGBDTMember``, read
-    by attribute) -> the port's members with the same fitted state."""
+    """The JAX package's host members (``GNBMember``, ``SGDMember``,
+    ``GenericSklearnMember`` or their fitted scikit-learn estimators, and
+    ``NativeGBDTMember``, read by attribute) -> the port's members with
+    the same fitted state."""
     return [_gbdt_from_jax(m) if hasattr(m, "binner") else
             _from_estimator(getattr(m, "name", f"member_{i}"),
-                            getattr(m, "estimator", m))
+                            getattr(m, "estimator", m),
+                            getattr(m, "kind", None))
             for i, m in enumerate(members)]
 
 
 def _member_from_pickle(path: str):
-    """One JAX member pickle (``{"kind", "name", "estimator"}``) -> the
-    port's member."""
+    """One JAX member pickle (``{"kind", "name", "estimator"}``: GaussianNB,
+    SGD or a generic kind; or a native GBDT) -> the port's member."""
     import pickle
 
     from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
@@ -201,10 +324,18 @@ def _member_from_pickle(path: str):
         state = pickle.load(f)
     if state.get("fmt") == "native_gbdt":
         return NativeGBDTMember.from_state(state)
-    if state.get("kind") not in ("gnb", "sgd") or "estimator" not in state:
-        raise ValueError(f"{path}: a {state.get('kind')!r} member, not a "
-                         "GaussianNB / SGD / native GBDT pickle; it is not "
-                         "ported")
+    from consensus_entropy_tpu_torch.models.generic_members import (
+        GENERIC_KINDS,
+    )
+
+    kind = state.get("kind")
+    if kind not in ("gnb", "sgd", *GENERIC_KINDS) or "estimator" not in state:
+        raise ValueError(f"{path}: a {kind!r} member, not a GaussianNB / "
+                         "SGD / generic-kind / native GBDT pickle; it is "
+                         "not ported")
+    if kind in GENERIC_KINDS:
+        return generic_from_estimator(state["name"], kind,
+                                      state["estimator"])
     return _from_estimator(state["name"], state["estimator"])
 
 
@@ -234,7 +365,8 @@ def _convert_members(src: str, dst: str, config=None) -> list[str]:
 
 def registry_from_jax(pretrained_dir: str, out: str,
                       config=None) -> list[str]:
-    """A JAX pretrained registry (``classifier_{gnb,sgd,xgb}.*.pkl``,
+    """A JAX pretrained registry (``classifier_{gnb,sgd,xgb}.*.pkl``, the
+    generic kinds' ``classifier_{rf,svc,knn,gpc,gbc}.*.pkl``,
     ``classifier_cnn.*.msgpack`` of geometry ``config``) -> the port's
     member files in ``out``; returns their names."""
     os.makedirs(out, exist_ok=True)

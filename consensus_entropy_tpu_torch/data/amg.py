@@ -14,7 +14,8 @@ Counterpart of ``consensus_entropy_tpu/data/amg.py:35-150`` without pandas
 - ``load_feature_pool`` (``amg_test.py:57-65,128-144``): the ``;``-separated
   openSMILE frame CSVs (or their cached concatenation), sliced to the 260
   feature columns and standardised over the whole pool, as scikit-learn's
-  ``StandardScaler`` does for float32 input;
+  ``StandardScaler`` does for float32 input; the parsed cache beside the
+  CSV cache (the port's own) spares a later read the text parse;
 - ``user_pool`` (``amg_test.py:352-356``).
 """
 
@@ -24,6 +25,7 @@ import csv
 import dataclasses
 import os
 import tempfile
+import zipfile
 
 import numpy as np
 
@@ -187,24 +189,80 @@ def standard_scale(X: np.ndarray) -> np.ndarray:
     return X
 
 
+#: the parsed cache beside a CSV cache ``P``: ``P`` + this suffix
+PARSED_SUFFIX = ".parsed.npz"
+
+
+def _csv_key(dataset_csv: str) -> np.ndarray:
+    """What names one version of the CSV cache: its size, modification
+    time and inode (a rewrite is a new file, ``_write_cache``)."""
+    st = os.stat(dataset_csv)
+    return np.array([st.st_size, st.st_mtime_ns, st.st_ino], np.int64)
+
+
+def _read_parsed(dataset_csv: str):
+    """``(X, s_id cells)`` from the parsed cache when it was made from the
+    CSV cache as it is now, else None (missing, stale or unreadable)."""
+    try:
+        key = _csv_key(dataset_csv)
+        with np.load(dataset_csv + PARSED_SUFFIX) as z:
+            if not np.array_equal(z["key"], key):
+                return None
+            return z["X"], z["sid"].tolist()
+    except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _write_parsed(dataset_csv: str, key, X: np.ndarray, sids) -> None:
+    """Write the parsed cache atomically; a directory that refuses it
+    leaves the CSV cache the only one."""
+    try:
+        fd, tmp = tempfile.mkstemp(
+            dir=os.path.dirname(os.path.abspath(dataset_csv)),
+            suffix=".tmp")
+    except OSError:
+        return
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, key=key, X=X, sid=np.array(sids, dtype=str))
+        os.replace(tmp, dataset_csv + PARSED_SUFFIX)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+
+
 def load_feature_pool(dataset_csv: str | None = None,
                       features_dir: str | None = None,
                       scale: bool = True) -> FramePool:
     """The scaled frame-feature pool.  Reads the cached table if present,
-    else assembles the per-song CSVs and writes the cache."""
+    else assembles the per-song CSVs and writes the cache; the table's
+    parse is kept beside the cache, keyed by the cache's version."""
+    parsed = None
     if dataset_csv is not None and os.path.exists(dataset_csv):
-        header, rows = _read_table(dataset_csv)
+        parsed = _read_parsed(dataset_csv)
+        if parsed is None:
+            key = _csv_key(dataset_csv)
+            header, rows = _read_table(dataset_csv)
     else:
         header, rows = _assemble_feature_csvs(features_dir)
         if dataset_csv is not None:
             _write_cache(dataset_csv, header, rows)
-    cols = feature_slice(header)
-    sid_col = header.index("s_id")
-    X = np.array([[float(v) for v in r[cols]] for r in rows],
-                 np.float64).astype(np.float32)
+            key = _csv_key(dataset_csv)
+    if parsed is None:
+        cols = feature_slice(header)
+        sid_col = header.index("s_id")
+        X = np.array([[float(v) for v in r[cols]] for r in rows],
+                     np.float64).astype(np.float32)
+        sids = [r[sid_col] for r in rows]
+        if dataset_csv is not None:
+            _write_parsed(dataset_csv, key, X, sids)
+    else:
+        X, sids = parsed
     if scale:
         X = standard_scale(X)
-    return FramePool(X, [_song_id(r[sid_col]) for r in rows])
+    return FramePool(X, [_song_id(s) for s in sids])
 
 
 def user_pool(pool: FramePool, anno: Annotations, user_id) -> tuple:

@@ -45,6 +45,10 @@ from consensus_entropy_tpu_torch.models.base import (
     _write_npz,
 )
 from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
+from consensus_entropy_tpu_torch.models.generic_members import (
+    GENERIC_KINDS,
+    GenericMember,
+)
 
 ALL_CLASSES = np.arange(NUM_CLASSES)
 #: ``np.iinfo(np.int32).max``: the bound of scikit-learn's seed draws
@@ -514,5 +518,7 @@ class SGDMember(Member):
 
 
 #: member kind -> class, for files named ``classifier_{kind}.{name}.npz``
+#: (a generic kind's file names its kind in its header)
 MEMBER_TYPES = {"gnb": GNBMember, "sgd": SGDMember,
-                "xgb": NativeGBDTMember}
+                "xgb": NativeGBDTMember,
+                **{kind: GenericMember for kind in GENERIC_KINDS}}

@@ -510,8 +510,8 @@ class FabricCoordinator:
         self.tracer = tracer
         #: the live introspection plane (``introspect=False`` turns
         #: every limb off at once): control-plane spans (gated here),
-        #: the coordinator's status snapshot writer (None until
-        #: ``obs/status.py`` is ported) and the SLO burn-rate alert
+        #: the coordinator's status snapshot writer
+        #: (``obs.status.StatusWriter`` or None) and the SLO burn-rate alert
         #: watcher (``obs.alerts.AlertWatcher`` or None).
         #: Introspection changes what operators can SEE, never results.
         self.introspect = introspect
@@ -2522,6 +2522,8 @@ class FabricCoordinator:
             payload["fleet_planner"] = self.fleet_planner.summary()
         if self.alerts is not None:
             payload["alerts"] = self.alerts.active
+            # the sinks' delivery failures (the --alert-sink help's count)
+            payload["alert_sink_errors"] = self.alerts.sink_errors
         return payload
 
     # -- summary -----------------------------------------------------------

@@ -237,9 +237,8 @@ def run_worker(fabric_dir: str, host_id: str, *, build_entry, scheduler,
     """
     paths = fabric_paths(fabric_dir, host_id)
     journal = AdmissionJournal(paths["events"])
-    # ``status``/``alerts``: the worker's live-introspection limbs (a
-    # status writer, None until obs/status.py is ported; an
-    # obs.alerts.AlertWatcher)
+    # ``status``/``alerts``: the worker's live-introspection limbs (an
+    # obs.status.StatusWriter; an obs.alerts.AlertWatcher)
     server = FleetServer(scheduler, config, preemption=preemption,
                          journal=journal, status=status, alerts=alerts)
     feed = JsonlTail(paths["assign"])

@@ -5,7 +5,7 @@ the fabric's seams included: ``fence`` and ``evict`` release an in-flight
 user at its next checkpoint or step for a migration, ``apply_fleet_edges``
 adopts the coordinator's bucket edges, ``set_depth`` is the gray ladder's
 dial, and the ``status`` / ``alerts`` limbs take the introspection plane
-(``status`` stays ``None`` until ``obs/status.py`` is ported).
+(``obs.status.StatusWriter``, ``obs.alerts.AlertWatcher``).
 ``FleetServer`` holds a :class:`~consensus_entropy_
 tpu_torch.fleet.scheduler.FleetScheduler` open (``open`` / ``admit`` /
 ``pump`` / ``close``) and feeds it continuously:
@@ -549,7 +549,7 @@ class FleetServer:
         self._ctl_compactions = 0
         self._ctl_breaker: dict = {}
         #: the introspection plane: ``status`` a status writer the serve
-        #: loop refreshes (``None`` until ``obs/status.py`` is ported),
+        #: loop refreshes (``obs.status.StatusWriter`` or None),
         #: ``alerts`` an ``obs.alerts.AlertWatcher`` evaluated on the
         #: same cadence.  Observation only: neither feeds a journaled
         #: decision
@@ -996,6 +996,8 @@ class FleetServer:
                                   for w, b in per_bucket.items()}
         if self.alerts is not None:
             payload["alerts"] = self.alerts.active
+            # the sinks' delivery failures (the --alert-sink help's count)
+            payload["alert_sink_errors"] = self.alerts.sink_errors
         return payload
 
     def _ctl_spans(self) -> None:

@@ -9,10 +9,13 @@ checkpoints (``classifier_{model}.it_{i}``, ``classifier_cnn.it_{i}`` or
 ``classifier_cnn_{arch}.it_{i}``), metrics are printed and appended to
 ``pretrain_metrics.jsonl``.
 
-The registry holds the kinds the port has members for: ``gnb``, ``sgd``
-and ``xgb`` (the boosted trees of ``models/gbdt.py``).  scikit-learn's
-generic kinds (``rf``, ``svc``, ``knn``, ``gpc``, ``gbc``) are refused by
-name: the card machine has no scikit-learn, and the port no such member.
+The registry holds the kinds the port can fit: ``gnb``, ``sgd``, ``xgb``
+(the boosted trees of ``models/gbdt.py``) and ``knn`` (a frozen generic
+member whose fitted state is its rows, ``models/generic_members.py``).
+The other generic kinds (``rf``, ``svc``, ``gpc``, ``gbc``) are refused by
+name: their members load from a converted JAX registry
+(``convert.registry_from_jax``), and fitting them without scikit-learn,
+which the card machine lacks, is still to be ported.
 """
 
 from __future__ import annotations
@@ -53,15 +56,18 @@ def cnn_model_arch(model: str) -> str | None:
         raise ValueError(f"{model!r} pre-trains no CNN")
     return None if model in ("cnn", "cnn_jax") else model[len("cnn_"):-4]
 
-#: the JAX registry's scikit-learn kinds without a port member
-UNPORTED_KINDS = {"rf": "RandomForestClassifier", "svc": "SVC",
-                  "knn": "KNeighborsClassifier",
+#: the JAX registry's scikit-learn kinds the port does not fit: their
+#: members come from a converted JAX registry
+UNFITTED_KINDS = {"rf": "RandomForestClassifier", "svc": "SVC",
                   "gpc": "GaussianProcessClassifier",
                   "gbc": "GradientBoostingClassifier"}
 
 
 def _registry(seed) -> dict[str, Callable[[str], Member]]:
     from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
+    from consensus_entropy_tpu_torch.models.generic_members import (
+        GenericMember,
+    )
     from consensus_entropy_tpu_torch.models.members import (
         GNBMember,
         SGDMember,
@@ -72,16 +78,20 @@ def _registry(seed) -> dict[str, Callable[[str], Member]]:
         "sgd": lambda name: SGDMember(name, seed=seed),
         # 100 rounds at depth 5; its trees draw nothing (JAX: seed or 0)
         "xgb": lambda name: NativeGBDTMember(name),
+        # KNeighborsClassifier(): k = 5, its fit stores the rows
+        "knn": lambda name: GenericMember(name, "knn"),
     }
 
 
 def check_model(model: str) -> None:
     """Raise for a kind the port cannot pre-train, naming why."""
-    if model in UNPORTED_KINDS:
+    if model in UNFITTED_KINDS:
         raise ValueError(
-            f"model {model!r} (scikit-learn's {UNPORTED_KINDS[model]}) has "
-            "no port member; the port pre-trains gnb, sgd, xgb and the CNN "
-            "trunks")
+            f"model {model!r} (scikit-learn's {UNFITTED_KINDS[model]}) is "
+            "not fitted by the port: its members load from a JAX registry "
+            "converted by convert.registry_from_jax, and fitting them on "
+            "the card machine is still to be ported; the port pre-trains "
+            "gnb, sgd, xgb, knn and the CNN trunks")
     if model not in _registry(None):
         raise ValueError(f"unknown classic model {model!r}")
 

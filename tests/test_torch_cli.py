@@ -56,8 +56,8 @@ def _user_metrics(models_root, mode):
     users = os.path.join(models_root, "users")
     out = {}
     for u in sorted(os.listdir(users)):
-        if not os.path.isdir(os.path.join(users, u)):
-            continue  # the fleet's fleet_metrics.jsonl
+        if not os.path.isdir(os.path.join(users, u, mode)):
+            continue  # fleet_metrics.jsonl, the operator plane's status/
         with open(os.path.join(users, u, mode, "metrics.jsonl")) as f:
             out[u] = [json.loads(line) for line in f]
     return out

@@ -124,6 +124,35 @@ def test_feature_pool_newer_vintage_cache(tmp_path):
                         jax_amg.load_feature_pool(cache))
 
 
+def test_feature_pool_parsed_cache_follows_the_csv(roots, tmp_path,
+                                                  monkeypatch):
+    feats = os.path.join(roots["amg"], "feats")
+    cache = str(tmp_path / "dataset.csv")
+    amg.load_feature_pool(cache, feats)
+    assert os.path.exists(cache + amg.PARSED_SUFFIX)
+    ref = jax_amg.load_feature_pool(cache, None)
+    with monkeypatch.context() as m:
+        # a later read takes the parsed cache, not the text
+        m.setattr(amg, "_read_table", None)
+        _assert_pools_equal(amg.load_feature_pool(cache, None), ref)
+        _assert_pools_equal(amg.load_feature_pool(cache, None, scale=False),
+                            jax_amg.load_feature_pool(cache, None,
+                                                      scale=False))
+    # a rewritten CSV cache makes the parsed one stale
+    other = str(tmp_path / "other.csv")
+    amg_dataset_frame(np.random.default_rng(6), n_songs=30,
+                      feature_cols=FEATURE_COLS_FFTMAG).to_csv(
+        other, sep=";", index=False)
+    os.replace(other, cache)
+    ref = jax_amg.load_feature_pool(cache, None)
+    _assert_pools_equal(amg.load_feature_pool(cache, None), ref)
+    # a torn parsed cache is read past
+    with open(cache + amg.PARSED_SUFFIX, "r+b") as f:
+        f.truncate(20)
+    _assert_pools_equal(amg.load_feature_pool(cache, None), ref)
+    _assert_pools_equal(amg.load_feature_pool(cache, None), ref)
+
+
 def test_user_pool_matches(roots):
     mat, mapping = _paths(roots["amg"])
     feats = os.path.join(roots["amg"], "feats")

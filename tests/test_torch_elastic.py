@@ -289,7 +289,8 @@ def _both(tmp_path, cfg_kw, users, pools, make_script, *,
           with_status=False, **kw):
     """The scenario through both coordinators; ``with_status`` gives each a
     status limb and an alert watcher, whose payloads (one a poll) must be
-    equal too (they read the clock, so they shift the rounds)."""
+    equal too (they read the clock, so they shift the rounds), the port's
+    ``alert_sink_errors`` count, 0, aside."""
     out, payloads = {}, {}
     for name, pkg in PKGS.items():
         root = tmp_path / name
@@ -301,6 +302,9 @@ def _both(tmp_path, cfg_kw, users, pools, make_script, *,
                                 pools, make_script(pkg), status=status,
                                 alerts=alerts, **kw)
         payloads[name] = status.payloads if with_status else None
+    for p in payloads["port"] or ():
+        # the port's count of alert-sink failures (no sink here)
+        assert p.pop("alert_sink_errors") == 0
     assert payloads["port"] == payloads["jax"]
     assert payloads["port"] or not with_status
     assert _summaries_equal(out["jax"][0], out["port"][0])

@@ -328,7 +328,8 @@ class _Status:
 def test_status_limb_payloads_match_jax(tmp_path, users):
     """A status writer given to either server is asked for the same
     payloads (the JAX payload's ``jit`` section aside: the port compiles
-    nothing at run time); the alert watcher beside it evaluates the same
+    nothing at run time; the port's ``alert_sink_errors``, 0, aside); the
+    alert watcher beside it evaluates the same
     alerts.  Timing fields (the planner's host-step EMA, bucket
     occupancy) are set aside."""
     from consensus_entropy_tpu.obs.alerts import AlertWatcher as JaxWatcher
@@ -359,6 +360,8 @@ def test_status_limb_payloads_match_jax(tmp_path, users):
         for p in status.payloads:
             p.pop("jit", None)
             p.pop("buckets", None)
+            # the port's count of alert-sink failures (no sink here)
+            assert p.pop("alert_sink_errors", 0) == 0
             for k in ("host_step_ema_s", "admission_hold_rounds",
                       "dispatch_hold_rounds"):
                 p.get("planner", {}).pop(k, None)

@@ -52,7 +52,9 @@ print(len(names))
 #: frontend, the trunks, full-song scoring and the reference importer;
 #: slice 7: the fleet engine and the obs pieces it imports; slice 8:
 #: pre-training and the evidence experiment; slice 9: the meshes; slice
-#: 10: single-host serving, the span tracer, export and the workload)
+#: 10: single-host serving, the span tracer, export and the workload;
+#: slice 11: the fabric; slice 12: the operator plane and CLIs and the
+#: generic members)
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "models.committee", "convert", "prng", "cli.amg_test",
                  "fleet.scheduler", "fleet.report", "fleet.session",
@@ -64,7 +66,10 @@ SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "parallel.multihost", "serve.buckets", "serve.breaker",
                  "serve.watchdog", "serve.planner", "serve.journal",
                  "serve.server", "obs.export", "resilience.io",
-                 "workload.trace", "workload.driver", "workload.grade")
+                 "workload.trace", "workload.driver", "workload.grade",
+                 "serve.fabric", "serve.hosts", "obs.alerts", "obs.status",
+                 "cli.top", "cli.fsck", "cli.report", "cli.soak",
+                 "models.generic_members")
 
 
 def test_every_port_module_imports_without_jax():
@@ -72,7 +77,7 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 55   # the walk found the modules
+    assert int(out.stdout.split()[-1]) >= 61   # the walk found the modules
     walked = set(out.stdout.split())
     for name in SLICE_MODULES:
         assert f"consensus_entropy_tpu_torch.{name}" in walked, name
@@ -96,7 +101,7 @@ def _port_sources():
 
 def test_no_jax_package_import_in_port_or_chip_smoke():
     sources = list(_port_sources())
-    assert len(sources) >= 57
+    assert len(sources) >= 63
     assert os.path.join(PORT, "ops", "harmonic.py") in sources
     assert os.path.join(PORT, "fleet", "scheduler.py") in sources
     for path in sources:

@@ -136,12 +136,37 @@ def test_process_pool_equals_sequential(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["rf", "svc", "knn", "gpc", "gbc"])
-def test_sklearn_kinds_are_refused_by_name(tmp_path, kind):
+def test_sklearn_kinds_are_refused_by_name(tmp_path, capsys, kind):
+    """rf, svc, gpc and gbc are still refused by name (their members load
+    from a converted JAX registry); knn is fitted, and its folds equal
+    the JAX pre-trainer's: scikit-learn's stored rows, labels and classes,
+    the same metrics."""
     X, y, sids = _classic_data(1)
-    with pytest.raises(ValueError, match=f"'{kind}'.*no port member"):
-        pretrain.pretrain_classic(kind, X, y, sids, cv=1,
-                                  out_dir=str(tmp_path))
-    assert not os.path.exists(tmp_path / "pretrain_metrics.jsonl")
+    if kind != "knn":
+        with pytest.raises(ValueError, match=f"'{kind}'.*not fitted by the "
+                           "port.*convert.registry_from_jax"):
+            pretrain.pretrain_classic(kind, X, y, sids, cv=1,
+                                      out_dir=str(tmp_path))
+        assert not os.path.exists(tmp_path / "pretrain_metrics.jsonl")
+        return
+    import pickle
+
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = jax_pretrain.pretrain_classic(kind, X, y, sids, cv=2,
+                                         out_dir=jdir, seed=7)
+    jax_out = capsys.readouterr().out
+    got = pretrain.pretrain_classic(kind, X, y, sids, cv=2, out_dir=pdir,
+                                    seed=7)
+    assert got == want and capsys.readouterr().out == jax_out
+    for i in range(2):
+        with open(os.path.join(jdir, f"classifier_knn.it_{i}.pkl"),
+                  "rb") as f:
+            est = pickle.load(f)["estimator"]
+        ours = MEMBER_TYPES["knn"].load(
+            os.path.join(pdir, f"classifier_knn.it_{i}.npz")).state
+        np.testing.assert_array_equal(ours["fit_X"], est._fit_X)
+        np.testing.assert_array_equal(ours["y"], est._y)
+        np.testing.assert_array_equal(ours["classes"], est.classes_)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -344,7 +369,7 @@ def test_a_killed_cnn_fold_is_retrained_on_resume(cnn_runs, tmp_path,
     ("classifier_cnn_musicnn.x.npz", "cnn"),
     ("classifier_cnn.it_0.npz", "cnn"),
     ("classifier_cnn_resnet.it_0.npz", None),
-    ("classifier_rf.it_0.npz", None),
+    ("classifier_rf.it_0.npz", "rf"),
 ])
 def test_member_kind_takes_arch_tagged_cnn_files(fname, kind):
     if kind is None:
