@@ -222,13 +222,18 @@ Phases, one line of output each (or a few):
     parameters to its digest (``digest`` too), ``soak grade`` on phase 19
     (a)'s run to ``grade_run``'s deterministic section;
 22. generic: phase 11's registry plus one frozen generic member of each
-    kind at F = 260 (knn fitted by ``train.pretrain`` on phase 12's
-    DEAM-scale rows; rf, gbc, svc and gpc from seeded synthetic fitted
-    state of GENERIC_SIZES, scikit-learn's), ``amg_test`` GENERIC_ARGS on
-    the card and on the CPU (run inside phase 11): the queried songs equal
-    every epoch, each generic member's probabilities unchanged by every
-    update, the workspaces' generic members the registry's; each kind's
-    host-clock ms of ``predict_proba`` and ``predict`` at the pool's size.
+    kind at F = 260, every one fitted by the port without scikit-learn on
+    phase 12's DEAM-scale rows (knn by ``train.pretrain``, one fold; rf on
+    the first GENERIC_RF_ROWS rows; gbc, svc and gpc on the first
+    GENERIC_CUT_ROWS), and the boosted slot's scikit-learn member on the
+    first GENERIC_CUT_ROWS with two updates; each fit held to
+    scikit-learn 1.9.0's fingerprint of the same rows (GENERIC_SIZES,
+    ``python -m tests.torch_generic_sizes``) and timed on the host clock;
+    ``amg_test`` GENERIC_ARGS on the card and on the CPU (run inside
+    phase 11): the queried songs equal every epoch, each generic member's
+    probabilities unchanged by every update, the workspaces' generic
+    members the registry's; each kind's host-clock ms of
+    ``predict_proba`` and ``predict`` at the pool's size.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -310,6 +315,7 @@ from consensus_entropy_tpu_torch.models.generic_members import (  # noqa: E402
 from consensus_entropy_tpu_torch.models.members import (  # noqa: E402
     GNBMember,
     SGDMember,
+    make_boosted_member,
 )
 from consensus_entropy_tpu_torch.fleet import (  # noqa: E402
     FleetReport,
@@ -588,34 +594,219 @@ STATUS_POLL_S, STATUS_STALE_S = 0.5, 5.0
 FABRIC_C_AGING_S = 1.0
 # Phase 22: the generic members at full width (F = 260, C = 4).  The
 # committee is phase 11's REG_MEMBERS GaussianNB + REG_MEMBERS SGD registry
-# plus one member of each generic kind: knn fitted by the port's pretrain
-# on phase 12's DEAM-scale rows (one fold of 80% of the songs), rf, gbc,
-# svc and gpc built from seeded synthetic fitted state of scikit-learn's
-# sizes on those rows (``python -m tests.torch_generic_sizes``, scikit-learn
-# 1.9.0 on a CPU: GENERIC_SIZES), svc and gpc cut to GENERIC_CUT_ROWS
-# training rows (gpc is cubic in its rows).  amg_test GENERIC_ARGS on phase
-# 11's tree, card and CPU.
+# plus one member of each generic kind, each fitted by the port on phase
+# 12's DEAM-scale rows: knn by the port's pretrain (one fold of 80% of the
+# songs); rf on the first GENERIC_RF_ROWS rows; gbc, svc and gpc on the
+# first GENERIC_CUT_ROWS.  The boosted slot's scikit-learn member fits the
+# first GENERIC_CUT_ROWS and takes two updates (generic_update_batches).
+# The row counts are cut from the 108,120 rows for time: scikit-learn's
+# gbc alone on the 20,000 rows that gbc was once sized at took 670 s on
+# an 8-core CPU, more than the whole script's budget, and gpc is cubic in
+# its rows.  amg_test GENERIC_ARGS on phase 11's tree, card and CPU.
 GENERIC_ARGS = ["-q", "10", "-e", "2", "-n", "150", "--max-users", "2",
                 "-m", "mc"]
-GENERIC_CUT_ROWS, GENERIC_SAMPLE_ROWS, GPC_NEWTON = 2000, 64, 10
-# rf: nodes per tree (min, median, max; every synthetic tree takes the
-# median), fitted on all 108,120 rows; gbc on the first 20,000 (its
-# depth-2 trees hold 7 nodes whatever the rows); svc and gpc on the
-# first GENERIC_CUT_ROWS, gpc's constants at their lower bound.
-GENERIC_SIZES = {
-    "rf": {"trees": 100, "nodes": (8871, 10076, 11157)},
-    "gbc": {"stages": 100, "nodes": 7, "learning_rate": 0.1},
-    "svc": {"n_support": (244, 230, 267, 241),
-            "gamma": 0.00308341044745519,
-            "prob_a": (-6.154111882547254, -6.1950351494751645,
-                       -6.145894949625295, -6.1008568607709615,
-                       -6.104619146395228, -6.1586379756108585),
-            "prob_b": (0.020345677764727264, -0.0028391717078976014,
-                       -0.0032707096967393174, -0.002426405754358345,
-                       -0.007208612987997491, -0.007158267890744414)},
-    "gpc": {"constant": (9.999999999999997e-06,) * 4,
-            "length_scale": (1.0,) * 4},
-}
+GENERIC_RF_ROWS, GENERIC_CUT_ROWS, GENERIC_SAMPLE_ROWS = 20000, 2000, 64
+# scikit-learn 1.9.0's fingerprints (generic_fingerprint) of phase 22's
+# fits on the same rows: ``python -m tests.torch_generic_sizes``, whose
+# output this is (the per-fit seconds left out).  gpc on these rows is
+# degenerate: RBF(1.0) over 260 standard-normal features is nearly the
+# identity, its constants stay at their lower bound and every class
+# probability near 0.25.
+GENERIC_SIZES = json.loads("""
+{"gbc": {"leaf_abs": 781.8328217224476, "leaf_sum": [7.441687183088401,
+6.745628473424229, 7.529535014379903, 7.375282160354793, 6.074177633458552,
+6.005734160685288, 3.4192278762241664, 4.698056806268709, 3.478618342569157,
+3.7962431828279155, 2.7995617979448757, 2.704727500230468,
+3.730169815605172, 4.179528461454455, 3.584839117715818, 2.4342888590670935,
+2.6785088099276706, 2.369920519629874, 2.2833728424705497,
+1.6914142246897708, 2.0347042884921, 1.5298502095558986, 2.6619896674722208,
+0.9433268991331952, 1.4600477010469413, 3.166274239314201,
+2.503162206699891, 0.284389762466673, 2.6430137952745474,
+1.7992265108820744, 1.63242477896229, 1.7991939971253506, 2.236199474948488,
+1.8619513125975864, 1.815876929730503, 1.271232635373166,
+2.4166168056425597, 1.390076135734124, 2.402138625314357, 1.73441694852956,
+2.128603159658472, 0.8023964134203508, 2.5404425090698375,
+2.245507364299729, 1.2750868575878012, 3.100529078406839, 1.532132208777371,
+1.5081202138565852, 1.6235925288899946, 2.089562648395083,
+1.9406346111952084, 2.273717457783084, 2.472857799570345, 2.207592824091193,
+2.1522249105441933, 2.4753936603453233, 1.9663448886045036,
+1.7251891633452883, 1.7097949264781218, 1.9758160936058218,
+3.787322447881414, 2.670788828781359, 1.071868790198088, 2.236426329752902,
+1.2503357775872135, 2.2388081888193585, 1.2192583413070452,
+4.431152343504633, 1.5470822796338422, 1.6777018698454502,
+2.7404061596565716, 1.4755894032538728, 1.6628541065315663,
+2.7996500087455143, 0.5137431256531513, 1.177323051632677,
+1.532355185471293, 2.401760214729724, 2.767454306548338, 1.76456619808621,
+2.0137632010033, 1.8316499253346457, 2.452923295735399, 1.9012809231441794,
+1.6988082640113409, 2.942539667520492, 1.741651360176665,
+2.6816162827405954, 1.623338560685955, 1.2182735823934516,
+1.4759859572188794, 1.5026375327112154, 2.152196659318341,
+1.8669376323502869, 3.059188312685994, 0.8430567552168919,
+2.8472947955330206, 1.182035999869342, 1.1525977156436167,
+1.7082524058665158], "nodes": [7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
+7, 7, 7, 7, 7, 7, 7, 7, 7, 7], "predict": [0, 1, 3, 0, 3, 2, 1, 3, 2, 2, 1,
+0, 0, 2, 1, 3, 3, 3, 2, 2, 2, 0, 1, 3, 2, 0, 1, 0, 0, 1, 1, 2, 0, 2, 1, 2,
+0, 0, 2, 2, 3, 2, 3, 2, 0, 1, 2, 3, 3, 2, 2, 3, 3, 3, 1, 3, 1, 3, 0, 1, 3,
+2, 1, 3], "proba_sum": [12.979486705058752, 14.096330892913429,
+18.923427669542207, 18.00075473248562]}, "gpc": {"constant":
+[9.999999999999997e-06, 9.999999999999997e-06, 9.999999999999997e-06,
+9.999999999999997e-06], "length_scale": [1.0, 1.0, 1.0, 1.0], "predict": [0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], "proba_sum": [16.0, 16.0, 16.0,
+16.0]}, "rf": {"depth": [27, 30, 26, 29, 24, 28, 29, 24, 25, 30, 23, 26, 27,
+27, 29, 29, 32, 24, 26, 27, 24, 29, 28, 27, 28, 28, 25, 29, 24, 32, 22, 24,
+25, 25, 23, 24, 29, 26, 23, 28, 27, 25, 30, 25, 29, 32, 26, 24, 24, 30, 23,
+23, 28, 26, 28, 25, 27, 23, 31, 24, 25, 30, 24, 24, 33, 31, 24, 31, 30, 22,
+31, 31, 27, 26, 29, 26, 21, 25, 24, 27, 24, 24, 26, 25, 28, 27, 34, 27, 25,
+24, 28, 26, 37, 25, 28, 29, 23, 29, 25, 26], "nodes": [2607, 2173, 2363,
+2455, 2355, 2353, 2451, 2487, 2441, 2261, 2297, 2227, 2607, 2357, 2355,
+2357, 2107, 2403, 2341, 2409, 2407, 1927, 2495, 2485, 2343, 2491, 2405,
+2723, 2393, 2281, 2541, 2473, 2605, 2373, 2309, 2463, 2441, 2473, 2229,
+2349, 2261, 2573, 2295, 2449, 2289, 2623, 2389, 2469, 2523, 2323, 2395,
+2439, 2143, 2561, 2281, 2315, 2551, 2183, 2473, 2593, 2259, 2359, 2475,
+2165, 2331, 2599, 2431, 2491, 2507, 2451, 2433, 2513, 2565, 2381, 2399,
+2441, 2447, 2325, 2349, 2673, 2483, 2595, 2407, 2527, 2501, 2399, 2417,
+2389, 2457, 2427, 2231, 2543, 2397, 2281, 2329, 2643, 2657, 2531, 2349,
+2369], "predict": [0, 1, 3, 0, 3, 2, 1, 3, 2, 2, 1, 0, 0, 2, 1, 3, 3, 3, 2,
+2, 2, 0, 1, 3, 2, 0, 1, 0, 0, 1, 1, 2, 0, 2, 1, 2, 0, 0, 2, 2, 3, 2, 3, 2,
+0, 1, 2, 3, 3, 2, 2, 3, 3, 3, 1, 3, 1, 3, 0, 1, 3, 2, 1, 3], "proba_sum":
+[13.349999999999998, 14.149999999999995, 18.22999999999999,
+18.270000000000003]}, "svc": {"gamma": 0.00308341044745519, "n_support":
+[244, 230, 267, 241], "predict": [0, 1, 3, 0, 3, 2, 1, 3, 2, 2, 1, 0, 0, 2,
+1, 3, 3, 3, 2, 2, 2, 0, 1, 3, 2, 0, 1, 0, 0, 1, 1, 2, 0, 2, 1, 2, 0, 0, 2,
+2, 3, 2, 3, 2, 0, 1, 2, 3, 3, 2, 2, 3, 3, 3, 1, 3, 1, 3, 0, 1, 3, 2, 1, 3],
+"prob_a": [-6.154111882547254, -6.1950351494751645, -6.145894949625295,
+-6.1008568607709615, -6.104619146395228, -6.1586379756108585], "prob_b":
+[0.020345677764727264, -0.0028391717078976014, -0.0032707096967393174,
+-0.002426405754358345, -0.007208612987997491, -0.007158267890744414],
+"proba_sum": [13.01293071537542, 14.00563813680621, 18.971963276870575,
+18.009467870947795]}, "xgb": [{"leaf_abs": 5106.535658478511, "leaf_sum":
+[127.14492192254477, 88.0967995823901, 74.80948866187643, 39.97951092473685,
+56.474254685331886, 43.980569251964646, 37.7737695499769, 35.65929391798582,
+27.135217869478836, 37.09788337603027, 19.779710319353367,
+19.54372752189835, 13.053396805503834, 25.388641820286416,
+14.39876500208645, 19.744726798699855, 36.16125203295685,
+13.065565036180562, 31.65522880259975, 12.467075924043504,
+14.569212696197317, 19.898053549465228, 26.083041650032033,
+23.78962321440067, 13.613781002882185, 23.480344105179555,
+10.332821548849548, 15.260340870726324, 18.8964057793084, 13.50750383341732,
+22.168444574092227, 17.813660761381108, 15.210725842732755,
+16.813001152491406, 21.838958557460664, 23.526322557245997,
+25.268501988441894, 20.44180021965354, 12.100801474744053,
+24.39171515580616, 15.482800751014082, 19.733959990150293,
+21.042629708156745, 18.855322787238507, 16.872661122060315,
+19.407220759979527, 16.574887988519695, 20.42741769851277,
+17.106728170731778, 26.678910188033793], "nodes": [55, 59, 61, 57, 59, 63,
+63, 61, 59, 63, 63, 63, 59, 63, 63, 63, 57, 63, 63, 63, 63, 61, 63, 63, 63,
+63, 63, 61, 61, 63, 63, 63, 63, 63, 63, 63, 61, 63, 63, 63, 61, 63, 63, 63,
+59, 63, 63, 63, 63, 63, 63, 63, 59, 63, 63, 63, 59, 61, 63, 63, 63, 63, 63,
+63, 59, 63, 61, 63, 61, 61, 61, 63, 61, 61, 63, 63, 63, 63, 63, 63, 57, 61,
+63, 61, 61, 63, 61, 63, 59, 63, 55, 63, 63, 61, 63, 63, 57, 63, 63, 61, 57,
+61, 63, 59, 61, 63, 61, 63, 59, 61, 49, 61, 57, 63, 63, 61, 55, 63, 63, 61,
+61, 63, 55, 63, 51, 63, 57, 57, 59, 61, 59, 63, 61, 63, 61, 61, 61, 61, 63,
+59, 61, 61, 59, 61, 55, 61, 61, 63, 55, 63, 63, 63, 59, 61, 57, 59, 61, 63,
+63, 61, 63, 61, 63, 61, 57, 59, 59, 61, 59, 63, 63, 61, 63, 63, 63, 61, 63,
+63, 63, 63, 55, 63, 57, 61, 63, 63, 59, 63, 63, 63, 61, 63, 63, 63, 63, 59,
+53, 63, 63, 57], "predict": [0, 1, 3, 0, 3, 2, 1, 3, 2, 2, 1, 0, 0, 2, 1, 3,
+3, 3, 2, 2, 2, 0, 1, 3, 2, 0, 1, 0, 0, 1, 1, 2, 0, 2, 1, 2, 0, 0, 2, 2, 3,
+2, 3, 2, 0, 1, 2, 3, 3, 2, 2, 3, 3, 3, 1, 3, 1, 3, 0, 1, 3, 2, 1, 3],
+"proba_sum": [13.29004345739502, 13.661162397634065, 18.6295541172727,
+18.41924002769822]}, {"leaf_abs": 5393.757238821012, "leaf_sum":
+[127.14492192254477, 88.0967995823901, 74.80948866187643, 39.97951092473685,
+56.474254685331886, 43.980569251964646, 37.7737695499769, 35.65929391798582,
+27.135217869478836, 37.09788337603027, 19.779710319353367,
+19.54372752189835, 13.053396805503834, 25.388641820286416,
+14.39876500208645, 19.744726798699855, 36.16125203295685,
+13.065565036180562, 31.65522880259975, 12.467075924043504,
+14.569212696197317, 19.898053549465228, 26.083041650032033,
+23.78962321440067, 13.613781002882185, 23.480344105179555,
+10.332821548849548, 15.260340870726324, 18.8964057793084, 13.50750383341732,
+22.168444574092227, 17.813660761381108, 15.210725842732755,
+16.813001152491406, 21.838958557460664, 23.526322557245997,
+25.268501988441894, 20.44180021965354, 12.100801474744053,
+24.39171515580616, 15.482800751014082, 19.733959990150293,
+21.042629708156745, 18.855322787238507, 16.872661122060315,
+19.407220759979527, 16.574887988519695, 20.42741769851277,
+17.106728170731778, 26.678910188033793, -11.975862463769783,
+-11.981942596620852, -11.986395119875015, -11.98967891943462,
+-11.992116912072362, -11.993938483256082, -11.995307917015868,
+-11.996343724175862, -11.997131949553534, -11.997735433910897], "nodes":
+[55, 59, 61, 57, 59, 63, 63, 61, 59, 63, 63, 63, 59, 63, 63, 63, 57, 63, 63,
+63, 63, 61, 63, 63, 63, 63, 63, 61, 61, 63, 63, 63, 63, 63, 63, 63, 61, 63,
+63, 63, 61, 63, 63, 63, 59, 63, 63, 63, 63, 63, 63, 63, 59, 63, 63, 63, 59,
+61, 63, 63, 63, 63, 63, 63, 59, 63, 61, 63, 61, 61, 61, 63, 61, 61, 63, 63,
+63, 63, 63, 63, 57, 61, 63, 61, 61, 63, 61, 63, 59, 63, 55, 63, 63, 61, 63,
+63, 57, 63, 63, 61, 57, 61, 63, 59, 61, 63, 61, 63, 59, 61, 49, 61, 57, 63,
+63, 61, 55, 63, 63, 61, 61, 63, 55, 63, 51, 63, 57, 57, 59, 61, 59, 63, 61,
+63, 61, 61, 61, 61, 63, 59, 61, 61, 59, 61, 55, 61, 61, 63, 55, 63, 63, 63,
+59, 61, 57, 59, 61, 63, 63, 61, 63, 61, 63, 61, 57, 59, 59, 61, 59, 63, 63,
+61, 63, 63, 63, 61, 63, 63, 63, 63, 55, 63, 57, 61, 63, 63, 59, 63, 63, 63,
+61, 63, 63, 63, 63, 59, 53, 63, 63, 57, 15, 21, 19, 17, 15, 21, 19, 17, 15,
+21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17,
+15, 21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17], "predict": [0, 1, 3, 0, 3,
+2, 1, 3, 2, 2, 1, 0, 0, 2, 1, 3, 3, 3, 2, 2, 2, 0, 1, 3, 2, 0, 1, 0, 0, 1,
+1, 2, 0, 2, 1, 2, 0, 0, 2, 2, 3, 2, 3, 2, 0, 1, 2, 3, 3, 2, 2, 3, 3, 3, 1,
+3, 1, 3, 0, 1, 3, 2, 1, 3], "proba_sum": [13.009020349082077,
+14.174113317527553, 18.474063970518475, 18.342802362871904]}, {"leaf_abs":
+5676.575127590172, "leaf_sum": [127.14492192254477, 88.0967995823901,
+74.80948866187643, 39.97951092473685, 56.474254685331886,
+43.980569251964646, 37.7737695499769, 35.65929391798582, 27.135217869478836,
+37.09788337603027, 19.779710319353367, 19.54372752189835,
+13.053396805503834, 25.388641820286416, 14.39876500208645,
+19.744726798699855, 36.16125203295685, 13.065565036180562,
+31.65522880259975, 12.467075924043504, 14.569212696197317,
+19.898053549465228, 26.083041650032033, 23.78962321440067,
+13.613781002882185, 23.480344105179555, 10.332821548849548,
+15.260340870726324, 18.8964057793084, 13.50750383341732, 22.168444574092227,
+17.813660761381108, 15.210725842732755, 16.813001152491406,
+21.838958557460664, 23.526322557245997, 25.268501988441894,
+20.44180021965354, 12.100801474744053, 24.39171515580616,
+15.482800751014082, 19.733959990150293, 21.042629708156745,
+18.855322787238507, 16.872661122060315, 19.407220759979527,
+16.574887988519695, 20.42741769851277, 17.106728170731778,
+26.678910188033793, -11.975862463769783, -11.981942596620852,
+-11.986395119875015, -11.98967891943462, -11.992116912072362,
+-11.993938483256082, -11.995307917015868, -11.996343724175862,
+-11.997131949553534, -11.997735433910897, -9.72784895382232,
+-10.064892392671641, -10.231823287164612, -10.325958561677503,
+-10.383188342263221, -10.419719224708132, -10.443841990259651,
+-10.460171431731776, -10.471435959904147, -10.479322579588263], "nodes":
+[55, 59, 61, 57, 59, 63, 63, 61, 59, 63, 63, 63, 59, 63, 63, 63, 57, 63, 63,
+63, 63, 61, 63, 63, 63, 63, 63, 61, 61, 63, 63, 63, 63, 63, 63, 63, 61, 63,
+63, 63, 61, 63, 63, 63, 59, 63, 63, 63, 63, 63, 63, 63, 59, 63, 63, 63, 59,
+61, 63, 63, 63, 63, 63, 63, 59, 63, 61, 63, 61, 61, 61, 63, 61, 61, 63, 63,
+63, 63, 63, 63, 57, 61, 63, 61, 61, 63, 61, 63, 59, 63, 55, 63, 63, 61, 63,
+63, 57, 63, 63, 61, 57, 61, 63, 59, 61, 63, 61, 63, 59, 61, 49, 61, 57, 63,
+63, 61, 55, 63, 63, 61, 61, 63, 55, 63, 51, 63, 57, 57, 59, 61, 59, 63, 61,
+63, 61, 61, 61, 61, 63, 59, 61, 61, 59, 61, 55, 61, 61, 63, 55, 63, 63, 63,
+59, 61, 57, 59, 61, 63, 63, 61, 63, 61, 63, 61, 57, 59, 59, 61, 59, 63, 63,
+61, 63, 63, 63, 61, 63, 63, 63, 63, 55, 63, 57, 61, 63, 63, 59, 63, 63, 63,
+61, 63, 63, 63, 63, 59, 53, 63, 63, 57, 15, 21, 19, 17, 15, 21, 19, 17, 15,
+21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17,
+15, 21, 19, 17, 15, 21, 19, 17, 15, 21, 19, 17, 19, 17, 17, 15, 19, 17, 17,
+15, 19, 17, 17, 15, 19, 17, 17, 15, 19, 17, 17, 15, 19, 17, 17, 15, 19, 17,
+17, 15, 19, 17, 17, 15, 19, 17, 17, 15, 19, 17, 17, 15], "predict": [0, 1,
+3, 0, 3, 2, 1, 3, 2, 2, 1, 0, 0, 2, 1, 3, 3, 3, 2, 2, 2, 0, 1, 3, 2, 0, 1,
+0, 0, 1, 1, 2, 0, 2, 1, 2, 0, 0, 2, 2, 3, 2, 3, 2, 0, 1, 2, 3, 3, 2, 2, 3,
+3, 3, 1, 3, 1, 3, 0, 1, 3, 2, 1, 3], "proba_sum": [13.543032437125586,
+13.706775416545655, 18.546605537340184, 18.203586608988573]}]}
+""")
 
 
 def make_inputs(m, n, k_frames, n_feat, n_class, seed):
@@ -4936,108 +5127,142 @@ def deam_scale_rows():
     return x, y, np.repeat(np.arange(DEAM_SONGS), DEAM_FRAMES), centers
 
 
-def _random_trees(rng, n_trees, n_nodes, n_class, leaf):
-    """``n_trees`` binary trees of ``n_nodes`` nodes each (one fewer when
-    ``n_nodes`` is even: a binary tree's count is odd), grown level by
-    level from random leaves, as ``generic_members._tree_arrays`` lays
-    them out: a random feature and a threshold a standard normal draw (the
-    rows' scale) at each split, ``leaf(rng, size)`` values at the nodes."""
-    n_nodes -= 1 - n_nodes % 2
-    left, right, feat, thr = [], [], [], []
-    offsets = [0]
-    for _ in range(n_trees):
-        lc, rc = [-1], [-1]
-        frontier = np.array([0])
-        while len(lc) < n_nodes:
-            n_split = min(len(frontier), (n_nodes - len(lc)) // 2)
-            chosen = rng.choice(frontier, n_split, replace=False)
-            new = []
-            for i in chosen:
-                lc[i], rc[i] = len(lc), len(lc) + 1
-                new += [len(lc), len(lc) + 1]
-                lc += [-1, -1]
-                rc += [-1, -1]
-            frontier = np.array(sorted(set(frontier) - set(chosen)) + new)
-        lc, rc = np.asarray(lc), np.asarray(rc)
-        inner = lc >= 0
-        base = offsets[-1]
-        left.append(np.where(inner, lc + base, -1))
-        right.append(np.where(inner, rc + base, -1))
-        feat.append(np.where(inner, rng.integers(0, F, len(lc)), -2))
-        thr.append(np.where(inner, rng.standard_normal(len(lc)), -2.0))
-        offsets.append(base + len(lc))
-    n = offsets[-1]
-    return {"offsets": np.asarray(offsets, np.int64),
-            "left": np.concatenate(left), "right": np.concatenate(right),
-            "feature": np.concatenate(feat).astype(np.int32),
-            "threshold": np.concatenate(thr),
-            "missing_left": np.zeros(n, np.uint8),
-            "value": leaf(rng, n).reshape(n, -1)}
+def generic_update_batches(x, y):
+    """The boosted slot's two updates after its fit on the first
+    GENERIC_CUT_ROWS rows: the next 10 rows, then the first 10 after those
+    whose class is not the last (a batch lacking a class, padded by the
+    member's remembered row)."""
+    first = np.arange(GENERIC_CUT_ROWS, GENERIC_CUT_ROWS + 10)
+    rest = np.arange(GENERIC_CUT_ROWS + 10, len(y))
+    second = rest[y[rest] != C - 1][:10]
+    return [(x[first], y[first]), (x[second], y[second])]
 
 
-def synthetic_generic(kind, rng, x, y):
-    """A ``GenericMember`` of ``kind`` holding seeded synthetic fitted state
-    of scikit-learn's sizes (GENERIC_SIZES), consistent where prediction
-    needs it to be (gpc's ``L_`` is the Cholesky factor of ``I + W^1/2 K
-    W^1/2`` from its own rows); ``x``, ``y`` are the fitting rows."""
-    from scipy.linalg import cho_solve
-    from scipy.spatial.distance import cdist
+def tree_fingerprint(state, n_class=1):
+    """Node count and max depth of every tree of a member's tree arrays,
+    and the sum of leaf values of every stage of ``n_class`` trees."""
+    offsets = np.asarray(state["offsets"])
+    left, right = np.asarray(state["left"]), np.asarray(state["right"])
+    inner = np.flatnonzero(left >= 0)
+    parent = np.full(len(left), -1)
+    parent[left[inner]] = inner
+    parent[right[inner]] = inner
+    depth = np.zeros(len(left), np.int64)
+    up = parent.copy()
+    while (up >= 0).any():
+        depth += up >= 0
+        up = np.where(up >= 0, parent[np.maximum(up, 0)], -1)
+    leaf_value = np.where(left < 0, np.asarray(state["value"])[:, 0], 0.0)
+    per_tree = np.add.reduceat(leaf_value, offsets[:-1])
+    return {"nodes": np.diff(offsets).tolist(),
+            "depth": np.maximum.reduceat(depth, offsets[:-1]).tolist(),
+            "leaf_sum": per_tree.reshape(-1, n_class).sum(axis=1).tolist(),
+            "leaf_abs": float(np.abs(leaf_value).sum())}
 
-    size = GENERIC_SIZES[kind]
-    classes = np.arange(C)
-    if kind == "rf":
-        state = _random_trees(
-            rng, size["trees"], size["nodes"][1], C,
-            lambda r, n: r.dirichlet(np.ones(C), n))
-    elif kind == "gbc":
-        state = _random_trees(
-            rng, size["stages"] * C, size["nodes"], C,
-            lambda r, n: r.normal(0, 0.5, n))
-        prior = rng.dirichlet(np.full(C, 50.0))
-        state.update(init_raw=np.log(prior) - np.log(prior).mean(),
-                     learning_rate=size["learning_rate"])
+
+def generic_fingerprint(kind, state, sample):
+    """What phase 22 holds a fit of ``kind`` to (GENERIC_SIZES): rf's
+    trees' node counts and depths, gbc's node counts and per-stage leaf
+    sums, svc's support counts, Platt parameters and gamma, gpc's kernel
+    parameters; for every kind the column sums of ``predict_proba`` and
+    the ``predict`` ids on the ``sample`` rows."""
+    from consensus_entropy_tpu_torch.models import generic_members as gm
+
+    fp = {}
+    if kind in ("rf", "gbc", "xgb"):
+        t = tree_fingerprint(state, 1 if kind == "rf" else C)
+        fp["nodes"] = t["nodes"]
+        if kind == "rf":
+            fp["depth"] = t["depth"]
+        else:
+            fp["leaf_sum"], fp["leaf_abs"] = t["leaf_sum"], t["leaf_abs"]
     elif kind == "svc":
-        n_sv = np.asarray(size["n_support"], np.int64)
-        rows = np.concatenate([rng.choice(np.flatnonzero(y == c), n, False)
-                               for c, n in enumerate(n_sv)])
-        state = {"support_vectors": x[rows].astype(np.float64),
-                 "dual_coef": rng.uniform(-1, 1, (C - 1, n_sv.sum())),
-                 "intercept": rng.normal(0, 0.5, C * (C - 1) // 2),
-                 "n_support": n_sv,
-                 "prob_a": np.asarray(size["prob_a"], np.float64),
-                 "prob_b": np.asarray(size["prob_b"], np.float64),
-                 "gamma": size["gamma"]}
-    else:  # gpc
-        xt = x[:GENERIC_CUT_ROWS]
-        yt = y[:GENERIC_CUT_ROWS]
-        per = {"y_train": [], "pi": [], "w_sr": [], "L": []}
-        for b in range(C):
-            c = size["constant"][b]
-            ls = size["length_scale"][b]
-            k = c * np.exp(-0.5 * cdist(xt / ls, xt / ls, "sqeuclidean"))
-            yb = (yt == b).astype(np.int64)
-            # the Laplace mode by Newton's method (scikit-learn's
-            # _posterior_mode), so pi_, W_sr_ and L_ agree with the kernel
-            f = np.zeros(len(yt))
-            for _ in range(GPC_NEWTON + 1):
-                pi = 1 / (1 + np.exp(-f))
-                w_sr = np.sqrt(pi * (1 - pi))
-                lower = np.linalg.cholesky(
-                    np.eye(len(yt)) + w_sr[:, None] * k * w_sr[None, :])
-                b_vec = pi * (1 - pi) * f + (yb - pi)
-                f = k @ (b_vec - w_sr * cho_solve(
-                    (lower, True), (w_sr[:, None] * k) @ b_vec))
-            per["y_train"].append(yb)
-            per["pi"].append(pi)
-            per["w_sr"].append(w_sr)
-            per["L"].append(lower)
-        state = {"x_train": np.ascontiguousarray(xt),
-                 **{k: np.stack(v) for k, v in per.items()},
-                 "constant": np.asarray(size["constant"], np.float64),
-                 "length_scale": np.asarray(size["length_scale"],
-                                            np.float64)}
-    state["classes"] = classes
-    return GenericMember("it_0", kind, state)
+        fp.update(n_support=[int(v) for v in state["n_support"]],
+                  prob_a=[float(v) for v in state["prob_a"]],
+                  prob_b=[float(v) for v in state["prob_b"]],
+                  gamma=float(state["gamma"]))
+    elif kind == "gpc":
+        fp.update(constant=[float(v) for v in state["constant"]],
+                  length_scale=[float(v) for v in state["length_scale"]])
+    pk = "gbc" if kind == "xgb" else kind
+    fp["proba_sum"] = gm._PROBA[pk](state, sample).sum(axis=0).tolist()
+    fp["predict"] = [int(v) for v in gm._PREDICT[pk](state, sample)]
+    return fp
+
+
+#: each kind's tolerance against GENERIC_SIZES, its CPU tests' (``tests/
+#: test_torch_generic_fit.py``): absolute on the listed floats (rf's
+#: exact), relative on gpc's kernel parameters; gbc's and the boosted
+#: slot's leaf sums within 1e-12 of the leaves' absolute sum
+GENERIC_TOL = {"rf": 0.0, "gbc": 1e-12, "xgb": 1e-12, "svc": 1e-6,
+               "gpc": 1e-8}
+
+
+def check_fingerprint(kind, got, want):
+    """Raise unless ``got`` is ``want`` within ``kind``'s tolerance: counts
+    and ``predict`` ids equal; the probability column sums over
+    GENERIC_SAMPLE_ROWS rows within that many times the tolerance."""
+    tol = GENERIC_TOL[kind]
+    for key, ref in want.items():
+        val = got[key]
+        if key in ("nodes", "depth", "n_support", "predict"):
+            ok = list(val) == list(ref)
+        elif key == "leaf_abs":
+            continue
+        elif key == "leaf_sum":
+            ok = np.allclose(val, ref, rtol=0, atol=tol * want["leaf_abs"])
+        elif key in ("constant", "length_scale"):
+            ok = np.allclose(val, ref, rtol=1e-6, atol=0)
+        elif key == "proba_sum":
+            ok = np.allclose(val, ref, rtol=0,
+                             atol=tol * GENERIC_SAMPLE_ROWS)
+        elif key == "gamma":
+            ok = np.isclose(val, ref, rtol=1e-12, atol=0)
+        else:  # svc's prob_a, prob_b
+            ok = np.allclose(val, ref, rtol=0, atol=tol)
+        if not ok:
+            raise AssertionError(f"generic {kind}: {key} {val} is not "
+                                 f"scikit-learn's {ref}")
+
+
+def generic_fits(x, y):
+    """Phase 22's fits without scikit-learn: rf on the first
+    GENERIC_RF_ROWS rows, gbc, svc and gpc on the first GENERIC_CUT_ROWS,
+    each the JAX registry's estimator with ``random_state=SEED`` (the
+    port's ``train.pretrain`` registry); the boosted slot's scikit-learn
+    member on the first GENERIC_CUT_ROWS, then its two
+    ``generic_update_batches``.  Returns the members, each fit's host-clock
+    seconds and the fingerprints (``generic_fingerprint``) on the last
+    GENERIC_SAMPLE_ROWS rows."""
+    sample = x[-GENERIC_SAMPLE_ROWS:]
+    members, secs, fps = {}, {}, {}
+    for kind in ("rf", "gbc", "svc", "gpc"):
+        rows = GENERIC_RF_ROWS if kind == "rf" else GENERIC_CUT_ROWS
+        t0 = time.perf_counter()
+        m = pretrain._registry(SEED)[kind]("it_0").fit(x[:rows], y[:rows])
+        secs[kind] = time.perf_counter() - t0
+        members[kind] = m
+        fps[kind] = generic_fingerprint(kind, m.state, sample)
+    t0 = time.perf_counter()
+    boosted = make_boosted_member("it_0", seed=SEED, impl="sklearn").fit(
+        x[:GENERIC_CUT_ROWS], y[:GENERIC_CUT_ROWS])
+    secs["xgb"] = time.perf_counter() - t0
+    fps["xgb"] = [generic_fingerprint("xgb", boosted.model.state(), sample)]
+    for i, (xb, yb) in enumerate(generic_update_batches(x, y)):
+        t0 = time.perf_counter()
+        boosted.update(xb, yb)
+        secs[f"xgb_update_{i}"] = time.perf_counter() - t0
+        fps["xgb"].append(generic_fingerprint("xgb", boosted.model.state(),
+                                              sample))
+    return members, boosted, secs, fps
+
+
+def check_generic_fits(fps):
+    """Every fingerprint against scikit-learn's (GENERIC_SIZES)."""
+    for kind in ("rf", "gbc", "svc", "gpc"):
+        check_fingerprint(kind, fps[kind], GENERIC_SIZES[kind])
+    for got, want in zip(fps["xgb"], GENERIC_SIZES["xgb"], strict=True):
+        check_fingerprint("xgb", got, want)
 
 
 def generic_cli_runs(root, amg_root, host_models):
@@ -5057,12 +5282,14 @@ def generic_cli_runs(root, amg_root, host_models):
         knn_metrics = pretrain.pretrain_classic("knn", x, y, songs, cv=1,
                                                 out_dir=pre, seed=SEED)
     knn_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED + 90)
+    # rf, gbc, svc, gpc and the boosted slot: fitted here, held against
+    # scikit-learn's fingerprints of the same rows
     t0 = time.perf_counter()
-    for kind in ("rf", "gbc", "svc", "gpc"):
-        m = synthetic_generic(kind, rng, x, y)
+    fitted, _, fit_s, fps = generic_fits(x, y)
+    check_generic_fits(fps)
+    fits_s = time.perf_counter() - t0
+    for m in fitted.values():
         m.save(os.path.join(pre, Committee.member_file(m)))
-    synth_s = time.perf_counter() - t0
     shutil.copytree(pre, os.path.join(reg["cpu"], "pretrained"))
     files = workspace.member_files(pre)
     kinds = {k: files.index(f"classifier_{k}.it_0.npz")
@@ -5156,7 +5383,8 @@ def generic_cli_runs(root, amg_root, host_models):
                     if not a.startswith("_")) for k in registry}
     return {"wall_s": time.perf_counter() - t_all, "knn_s": knn_s,
             "knn_f1": knn_metrics, "knn_rows": len(registry["knn"].state[
-                "fit_X"]), "synth_s": synth_s, "walls": walls,
+                "fit_X"]), "fits_s": fits_s, "fit_s": fit_s, "fps": fps,
+            "walls": walls,
             "f1_diff": f1_diff, "updates": len(checked), "times": times,
             "pool_rows": len(sub.X), "sizes": sizes, "users": users,
             "order": kinds, "launches": launches}
@@ -5168,19 +5396,28 @@ def phase_generic(card, gen):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30).stdout.strip()
-    s = GENERIC_SIZES
+    fps = gen["fps"]
     print(f"[generic] {card}: registry of {REG_MEMBERS} GaussianNB + "
           f"{REG_MEMBERS} SGD members plus knn (the port's pretrain, one "
           f"fold at DEAM scale: {gen['knn_rows']} stored rows x {F}, "
           f"{gen['knn_s']:.1f} s with its held-out predict, "
-          f"{gen['knn_f1']}) and synthetic rf ({s['rf']['trees']} trees of "
-          f"{(s['rf']['nodes'][1] - 1) | 1} nodes), gbc ({s['gbc']['stages']} x {C} "
-          f"trees of {s['gbc']['nodes']} nodes), svc "
-          f"({sum(s['svc']['n_support'])} support vectors "
-          f"{s['svc']['n_support']}) and gpc ({C} binary "
-          f"Laplace estimators over {GENERIC_CUT_ROWS} rows) at "
-          f"scikit-learn's sizes, built in {gen['synth_s']:.1f} s; state "
-          f"bytes {gen['sizes']}")
+          f"{gen['knn_f1']}) and rf, gbc, svc and gpc fitted by the port "
+          f"without scikit-learn (rf on {GENERIC_RF_ROWS} rows: "
+          f"{len(fps['rf']['nodes'])} trees of {min(fps['rf']['nodes'])}-"
+          f"{max(fps['rf']['nodes'])} nodes, depth up to "
+          f"{max(fps['rf']['depth'])}; gbc, svc and gpc on "
+          f"{GENERIC_CUT_ROWS}: {len(fps['gbc']['nodes'])} gbc trees, svc "
+          f"support {fps['svc']['n_support']}, gpc constants "
+          f"{fps['gpc']['constant']}), and the boosted slot's scikit-learn "
+          f"member ({len(fps['xgb'][0]['nodes'])} trees, then 2 updates of "
+          f"10 rows, one lacking class {C - 1}): every fingerprint "
+          f"scikit-learn 1.9.0's (GENERIC_SIZES; node counts, depths, "
+          f"support counts and predict ids on {GENERIC_SAMPLE_ROWS} rows "
+          f"equal, floats within {GENERIC_TOL}); state bytes "
+          f"{gen['sizes']}")
+    print(f"[generic] {card} ({power}): host-clock fit s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in gen["fit_s"].items())
+          + f"; all fits with their checks {gen['fits_s']:.1f} s")
     print(f"[generic] {card}: amg_test {' '.join(GENERIC_ARGS)} on a copy "
           f"of phase 11's tree, card {gen['walls']['cuda']:.1f} s and CPU "
           f"{gen['walls']['cpu']:.1f} s: users {gen['users']}, queried songs "

@@ -7,6 +7,7 @@ marks the user complete, and a partial directory whose ``al_state.json``
 belongs to the same experiment resumes at its next iteration.
 
 Member files are the port's (``classifier_{gnb,sgd,xgb,cnn}.{name}.npz``,
+the ``xgb`` slot holding either boosted member,
 ``classifier_cnn_{arch}.{name}.npz`` from the pre-trainer, and the frozen
 generic kinds' ``classifier_{rf,svc,knn,gpc,gbc}.{name}.npz``), loaded in
 sorted file-name order, the order of JAX ``load_committee``
@@ -25,7 +26,10 @@ import shutil
 
 from consensus_entropy_tpu_torch.config import CNNConfig, TrainConfig
 from consensus_entropy_tpu_torch.models.committee import CNNMember, Committee
-from consensus_entropy_tpu_torch.models.members import MEMBER_TYPES
+from consensus_entropy_tpu_torch.models.members import (
+    MEMBER_TYPES,
+    load_member,
+)
 
 _DONE = "DONE"
 _MEMBER_PREFIX = "classifier_"
@@ -176,7 +180,7 @@ def _load_committee_once(path: str, config, train_config,
             if kind == CNNMember.kind:
                 cnns.append(CNNMember.load(full, config, device))
             else:
-                members.append(MEMBER_TYPES[kind].load(full))
+                members.append(load_member(kind, full))
         except Exception as e:
             raise CheckpointCorruptError(
                 f"{full}: failed to load member file ({e!r})") from e

@@ -32,9 +32,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=MODEL_CHOICES,
                    help="model to train ('cnn' is an alias of 'cnn_jax', "
                         "the vgg ShortChunkCNN; cnn_{arch}_jax another "
-                        "trunk; knn is fitted; rf, svc, gpc and gbc are "
-                        "refused: their members load from a JAX registry "
-                        "converted by convert.registry_from_jax)")
+                        "trunk; every classic kind, gnb, sgd, xgb, rf, svc, "
+                        "knn, gpc and gbc, is fitted on the host without "
+                        "scikit-learn)")
     p.add_argument("--epochs", type=int, default=None,
                    help="override CNN epochs (default settings n_epochs_cnn)")
     p.add_argument("--tb-dir", default=None,

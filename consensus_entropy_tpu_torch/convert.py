@@ -301,21 +301,65 @@ def _from_estimator(name: str, est, kind: str | None = None):
                      "GaussianNB, SGDClassifier or generic-kind estimator")
 
 
+def boosted_from_jax(name: str, est, update_estimators: int,
+                     class_rows: dict):
+    """The JAX boosted slot's scikit-learn member (``BoostedTreesMember``:
+    a ``GradientBoostingClassifier`` with warm start, its update size and
+    its remembered row of each class) -> the port's, read by attribute,
+    the estimator's random state included."""
+    from consensus_entropy_tpu_torch.models.members import (
+        BoostedTreesMember,
+    )
+    from consensus_entropy_tpu_torch.models.tree_fit import TREE_KEYS
+
+    if type(est).__name__ != "GradientBoostingClassifier":
+        raise ValueError(f"{name}: a {type(est).__name__} is not the "
+                         "boosted slot's GradientBoostingClassifier")
+    if (est.subsample != 1.0 or est.max_features is not None
+            or est.max_leaf_nodes is not None or est.min_samples_split != 2
+            or est.min_samples_leaf != 1 or est.n_iter_no_change is not None
+            or est.init is not None or est.loss != "log_loss"):
+        raise ValueError(f"{name}: only the boosted slot's "
+                         "GradientBoostingClassifier settings are ported")
+    st = {"name": name, "max_depth": int(est.max_depth),
+          "n_estimators": int(est.n_estimators),
+          "learning_rate": float(est.learning_rate),
+          "update_estimators": int(update_estimators),
+          "random_state": est.random_state,
+          "class_rows": {int(c): np.array(r, copy=True)
+                         for c, r in class_rows.items()}}
+    if hasattr(est, "estimators_"):
+        g = _gbc_state(est)
+        st.update(classes=g["classes"], init_raw=g["init_raw"],
+                  trees={k: g[k] for k in TREE_KEYS},
+                  rng_state=est._rng.get_state())
+    return BoostedTreesMember.from_state(st)
+
+
 def host_members_from_jax(members) -> list:
     """The JAX package's host members (``GNBMember``, ``SGDMember``,
-    ``GenericSklearnMember`` or their fitted scikit-learn estimators, and
-    ``NativeGBDTMember``, read by attribute) -> the port's members with
-    the same fitted state."""
-    return [_gbdt_from_jax(m) if hasattr(m, "binner") else
-            _from_estimator(getattr(m, "name", f"member_{i}"),
-                            getattr(m, "estimator", m),
-                            getattr(m, "kind", None))
-            for i, m in enumerate(members)]
+    ``GenericSklearnMember`` or their fitted scikit-learn estimators,
+    ``NativeGBDTMember`` and ``BoostedTreesMember``, read by attribute) ->
+    the port's members with the same fitted state."""
+    out = []
+    for i, m in enumerate(members):
+        if hasattr(m, "binner"):
+            out.append(_gbdt_from_jax(m))
+        elif hasattr(m, "update_estimators"):
+            out.append(boosted_from_jax(m.name, m.estimator,
+                                        m.update_estimators,
+                                        getattr(m, "_class_rows", {})))
+        else:
+            out.append(_from_estimator(getattr(m, "name", f"member_{i}"),
+                                       getattr(m, "estimator", m),
+                                       getattr(m, "kind", None)))
+    return out
 
 
 def _member_from_pickle(path: str):
     """One JAX member pickle (``{"kind", "name", "estimator"}``: GaussianNB,
-    SGD or a generic kind; or a native GBDT) -> the port's member."""
+    SGD or a generic kind; the boosted slot's native GBDT or its
+    GradientBoosting member) -> the port's member."""
     import pickle
 
     from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
@@ -329,10 +373,16 @@ def _member_from_pickle(path: str):
     )
 
     kind = state.get("kind")
+    if kind == "xgb" and "update_estimators" in state \
+            and "estimator" in state:
+        return boosted_from_jax(state["name"], state["estimator"],
+                                state["update_estimators"],
+                                state.get("class_rows", {}))
     if kind not in ("gnb", "sgd", *GENERIC_KINDS) or "estimator" not in state:
-        raise ValueError(f"{path}: a {kind!r} member, not a GaussianNB / "
-                         "SGD / generic-kind / native GBDT pickle; it is "
-                         "not ported")
+        raise ValueError(f"{path}: a {kind!r} member pickle whose format "
+                         "is not ported (the port reads GaussianNB, SGD, "
+                         "the generic kinds and both boosted members; an "
+                         "xgboost booster has no counterpart)")
     if kind in GENERIC_KINDS:
         return generic_from_estimator(state["name"], kind,
                                       state["estimator"])

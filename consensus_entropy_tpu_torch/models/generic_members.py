@@ -46,9 +46,18 @@ on the CPU for knn's search), reproducing scikit-learn 1.9.0's
   rows normalised by their sum;
   ``predict`` the first class of largest binary probability.
 
+Every kind also fits without scikit-learn, reproducing the estimator
+the JAX registry makes (``consensus_entropy_tpu/train/pretrain.py:49-63``)
+and its fitted arrays: ``knn`` stores its rows; ``rf`` and ``gbc`` build
+scikit-learn's trees in the host core (``models/tree_fit.py``,
+``native/ce_tree.cpp``); ``svc`` trains libsvm's solver there
+(``models/svm_fit.py``, ``native/ce_svm.cpp``); ``gpc`` runs the Laplace
+fit in numpy and scipy (``models/gpc_fit.py``).
+
 Member files are the port's ``.npz`` with its CRC32 trailer
-(``models/base.py``); ``convert`` makes them from the JAX package's
-pickles, where scikit-learn is installed.
+(``models/base.py``); the pre-trainer writes them from these fits, and
+``convert`` makes them from the JAX package's pickles, where
+scikit-learn is installed.
 """
 
 from __future__ import annotations
@@ -396,7 +405,8 @@ def _gpc_binary(state: dict, b: int, X, sq_dist) -> np.ndarray:
     k_star = (np.full(sq_dist.shape, c) * np.exp(-0.5 * sq_dist))
     f_star = k_star.T.dot(state["y_train"][b] - state["pi"][b])
     # scikit-learn calls scipy.linalg.solve on the Cholesky factor L_,
-    # which is lower triangular: the triangular solve gives its values
+    # which is lower triangular: the triangular solve gives its values to
+    # rounding (about 1e-13 apart) at half the work of the LU
     v = solve_triangular(state["L"][b], state["w_sr"][b][:, np.newaxis]
                          * k_star, lower=True)
     var_f = (np.full(X.shape[0], c) * np.ones(X.shape[0])
@@ -425,10 +435,14 @@ def _gpc_scores(state: dict, X) -> np.ndarray:
     dists = {}
     out = []
     for b in range(len(state["constant"])):
-        ls = float(np.squeeze(np.asarray(state["length_scale"][b])))
-        if ls not in dists:
-            dists[ls] = cdist(x_train / ls, X / ls, metric="sqeuclidean")
-        out.append(_gpc_binary(state, b, X, dists[ls]))
+        # a 0-d float64 array, as _check_length_scale makes it: float32
+        # rows divided by it become float64 (by a Python float they
+        # would stay float32)
+        ls = np.squeeze(np.asarray(state["length_scale"][b])).astype(float)
+        if float(ls) not in dists:
+            dists[float(ls)] = cdist(x_train / ls, X / ls,
+                                     metric="sqeuclidean")
+        out.append(_gpc_binary(state, b, X, dists[float(ls)]))
     return np.array(out).T
 
 
@@ -454,28 +468,46 @@ _SCALARS = {"knn": ("n_neighbors",), "rf": (),
             "gbc": ("learning_rate",), "svc": ("gamma",), "gpc": ()}
 
 
+def _fit_state(kind: str, X, y, seed) -> dict:
+    """The fitted state of ``kind`` on ``(X, y)``: the JAX registry's
+    estimator with ``random_state=seed``, fitted the port's way."""
+    if kind == "knn":
+        return knn_fit(X, y)
+    if kind in ("rf", "gbc"):
+        from consensus_entropy_tpu_torch.models import tree_fit
+
+        return (tree_fit.rf_fit if kind == "rf" else tree_fit.gbc_fit)(
+            X, y, seed=seed)
+    if kind == "svc":
+        from consensus_entropy_tpu_torch.models.svm_fit import svc_fit
+
+        return svc_fit(X, y, seed=seed)
+    from consensus_entropy_tpu_torch.models.gpc_fit import gpc_fit
+
+    return gpc_fit(X, y, seed=seed)
+
+
 class GenericMember(Member):
     """One frozen scikit-learn-kind member: ``state`` holds its fitted
-    arrays (see the module docstring and ``convert``).  ``update`` is a
-    no-op (JAX ``sklearn_members.py:121-122``); only ``knn`` can ``fit``,
-    because its fitted state is its training rows."""
+    arrays (see the module docstring and ``convert``).  ``fit`` fits any
+    kind as the JAX registry's estimator with ``random_state=seed`` fits
+    (knn draws nothing, gpc nothing without restarts); ``update`` is a
+    no-op (JAX ``sklearn_members.py:121-122``)."""
 
-    def __init__(self, name: str, kind: str, state: dict | None = None):
+    def __init__(self, name: str, kind: str, state: dict | None = None, *,
+                 seed: int | None = None):
         if kind not in GENERIC_KINDS:
             raise ValueError(f"unknown generic member kind {kind!r}; "
                              f"choose from {GENERIC_KINDS}")
         super().__init__(name)
         self.kind = kind
         self.state = state
+        self.seed = seed
 
     def fit(self, X, y):
-        if self.kind != "knn":
-            raise NotImplementedError(
-                f"{self.kind!r} members are not fitted by the port; load "
-                "them from a converted JAX registry")
         y = np.asarray(y)
         _require_all_classes(y)
-        self.state = knn_fit(X, y)
+        self.state = _fit_state(self.kind, X, y, self.seed)
         return self
 
     def update(self, X, y):

@@ -1,7 +1,9 @@
-"""The host members GaussianNB and SGD-logistic, with their own training.
+"""The host members GaussianNB and SGD-logistic, with their own training,
+and the boosted slot's scikit-learn member.
 
 Counterpart of ``consensus_entropy_tpu/models/sklearn_members.py:58-178``
-(``GNBMember``, ``SGDMember``).  Those wrap scikit-learn estimators; the
+(``GNBMember``, ``SGDMember``) and ``:244-349`` (``BoostedTreesMember``,
+``make_boosted_member``).  Those wrap scikit-learn estimators; the
 card machine has no scikit-learn, so here each member carries its fitted
 state as numpy arrays and trains itself, reproducing scikit-learn 1.9.0:
 
@@ -517,8 +519,166 @@ class SGDMember(Member):
         return obj
 
 
+class BoostedTreesMember(Member):
+    """The boosted slot's scikit-learn member (JAX
+    ``sklearn_members.py:244-329``): ``GradientBoostingClassifier(
+    max_depth=5, n_estimators=50, warm_start=True, random_state=seed)``,
+    fitted by ``models/tree_fit.py::GradientBoosting``.  ``update`` boosts
+    ``update_estimators`` more stages on the batch by warm start (raw
+    scores recomputed on the batch's rows, the estimator's random state
+    continued), the batch padded first with one remembered row of each
+    class it lacks (the warm start refits the class set from the batch).
+    Files carry ``impl: "sklearn"`` in their header; ``load_member``
+    tells them from the native member's."""
+
+    kind = "xgb"
+    IMPL = "sklearn"
+
+    def __init__(self, name: str = "xgb", *, max_depth: int = 5,
+                 n_estimators: int = 50, update_estimators: int = 10,
+                 seed: int | None = None):
+        from consensus_entropy_tpu_torch.models.tree_fit import (
+            GradientBoosting,
+        )
+
+        super().__init__(name)
+        self.model = GradientBoosting(max_depth=max_depth,
+                                      n_estimators=n_estimators,
+                                      random_state=seed)
+        self.update_estimators = update_estimators
+        self._class_rows = {}
+
+    def fit(self, X, y):
+        X, y = np.asarray(X), np.asarray(y)
+        _require_all_classes(y)
+        self.model.fit(X, y)
+        self._remember(X, y)
+        return self
+
+    def update(self, X, y):
+        X, y = np.asarray(X), np.asarray(y)
+        missing = np.setdiff1d(self.model.classes_, np.unique(y))
+        if missing.size:
+            Xm, ym = self._anchor_rows(missing)
+            X, y = np.vstack([X, Xm]), np.concatenate([y, ym])
+        self.model.n_estimators += self.update_estimators
+        self.model.fit(X, y)
+        self._remember(X, y)
+
+    def _remember(self, X, y):
+        for c in np.unique(y):
+            self._class_rows[int(c)] = X[y == c][0]
+
+    def _anchor_rows(self, classes):
+        rows = [self._class_rows[int(c)] for c in classes]
+        return np.stack(rows), np.asarray(classes)
+
+    def predict_proba(self, X):
+        from consensus_entropy_tpu_torch.models.generic_members import (
+            softmax,
+        )
+
+        return _full_proba(softmax(self.model.raw(X)), self.model.classes_)
+
+    def predict(self, X):
+        return np.asarray(self.model.classes_)[
+            np.argmax(self.model.raw(X), axis=1)]
+
+    @classmethod
+    def from_state(cls, st: dict) -> "BoostedTreesMember":
+        """From the JAX member's pickled state (``estimator`` a fitted
+        ``GradientBoostingClassifier``, read by attribute) or this class's
+        own file."""
+        obj = cls(st["name"], max_depth=st["max_depth"],
+                  n_estimators=st["n_estimators"],
+                  update_estimators=st["update_estimators"],
+                  seed=st["random_state"])
+        m = obj.model
+        m.learning_rate = float(st["learning_rate"])
+        if st.get("trees") is not None:
+            m.classes_ = np.asarray(st["classes"])
+            m.init_raw = np.asarray(st["init_raw"], np.float64)
+            m.trees = {k: np.asarray(v) for k, v in st["trees"].items()}
+            m.rng = np.random.RandomState()
+            m.rng.set_state(st["rng_state"])
+        obj._class_rows = {int(c): np.asarray(r)
+                           for c, r in st["class_rows"].items()}
+        return obj
+
+    def save(self, path: str) -> None:
+        from consensus_entropy_tpu_torch.models.tree_fit import TREE_KEYS
+
+        m = self.model
+        meta = {"kind": self.kind, "impl": self.IMPL, "name": self.name,
+                "max_depth": m.max_depth, "n_estimators": m.n_estimators,
+                "learning_rate": m.learning_rate,
+                "update_estimators": self.update_estimators,
+                "random_state": m.random_state, "fitted": m.fitted}
+        arrays = {}
+        if m.fitted:
+            _, keys, pos, has_gauss, gauss = m.rng.get_state()
+            meta.update(rng_pos=int(pos), rng_has_gauss=int(has_gauss),
+                        rng_gauss=float(gauss))
+            arrays.update(classes=m.classes_, init_raw=m.init_raw,
+                          rng_keys=keys,
+                          **{k: m.trees[k] for k in TREE_KEYS})
+        labels = sorted(self._class_rows)
+        arrays["class_labels"] = np.asarray(labels, np.int64)
+        if labels:
+            arrays["class_rows"] = np.stack([self._class_rows[c]
+                                             for c in labels])
+        _write_npz(path, meta, arrays)
+
+    @classmethod
+    def load(cls, path: str) -> "BoostedTreesMember":
+        from consensus_entropy_tpu_torch.models.tree_fit import TREE_KEYS
+
+        meta, a = _read_npz(path)
+        if meta.get("impl") != cls.IMPL:
+            raise ValueError(f"{path}: not a {cls.IMPL!r} boosted member")
+        st = {k: meta[k] for k in ("name", "max_depth", "n_estimators",
+                                   "learning_rate", "update_estimators",
+                                   "random_state")}
+        st["class_rows"] = {int(c): a["class_rows"][i]
+                            for i, c in enumerate(a["class_labels"])}
+        if meta["fitted"]:
+            st.update(classes=a["classes"], init_raw=a["init_raw"],
+                      trees={k: a[k] for k in TREE_KEYS},
+                      rng_state=("MT19937", a["rng_keys"], meta["rng_pos"],
+                                 meta["rng_has_gauss"], meta["rng_gauss"]))
+        return cls.from_state(st)
+
+
+def make_boosted_member(name: str = "xgb", seed: int = 0, *,
+                        impl: str = "auto", **kw) -> Member:
+    """The boosted-trees committee slot (JAX
+    ``sklearn_members.py:331-349``): ``auto`` and ``native`` give the
+    histogram GBDT (:class:`NativeGBDTMember`, whose trees draw nothing,
+    so ``seed`` is not passed on), ``sklearn`` the warm-start
+    GradientBoosting member; the port has no xgboost, so ``xgboost``
+    raises."""
+    if impl not in ("auto", "xgboost", "native", "sklearn"):
+        raise ValueError(f"unknown boosted impl {impl!r}")
+    if impl == "xgboost":
+        raise ValueError("impl='xgboost': the port has no xgboost member; "
+                         "use 'native' (the default) or 'sklearn'")
+    if impl == "sklearn":
+        return BoostedTreesMember(name, seed=seed, **kw)
+    return NativeGBDTMember(name, **kw)
+
+
 #: member kind -> class, for files named ``classifier_{kind}.{name}.npz``
-#: (a generic kind's file names its kind in its header)
+#: (a generic kind's file names its kind in its header; an ``xgb`` file
+#: may hold either boosted member, see :func:`load_member`)
 MEMBER_TYPES = {"gnb": GNBMember, "sgd": SGDMember,
                 "xgb": NativeGBDTMember,
                 **{kind: GenericMember for kind in GENERIC_KINDS}}
+
+
+def load_member(kind: str, path: str) -> Member:
+    """Load a member file of ``kind``; an ``xgb`` file whose header says
+    ``impl: "sklearn"`` is a :class:`BoostedTreesMember`."""
+    if kind == "xgb" and _read_npz(path)[0].get("impl") == \
+            BoostedTreesMember.IMPL:
+        return BoostedTreesMember.load(path)
+    return MEMBER_TYPES[kind].load(path)

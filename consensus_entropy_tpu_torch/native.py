@@ -1,12 +1,17 @@
-"""The host core: the boosted slot's tree build and forest predict, and
-the SGD member's epoch loop, in C++.
+"""The host core, in C++: the boosted slot's tree build and forest
+predict, the SGD member's epoch loop, scikit-learn's CART builder (the
+random forest, the gradient-boosting classifier and the boosted slot's
+scikit-learn member) and libsvm's C-SVC training.
 
 Counterpart of the GBDT half of ``consensus_entropy_tpu/native/__init__.py``
 (``gbdt_build_tree`` ``:199-240``, ``_gbdt_build_tree_np`` ``:242-350``,
 ``gbdt_predict_margins`` ``:352-402``) and of ``native/build.py:41-75``.
 ``native/ce_gbdt.cpp`` (the port's own copy of the source) and
 ``native/ce_sgd.cpp`` (scikit-learn's ``_plain_sgd`` loop, which the JAX
-package takes from scikit-learn's Cython) are compiled with the host
+package takes from scikit-learn's Cython), ``native/ce_tree.cpp``
+(scikit-learn's ``DepthFirstTreeBuilder`` with the best splitter) and
+``native/ce_svm.cpp`` (libsvm's ``svm_train`` for ``SVC(probability=True)``,
+which the JAX package reaches through scikit-learn) are compiled with the host
 compiler (``g++ -O3 -fopenmp -ffp-contract=off -shared -fPIC -std=c++17``)
 at first use into one library in ``consensus_entropy_tpu_torch/_build/``,
 named after a hash of the sources and the flags; each process builds under
@@ -16,8 +21,10 @@ its own temporary name and moves the library into place with
 Unlike the JAX package there is no silent fallback: a failed build or load
 raises.  The plain versions (numpy for the trees, the same algorithm with
 the same double accumulation order, so the trees are identical; Python for
-the SGD loop, ``models/members.py::plain_sgd``) run only when the caller
-passes ``plain=True``, as the tests do.
+the SGD loop, ``models/members.py::plain_sgd``; Python for the CART
+builder, ``models/tree_fit.py``; numpy for the SVC solver,
+``models/svm_fit.py``) run only when the caller asks for them, as the
+tests do.
 
 Concurrent callers (the fleet's host workers) each cap their own OpenMP
 team with :func:`limit_threads`, so four fits at once share the cores
@@ -41,6 +48,8 @@ from numpy.ctypeslib import ndpointer
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "native", "ce_gbdt.cpp")
 SGD_SOURCE = os.path.join(_PKG, "native", "ce_sgd.cpp")
+TREE_SOURCE = os.path.join(_PKG, "native", "ce_tree.cpp")
+SVM_SOURCE = os.path.join(_PKG, "native", "ce_svm.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # no contracted multiply-adds: the plain versions round each product
 CXX_FLAGS = ("-O3", "-fopenmp", "-ffp-contract=off", "-shared", "-fPIC",
@@ -50,6 +59,8 @@ _f32 = ndpointer(np.float32, flags="C_CONTIGUOUS")
 _f64 = ndpointer(np.float64, flags="C_CONTIGUOUS")
 _i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_u32 = ndpointer(np.uint32, flags="C_CONTIGUOUS")
+_i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
 _int64 = ctypes.c_int64
 
 _lib = None
@@ -58,10 +69,15 @@ _lib = None
 _threads = threading.local()
 
 
+def _sources() -> tuple[str, ...]:
+    """The core's sources, read when called (tests point one elsewhere)."""
+    return SOURCE, SGD_SOURCE, TREE_SOURCE, SVM_SOURCE
+
+
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for source in (SOURCE, SGD_SOURCE):
+    for source in _sources():
         with open(source, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"ce_host-{digest.hexdigest()[:16]}.so")
@@ -75,7 +91,7 @@ def build() -> tuple[str, str]:
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, SOURCE, SGD_SOURCE, "-o", tmp]
+    cmd = ["g++", *CXX_FLAGS, *_sources(), "-o", tmp]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         if os.path.exists(tmp):
@@ -111,6 +127,31 @@ def _get_lib() -> ctypes.CDLL:
                            ctypes.c_int, ctypes.c_int, ctypes.c_double, _i32,
                            ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
+        lib.ce_trees_build.argtypes = [
+            _f32, _int64, _int64, _f64, _int64, _f64, _int64, _int64,
+            ctypes.c_int, ctypes.c_int, _int64, _int64, _u32, ctypes.c_int]
+        lib.ce_trees_build.restype = ctypes.c_void_p
+        lib.ce_trees_sizes.argtypes = [ctypes.c_void_p, _i64]
+        lib.ce_trees_sizes.restype = None
+        lib.ce_trees_copy.argtypes = [ctypes.c_void_p, _i64, _i64, _i64,
+                                      _f64, _u8, _f64]
+        lib.ce_trees_copy.restype = None
+        lib.ce_trees_free.argtypes = [ctypes.c_void_p]
+        lib.ce_trees_free.restype = None
+        lib.ce_multinomial_neg_gradient.argtypes = [_f64, _f64, _int64,
+                                                    _int64, _f64]
+        lib.ce_multinomial_neg_gradient.restype = None
+        lib.ce_svc_train.argtypes = [
+            _f64, _int64, _int64, _f64, ctypes.c_double, ctypes.c_double,
+            ctypes.c_double, ctypes.c_int, ctypes.c_double, _int64]
+        lib.ce_svc_train.restype = ctypes.c_void_p
+        lib.ce_svc_sizes.argtypes = [ctypes.c_void_p, _i64]
+        lib.ce_svc_sizes.restype = None
+        lib.ce_svc_copy.argtypes = [ctypes.c_void_p, _i64, _i64, _f64, _f64,
+                                    _f64, _f64, _i64]
+        lib.ce_svc_copy.restype = None
+        lib.ce_svc_free.argtypes = [ctypes.c_void_p]
+        lib.ce_svc_free.restype = None
         _lib = lib
     limit = getattr(_threads, "limit", 0)
     if limit and getattr(_threads, "applied", 0) != limit:
@@ -324,6 +365,131 @@ def gbdt_predict_margins(Xb, feature, threshold, value, tree_class,
             node = np.where(internal, child, node)
         margins[:, tree_class[t]] += lr * value[t, node]
     return margins
+
+
+def trees_build(X32, y, sw, seeds, *, criterion: str, n_classes: int = 1,
+                max_features: int, max_depth: int,
+                parallel_features: bool = False,
+                plain: bool = False) -> dict:
+    """Build ``len(seeds)`` CART trees (``native/ce_tree.cpp``) on the
+    float32 rows ``X32``: tree ``t`` fits ``y[t]`` with sample weights
+    ``sw[t]`` (either may be one shared 1-D array), its splitter seeded
+    with ``seeds[t]``; ``criterion`` is ``"gini"`` (``y`` holds class
+    indices) or ``"mse"``; ``min_samples_split`` 2 and ``min_samples_leaf``
+    1, scikit-learn's defaults.  Returns the trees' nodes concatenated in
+    tree order (``offsets``: each tree's first node; child ids local to
+    their tree, -1 at a leaf; ``feature`` -2 at a leaf) with ``value``
+    ``(nodes, n_classes or 1)``.  The core
+    builds the trees in parallel, or with ``parallel_features`` in turn,
+    each node's features scanned in parallel: the same trees.
+    ``plain=True`` runs ``models/tree_fit.py``'s Python builder, which
+    builds the same trees."""
+    X32 = np.ascontiguousarray(X32, np.float32)
+    n, f = X32.shape
+    seeds = np.ascontiguousarray(seeds, np.uint32)
+    n_trees = seeds.shape[0]
+    y = np.ascontiguousarray(y, np.float64)
+    sw = np.ascontiguousarray(sw, np.float64)
+    for name, a in (("y", y), ("sw", sw)):
+        if a.shape not in ((n,), (n_trees, n)):
+            raise ValueError(f"{name} must be ({n},) or ({n_trees}, {n}); "
+                             f"got {a.shape}")
+    if criterion not in ("gini", "mse"):
+        raise ValueError(f"criterion must be 'gini' or 'mse', got "
+                         f"{criterion!r}")
+    if plain:
+        from consensus_entropy_tpu_torch.models.tree_fit import (
+            build_trees_plain,
+        )
+
+        return build_trees_plain(
+            X32, np.broadcast_to(y, (n_trees, n)),
+            np.broadcast_to(sw, (n_trees, n)), seeds, criterion=criterion,
+            n_classes=n_classes, max_features=max_features,
+            max_depth=max_depth)
+    lib = _get_lib()
+    handle = lib.ce_trees_build(
+        X32, n, f, y, n if y.ndim == 2 else 0, sw, n if sw.ndim == 2 else 0,
+        n_trees, 0 if criterion == "gini" else 1, int(n_classes),
+        int(max_features), int(max_depth), seeds,
+        int(bool(parallel_features)))
+    try:
+        counts = np.empty(n_trees, np.int64)
+        lib.ce_trees_sizes(handle, counts)
+        m = int(counts.sum())
+        vs = int(n_classes) if criterion == "gini" else 1
+        out = {"left": np.empty(m, np.int64), "right": np.empty(m, np.int64),
+               "feature": np.empty(m, np.int64),
+               "threshold": np.empty(m, np.float64),
+               "missing_left": np.empty(m, np.uint8),
+               "value": np.empty((m, vs), np.float64)}
+        lib.ce_trees_copy(handle, out["left"], out["right"], out["feature"],
+                          out["threshold"], out["missing_left"],
+                          out["value"])
+    finally:
+        lib.ce_trees_free(handle)
+    out["offsets"] = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return out
+
+
+def multinomial_neg_gradient(raw, y, *, plain: bool = False) -> np.ndarray:
+    """``-HalfMultinomialLoss.gradient(y, raw)``: ``(n, k)`` float64, the
+    softmax of each row (max subtracted, libm ``exp``, summed in class
+    order) minus the one-hot label, negated.  ``plain=True`` computes it
+    in numpy with the same operations (numpy's ``exp`` may differ from
+    libm's in the last bit)."""
+    raw = np.ascontiguousarray(raw, np.float64)
+    y = np.ascontiguousarray(y, np.float64)
+    n, k = raw.shape
+    if y.shape != (n,):
+        raise ValueError(f"y must be ({n},), got {y.shape}")
+    if plain:
+        p = np.exp(raw - raw.max(axis=1, keepdims=True))
+        s = np.zeros(n)
+        for c in range(k):
+            s += p[:, c]
+        p /= s[:, None]
+        return -(p - (y[:, None] == np.arange(k)))
+    out = np.empty((n, k), np.float64)
+    _get_lib().ce_multinomial_neg_gradient(raw, y, n, k, out)
+    return out
+
+
+def svc_train(X, y, *, gamma: float, random_seed: int) -> dict:
+    """libsvm's C-SVC with Platt scaling (``native/ce_svm.cpp``) on the
+    float64 rows ``X`` with integer class labels ``y``, unit sample
+    weights, and ``SVC()``'s other settings: C 1, tol 1e-3, shrinking, a
+    200 MB kernel cache.  Returns ``support`` (row indices), ``n_support``,
+    ``dual_coef``, ``intercept`` (``-rho``), ``prob_a``, ``prob_b``,
+    ``n_iter`` and ``timed_out``.  The plain version is
+    ``models/svm_fit.py::svc_train_plain``."""
+    X = np.ascontiguousarray(X, np.float64)
+    y = np.ascontiguousarray(y, np.float64)
+    n, f = X.shape
+    if y.shape != (n,):
+        raise ValueError(f"y must be ({n},), got {y.shape}")
+    lib = _get_lib()
+    handle = lib.ce_svc_train(X, n, f, y, 1.0, float(gamma), 1e-3, 1, 200.0,
+                              int(random_seed))
+    try:
+        sizes = np.empty(3, np.int64)
+        lib.ce_svc_sizes(handle, sizes)
+        k, l = int(sizes[0]), int(sizes[1])
+        pairs = k * (k - 1) // 2
+        out = {"support": np.empty(l, np.int64),
+               "n_support": np.empty(k, np.int64),
+               "dual_coef": np.empty((k - 1, l), np.float64),
+               "intercept": np.empty(pairs, np.float64),
+               "prob_a": np.empty(pairs, np.float64),
+               "prob_b": np.empty(pairs, np.float64),
+               "n_iter": np.empty(pairs, np.int64)}
+        lib.ce_svc_copy(handle, out["support"], out["n_support"],
+                        out["dual_coef"], out["intercept"], out["prob_a"],
+                        out["prob_b"], out["n_iter"])
+    finally:
+        lib.ce_svc_free(handle)
+    out["timed_out"] = bool(sizes[2])
+    return out
 
 
 def plain_sgd(w: np.ndarray, intercept: float, X: np.ndarray,

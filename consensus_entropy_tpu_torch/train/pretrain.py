@@ -9,13 +9,15 @@ checkpoints (``classifier_{model}.it_{i}``, ``classifier_cnn.it_{i}`` or
 ``classifier_cnn_{arch}.it_{i}``), metrics are printed and appended to
 ``pretrain_metrics.jsonl``.
 
-The registry holds the kinds the port can fit: ``gnb``, ``sgd``, ``xgb``
-(the boosted trees of ``models/gbdt.py``) and ``knn`` (a frozen generic
-member whose fitted state is its rows, ``models/generic_members.py``).
-The other generic kinds (``rf``, ``svc``, ``gpc``, ``gbc``) are refused by
-name: their members load from a converted JAX registry
-(``convert.registry_from_jax``), and fitting them without scikit-learn,
-which the card machine lacks, is still to be ported.
+The registry holds every kind of the JAX registry
+(``consensus_entropy_tpu/train/pretrain.py:38-63``), with its settings,
+and fits each without scikit-learn, which the card machine lacks:
+``gnb`` and ``sgd`` (``models/members.py``), ``xgb`` (the boosted trees of
+``models/gbdt.py``, the member the JAX slot takes without xgboost) and the
+frozen generic kinds ``rf``, ``svc``, ``knn``, ``gpc`` and ``gbc``
+(``models/generic_members.py``: scikit-learn 1.9.0's forest, libsvm's
+SVC, the stored rows, the Laplace GPC and the gradient boosting, fitted
+in the host core and numpy/scipy as its docstring says).
 """
 
 from __future__ import annotations
@@ -56,12 +58,6 @@ def cnn_model_arch(model: str) -> str | None:
         raise ValueError(f"{model!r} pre-trains no CNN")
     return None if model in ("cnn", "cnn_jax") else model[len("cnn_"):-4]
 
-#: the JAX registry's scikit-learn kinds the port does not fit: their
-#: members come from a converted JAX registry
-UNFITTED_KINDS = {"rf": "RandomForestClassifier", "svc": "SVC",
-                  "gpc": "GaussianProcessClassifier",
-                  "gbc": "GradientBoostingClassifier"}
-
 
 def _registry(seed) -> dict[str, Callable[[str], Member]]:
     from consensus_entropy_tpu_torch.models.gbdt import NativeGBDTMember
@@ -78,20 +74,23 @@ def _registry(seed) -> dict[str, Callable[[str], Member]]:
         "sgd": lambda name: SGDMember(name, seed=seed),
         # 100 rounds at depth 5; its trees draw nothing (JAX: seed or 0)
         "xgb": lambda name: NativeGBDTMember(name),
+        # RandomForestClassifier(random_state=seed, warm_start=True)
+        "rf": lambda name: GenericMember(name, "rf", seed=seed),
+        # SVC(probability=True, random_state=seed)
+        "svc": lambda name: GenericMember(name, "svc", seed=seed),
         # KNeighborsClassifier(): k = 5, its fit stores the rows
         "knn": lambda name: GenericMember(name, "knn"),
+        # GaussianProcessClassifier(kernel=1.0 * RBF(1.0),
+        # random_state=seed, warm_start=True)
+        "gpc": lambda name: GenericMember(name, "gpc", seed=seed),
+        # GradientBoostingClassifier(max_depth=2, random_state=seed,
+        # warm_start=True)
+        "gbc": lambda name: GenericMember(name, "gbc", seed=seed),
     }
 
 
 def check_model(model: str) -> None:
-    """Raise for a kind the port cannot pre-train, naming why."""
-    if model in UNFITTED_KINDS:
-        raise ValueError(
-            f"model {model!r} (scikit-learn's {UNFITTED_KINDS[model]}) is "
-            "not fitted by the port: its members load from a JAX registry "
-            "converted by convert.registry_from_jax, and fitting them on "
-            "the card machine is still to be ported; the port pre-trains "
-            "gnb, sgd, xgb, knn and the CNN trunks")
+    """Raise for a name that is no classic kind of the registry."""
     if model not in _registry(None):
         raise ValueError(f"unknown classic model {model!r}")
 

@@ -184,12 +184,6 @@ def test_npz_round_trip_frozen_update_and_corrupt_file(fitted, tmp_path,
         GenericMember.load(path)
 
 
-@pytest.mark.parametrize("kind", ["rf", "svc", "gpc", "gbc"])
-def test_only_knn_fits(kind):
-    with pytest.raises(NotImplementedError, match="converted JAX registry"):
-        GenericMember("it_0", kind).fit(np.zeros((8, 2)), np.arange(8) % 4)
-
-
 def test_unported_settings_are_refused(fitted):
     from sklearn.neighbors import KNeighborsClassifier
 

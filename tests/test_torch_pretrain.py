@@ -3,7 +3,8 @@
 Grouped folds are equal; the classic fold members (GaussianNB, SGD, the
 boosted trees, whose JAX member here is its native GBDT: this box has no
 xgboost) predict bit-equal probabilities and the CV summaries are equal,
-with a process pool too; scikit-learn's other kinds are refused by name.
+with a process pool too; scikit-learn's other kinds (rf, svc, knn, gpc,
+gbc) pre-train to the JAX pre-trainer's metrics and printed lines.
 CNN folds at the evidence's narrow geometry start from JAX's initial
 variables bit for bit and end within C4's tolerances (losses rtol 1e-3 /
 atol 1e-4, weights rtol 1e-3 / atol 2e-3).  Resume skips a matching fold
@@ -137,36 +138,42 @@ def test_process_pool_equals_sequential(tmp_path):
 
 @pytest.mark.parametrize("kind", ["rf", "svc", "knn", "gpc", "gbc"])
 def test_sklearn_kinds_are_refused_by_name(tmp_path, capsys, kind):
-    """rf, svc, gpc and gbc are still refused by name (their members load
-    from a converted JAX registry); knn is fitted, and its folds equal
-    the JAX pre-trainer's: scikit-learn's stored rows, labels and classes,
-    the same metrics."""
-    X, y, sids = _classic_data(1)
-    if kind != "knn":
-        with pytest.raises(ValueError, match=f"'{kind}'.*not fitted by the "
-                           "port.*convert.registry_from_jax"):
-            pretrain.pretrain_classic(kind, X, y, sids, cv=1,
-                                      out_dir=str(tmp_path))
-        assert not os.path.exists(tmp_path / "pretrain_metrics.jsonl")
-        return
+    """Every scikit-learn kind of the registry pre-trains in the port (the
+    name is the refusal this test held before they did): two folds return
+    the JAX pre-trainer's metrics exactly, print its lines and write its
+    metrics line; each fold member predicts the JAX fold estimator's
+    classes on every row; knn's stored rows, labels and classes are
+    scikit-learn's."""
     import pickle
 
+    from threadpoolctl import threadpool_limits
+
+    X, y, sids = _classic_data(1)
     jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
-    want = jax_pretrain.pretrain_classic(kind, X, y, sids, cv=2,
-                                         out_dir=jdir, seed=7)
-    jax_out = capsys.readouterr().out
-    got = pretrain.pretrain_classic(kind, X, y, sids, cv=2, out_dir=pdir,
-                                    seed=7)
+    # one BLAS thread for both: gpc's products sum in the order the
+    # thread count gives, and small ones run faster on one
+    with threadpool_limits(limits=1, user_api="blas"):
+        want = jax_pretrain.pretrain_classic(kind, X, y, sids, cv=2,
+                                             out_dir=jdir, seed=7)
+        jax_out = capsys.readouterr().out
+        got = pretrain.pretrain_classic(kind, X, y, sids, cv=2,
+                                        out_dir=pdir, seed=7)
     assert got == want and capsys.readouterr().out == jax_out
+    with open(os.path.join(jdir, "pretrain_metrics.jsonl")) as a, \
+            open(os.path.join(pdir, "pretrain_metrics.jsonl")) as b:
+        assert a.read() == b.read()
     for i in range(2):
-        with open(os.path.join(jdir, f"classifier_knn.it_{i}.pkl"),
+        with open(os.path.join(jdir, f"classifier_{kind}.it_{i}.pkl"),
                   "rb") as f:
             est = pickle.load(f)["estimator"]
-        ours = MEMBER_TYPES["knn"].load(
-            os.path.join(pdir, f"classifier_knn.it_{i}.npz")).state
-        np.testing.assert_array_equal(ours["fit_X"], est._fit_X)
-        np.testing.assert_array_equal(ours["y"], est._y)
-        np.testing.assert_array_equal(ours["classes"], est.classes_)
+        ours = MEMBER_TYPES[kind].load(
+            os.path.join(pdir, f"classifier_{kind}.it_{i}.npz"))
+        np.testing.assert_array_equal(ours.predict(X), est.predict(X))
+        if kind == "knn":
+            np.testing.assert_array_equal(ours.state["fit_X"], est._fit_X)
+            np.testing.assert_array_equal(ours.state["y"], est._y)
+            np.testing.assert_array_equal(ours.state["classes"],
+                                          est.classes_)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -1,15 +1,19 @@
-"""The fitted sizes of scikit-learn's generic members at DEAM scale.
+"""scikit-learn's fingerprints of the fits ``chip_smoke.py`` phase 22
+makes without it.
 
-``chip_smoke.py`` phase 22 builds rf, gbc, svc and gpc members from
-seeded synthetic fitted state, since the card machine has no
-scikit-learn; this script measures the sizes that state copies, by
-fitting the JAX registry's estimators (``consensus_entropy_tpu/train/
-pretrain.py:49-63``) with scikit-learn on phase 12's DEAM-scale rows
-(1,802 songs x 60 frames x 260 features, seed 1987 + 8): rf on every row;
-svc and gpc on the first 2,000 rows (gpc is cubic in its rows); gbc's
-depth-2 trees hold at most 7 nodes each whatever the rows, so it is
-fitted on the first 20,000 for time.  It prints one JSON object: trees
-and node counts, support vectors per class, the fitted hyperparameters.
+Phase 22 fits the JAX registry's estimators (``consensus_entropy_tpu/
+train/pretrain.py:49-63``) with the port's fitters on phase 12's
+DEAM-scale rows (1,802 songs x 60 frames x 260 features, seed 1987 + 8):
+rf on the first GENERIC_RF_ROWS (20,000) rows; gbc, svc, gpc and the
+boosted slot's scikit-learn member (the JAX package's
+``BoostedTreesMember``, ``make_boosted_member(impl="sklearn")``) on the
+first GENERIC_CUT_ROWS (2,000), the boosted slot then updated twice
+(``chip_smoke.generic_update_batches``).  This script makes the same fits
+with scikit-learn and prints, as one JSON object, what phase 22 holds its
+fits to (``chip_smoke.generic_fingerprint``: node counts and depths,
+leaf sums, support counts, Platt parameters, kernel parameters, the
+probability column sums and ``predict`` ids on the last 64 rows) and each
+fit's seconds; ``chip_smoke.GENERIC_SIZES`` records its output.
 
     python -m tests.torch_generic_sizes [--jobs N]
 """
@@ -19,82 +23,57 @@ import json
 import time
 import warnings
 
-import numpy as np
-
-DEAM_SONGS, DEAM_FRAMES, F, C, SEED = 1802, 60, 260, 4, 1987
-CUT_ROWS, GBC_ROWS = 2000, 20000
-
-
-def deam_scale_rows():
-    """``chip_smoke.py`` phase 12's rows."""
-    rng = np.random.default_rng(SEED + 8)
-    n = DEAM_SONGS * DEAM_FRAMES
-    y = rng.integers(0, C, n)
-    centers = rng.normal(0, 0.5, (C, F)).astype(np.float32)
-    x = rng.standard_normal((n, F), np.float32) + centers[y]
-    return x, y
+from chip_smoke import (
+    GENERIC_CUT_ROWS,
+    GENERIC_RF_ROWS,
+    GENERIC_SAMPLE_ROWS,
+    SEED,
+    deam_scale_rows,
+    generic_fingerprint,
+    generic_update_batches,
+)
 
 
 def main(argv=None) -> int:
-    from sklearn.ensemble import (
-        GradientBoostingClassifier,
-        RandomForestClassifier,
+    from consensus_entropy_tpu.models.sklearn_members import (
+        make_boosted_member,
     )
-    from sklearn.gaussian_process import GaussianProcessClassifier
-    from sklearn.gaussian_process.kernels import RBF
-    from sklearn.svm import SVC
+    from consensus_entropy_tpu.train.pretrain import _registry
+    from consensus_entropy_tpu_torch import convert
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--jobs", type=int, default=4,
-                   help="processes for the forest's trees (default 4)")
+    p.add_argument("--jobs", type=int, default=1,
+                   help="threads for the forest's trees (default 1: the "
+                        "trees do not depend on it)")
     args = p.parse_args(argv)
     warnings.simplefilter("ignore")
-    x, y = deam_scale_rows()
+    x, y, _, _ = deam_scale_rows()
+    sample = x[-GENERIC_SAMPLE_ROWS:]
     out, walls = {}, {}
+    for kind in ("rf", "gbc", "svc", "gpc"):
+        rows = GENERIC_RF_ROWS if kind == "rf" else GENERIC_CUT_ROWS
+        est = _registry(SEED)[kind]("it_0").estimator
+        if kind == "rf":
+            est.set_params(n_jobs=args.jobs)
+        t0 = time.perf_counter()
+        est.fit(x[:rows], y[:rows])
+        walls[kind] = time.perf_counter() - t0
+        state = convert.generic_from_estimator("it_0", kind, est).state
+        out[kind] = generic_fingerprint(kind, state, sample)
     t0 = time.perf_counter()
-    rf = RandomForestClassifier(random_state=SEED, warm_start=True,
-                                n_jobs=args.jobs).fit(x, y)
-    walls["rf"] = time.perf_counter() - t0
-    nodes = [int(t.tree_.node_count) for t in rf.estimators_]
-    depth = [int(t.tree_.max_depth) for t in rf.estimators_]
-    out["rf"] = {"rows": len(x), "trees": len(nodes),
-                 "nodes_min": min(nodes), "nodes_median":
-                 int(np.median(nodes)), "nodes_max": max(nodes),
-                 "nodes_total": sum(nodes), "depth_max": max(depth)}
-    t0 = time.perf_counter()
-    gbc = GradientBoostingClassifier(max_depth=2, random_state=SEED,
-                                     warm_start=True).fit(x[:GBC_ROWS],
-                                                          y[:GBC_ROWS])
-    walls["gbc"] = time.perf_counter() - t0
-    gnodes = [int(t.tree_.node_count) for t in gbc.estimators_.ravel()]
-    out["gbc"] = {"rows": GBC_ROWS, "stages": int(gbc.n_estimators_),
-                  "trees": len(gnodes), "nodes_min": min(gnodes),
-                  "nodes_max": max(gnodes),
-                  "learning_rate": float(gbc.learning_rate)}
-    t0 = time.perf_counter()
-    svc = SVC(probability=True, random_state=SEED).fit(x[:CUT_ROWS],
-                                                       y[:CUT_ROWS])
-    walls["svc"] = time.perf_counter() - t0
-    out["svc"] = {"rows": CUT_ROWS,
-                  "n_support": [int(v) for v in svc.n_support_],
-                  "gamma": float(svc._gamma),
-                  "prob_a": [float(v) for v in svc._probA],
-                  "prob_b": [float(v) for v in svc._probB],
-                  "dual_coef_abs_max": float(np.abs(svc._dual_coef_).max())}
-    t0 = time.perf_counter()
-    gpc = GaussianProcessClassifier(kernel=1.0 * RBF(1.0),
-                                    random_state=SEED, warm_start=True
-                                    ).fit(x[:CUT_ROWS], y[:CUT_ROWS])
-    walls["gpc"] = time.perf_counter() - t0
-    ests = gpc.base_estimator_.estimators_
-    out["gpc"] = {"rows": CUT_ROWS, "binary": len(ests),
-                  "constant": [float(e.kernel_.k1.constant_value)
-                               for e in ests],
-                  "length_scale": [float(e.kernel_.k2.length_scale)
-                                   for e in ests],
-                  "pi_min": min(float(e.pi_.min()) for e in ests),
-                  "pi_max": max(float(e.pi_.max()) for e in ests)}
-    out["fit_s"] = {k: round(v, 1) for k, v in walls.items()}
+    boosted = make_boosted_member("it_0", seed=SEED, impl="sklearn").fit(
+        x[:GENERIC_CUT_ROWS], y[:GENERIC_CUT_ROWS])
+    walls["xgb"] = time.perf_counter() - t0
+    out["xgb"] = [generic_fingerprint("xgb",
+                                      convert._gbc_state(boosted.estimator),
+                                      sample)]
+    for i, (xb, yb) in enumerate(generic_update_batches(x, y)):
+        t0 = time.perf_counter()
+        boosted.update(xb, yb)
+        walls[f"xgb_update_{i}"] = time.perf_counter() - t0
+        out["xgb"].append(generic_fingerprint(
+            "xgb", convert._gbc_state(boosted.estimator), sample))
+    out["fit_s"] = walls
     print(json.dumps(out, sort_keys=True))
     return 0
 
