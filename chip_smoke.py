@@ -126,15 +126,22 @@ Phases, one line of output each (or a few):
     scale (DEAM_SONGS seeded songs of DEAM_FRAMES frames x 260 feature
     columns, annotation tables with NaN tails and length mismatches,
     DEAM_CLIP_S-s clips in ``npy/``, 5.19 GB in the card's store): (a)
-    ``load_dataset`` cold (the cache written) and warm, tables equal; (b)
-    ``deam_classifier -cv PRE_CV -m gnb`` and ``-m sgd --n-jobs PRE_CV``,
-    and the SGD member's host core bit-equal to its Python plain version on
-    one one-vs-all problem over every frame (SGD_CHECK_EPOCHS epochs); (c) ``-cv 1 -m xgb`` (100 rounds), the member reloaded from its
-    ``.npz`` predicting bit-equal probabilities; (d) ``-cv 1 -m cnn_jax
+    ``load_dataset`` cold (the cache written) and warm, tables equal, and
+    the SGD member's host core bit-equal to its Python plain version on
+    one one-vs-all problem over every frame (SGD_CHECK_EPOCHS epochs);
+    (b)-(e) one ``cli.reproduce`` run (PIPELINE, phase 23 (c)) over that
+    tree and phase 11's: (b) ``deam_classifier -cv 1 -m gnb`` and ``-m
+    sgd``; (c) ``-m xgb`` (PRE_XGB_ROUNDS rounds), the member reloaded from
+    its ``.npz`` predicting bit-equal probabilities; (d) ``-m cnn_jax
     --epochs PRE_CNN_EPOCHS`` at full vgg width, ms per epoch and per
     step, the fold F1, then the same fold with ``resume=True``: skipped,
-    its file unchanged; (e) ``amg_test`` (PIPELINE_ARGS) on that registry
-    over phase 11's tree; (f) ``evidence sweep`` (EVIDENCE_ARGS) on the
+    its file unchanged; (e) ``amg_test`` on that registry in mc, hc, mix
+    and rand, 1 iteration of q=10 each; then, into a models root of their
+    own on the same tree, ``deam_classifier -cv PRE_CV -m gnb`` (the
+    grouped folds in turn) and ``-cv PRE_CV -m sgd --n-jobs PRE_CV`` (the
+    folds in the spawn pool), each record's folds and files checked; (f)
+    ``evidence sweep``
+    (EVIDENCE_ARGS) on the
     card and on the CPU, every scoring call's slots within the gate,
     trajectories equal (a split only behind a near-tie), then ``evidence
     analyze`` over the card's workdir equal to the sweep's tests; no hand
@@ -233,7 +240,18 @@ Phases, one line of output each (or a few):
     phase 11): the queried songs equal every epoch, each generic member's
     probabilities unchanged by every update, the workspaces' generic
     members the registry's; each kind's host-clock ms of
-    ``predict_proba`` and ``predict`` at the pool's size.
+    ``predict_proba`` and ``predict`` at the pool's size;
+23. checks: the port's own checks and pipeline on the card machine, which
+    has no JAX, pandas or scikit-learn.  (a) ``python -m
+    consensus_entropy_tpu_torch.analysis`` over the repo: exit 0, no
+    finding, its wall time; (b) ``cli.race_check``'s determinism pass at
+    DEAM-scale sizes (RACE_SIZES) at 2 and 4x nproc OpenMP threads
+    (RACE_OVERSUBSCRIBE), alone after the processes beside phase 11 are
+    joined, and its TSAN pass at its own sizes when ``-fsanitize=thread`` links on the card
+    host (else it stays tier-1's; the line says which); (c) phase 17's
+    pre-training and registry run, through ``cli.reproduce``; (d)
+    ``reproduce --smoke`` on the card.  (a) and (d) run beside phase 11 in
+    a process of their own; no hand kernel launched.
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -532,19 +550,28 @@ FULL_COHORT, FULL_FLEET_EPOCHS, FLEET_RETRAIN = 2, {"mc": 1, "qbdc": 1}, 1
 FLEET_FIT_USERS, FLEET_FIT_MEMBERS, FLEET_FIT_EPOCHS = 2, 2, 2
 FLEET_CLI_EPOCHS = 3
 # Phase 17: DEAM pre-training at the dataset's scale (DEAM_SONGS songs of
-# DEAM_FRAMES frames, DEAM_CLIP_S-s clips at 16 kHz on the card): PRE_CV
-# folds of gnb and sgd, one PRE_XGB_ROUNDS-round xgb fold, one vgg fold of
-# PRE_CNN_EPOCHS epochs at full width; the registry through amg_test
-# (PIPELINE_ARGS) on phase 11's tree; the evidence sweep (GaussianNB
-# committees; mc, hc, mix, rand) on the card and the CPU.  Phases 17 and
-# 22 run beside phase 11, each in a process of its own (``--beside``).
-DEAM_CLIP_S, PRE_CV, PRE_CNN_EPOCHS = 45, 2, 1  # 5 and 2 before phase 20
+# DEAM_FRAMES frames, DEAM_CLIP_S-s clips at 16 kHz on the card) and the
+# registry personalized on an AMG1608-shaped tree (phase 11's), as one
+# ``reproduce`` run (PIPELINE, phase 23 (c)): one fold each of gnb, sgd,
+# xgb (PRE_XGB_ROUNDS rounds) and the vgg CNN (PRE_CNN_EPOCHS epochs at
+# full width), then amg_test in all four modes, 1 iteration each; gnb and
+# sgd at -cv PRE_CV (sgd's folds in a pool of PRE_CV processes) into a
+# models root of their own; the evidence sweep (GaussianNB committees; mc,
+# hc, mix, rand) on the card and the CPU.  Phases 17, 22 and 23's (a) and (d) run beside phase 11, each in
+# a process of its own (``--beside``).
+DEAM_CLIP_S, PRE_CNN_EPOCHS = 45, 1  # 2 epochs before phase 20
 PRE_XGB_ROUNDS = 25
+PRE_CV = 2  # 5 before phase 20
+# one fold a model in the pipeline (gnb and sgd at PRE_CV folds beside
+# it), the paper's -q 10 and -n 150 otherwise
+PIPELINE = {"cv": 1, "queries": 10, "epochs": 1, "num_anno": 150,
+            "models": ("gnb", "sgd", "xgb", "cnn_jax"),
+            "modes": ("mc", "hc", "mix", "rand"),
+            "extra": ("--max-users", "1", "--retrain-epochs", "2"),
+            "pretrain_extra": ("--epochs", str(PRE_CNN_EPOCHS))}
 # the SGD core against its Python plain version in (b): one one-vs-all
 # problem over every DEAM frame, with the fit's stopping rule tracked
 SGD_CHECK_EPOCHS = 2
-PIPELINE_ARGS = ["-q", "10", "-n", "150", "--max-users", "1", "-e", "1",
-                 "-m", "mc", "--retrain-epochs", "2"]
 EVIDENCE_ARGS = ["sweep", "--seeds", "2", "--epochs", "4"]
 # Phase 18: the pool-axis mesh on one card.  (a) B2 over MESH_B2_SHARDS
 # shards of phase 3's pool (25,000 rows a shard); (b) the six fused modes
@@ -3395,9 +3422,31 @@ def xgb_rounds(n):
         defaults["n_estimators"] = before
 
 
-def last_pretrain_record(pre):
+def pretrain_records(pre):
+    """Every pre-training record, in the order the CLI runs wrote them."""
     with open(os.path.join(pre, "pretrain_metrics.jsonl")) as f:
-        return json.loads(f.readlines()[-1])
+        return [json.loads(line) for line in f]
+
+
+@contextlib.contextmanager
+def timed_epochs(sink):
+    """Each CNN training epoch's (host-clock start, s synchronized at its
+    ends, train rows) into ``sink`` while the block runs."""
+    real = CNNTrainer._epoch
+
+    def timed_epoch(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        sink.append((t0, time.perf_counter() - t0, len(a[2])))  # rows
+        return out
+
+    CNNTrainer._epoch = timed_epoch
+    try:
+        yield sink
+    finally:
+        CNNTrainer._epoch = real
 
 
 @contextlib.contextmanager
@@ -3495,39 +3544,16 @@ def phase_sgd_fold(card):
           f"{ova['plain']:.3f} s, bit-equal")
 
 
-def pretrain_cnn_fold(deam_root, models, flags, pre):
-    """(d): ``-cv 1 -m cnn_jax --epochs PRE_CNN_EPOCHS`` at full width,
-    each epoch timed; then the same fold with ``resume=True`` on the CLI's
-    own store: skipped, the file unchanged."""
-    from consensus_entropy_tpu_torch.data import audio, deam
+def cnn_resume_check(deam_root, pre, store):
+    """(d)'s second half: the CNN fold again with ``resume=True`` on the
+    CLI's own store: skipped, its file unchanged.  Returns the resumed
+    record's F1."""
+    from consensus_entropy_tpu_torch.data import deam
     from consensus_entropy_tpu_torch.train import pretrain
 
-    epochs, stores, real = [], [], CNNTrainer._epoch
-
-    def timed_epoch(self, *a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(self, *a, **kw)
-        torch.cuda.synchronize()
-        epochs.append((time.perf_counter() - t0, len(a[2])))  # train rows
-        return out
-
-    CNNTrainer._epoch = timed_epoch
-    try:
-        with captured(audio, "device_store_from_npy", stores):
-            t0 = time.perf_counter()
-            run_pretrain_cli(["-cv", "1", "-m", "cnn_jax", "--epochs",
-                              str(PRE_CNN_EPOCHS)] + flags)
-            cnn_s = time.perf_counter() - t0
-    finally:
-        CNNTrainer._epoch = real
-    if len(epochs) != PRE_CNN_EPOCHS:
-        raise AssertionError(f"pretrain cnn: {len(epochs)} epochs")
-    f1 = last_pretrain_record(pre)["fold_f1"][0]
     fold = os.path.join(pre, "classifier_cnn.it_0.npz")
     with open(fold, "rb") as f:
         before = f.read()
-    store = stores[0][1]
     table = deam.load_dataset(*deam_paths(deam_root))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3540,14 +3566,7 @@ def pretrain_cnn_fold(deam_root, models, flags, pre):
     if "fold 0: resuming from" not in out.getvalue() or not same:
         raise AssertionError("pretrain cnn: the resumed fold was not "
                              "skipped, or its file changed")
-    resumed_f1 = last_pretrain_record(pre)["fold_f1"][0]
-    del store, stores
-    torch.cuda.empty_cache()
-    ms = [1000 * s for s, _ in epochs]
-    steps = -(-epochs[0][1] // TrainConfig().batch_size)
-    return {"cnn_s": cnn_s, "epoch_ms": ms, "steps": steps,
-            "step_ms": statistics.median(ms) / steps,
-            "n_train": epochs[0][1], "f1": f1, "resumed_f1": resumed_f1}
+    return pretrain_records(pre)[-1]["fold_f1"][0]
 
 
 def deam_paths(deam_root):
@@ -3607,9 +3626,11 @@ def evidence_card_vs_cpu(root):
 
 
 def phase_pretrain(card):
-    """Phase 17: DEAM pre-training and the evidence experiment, (a)-(f).
-    No hand kernel is launched."""
-    from consensus_entropy_tpu_torch.data import deam
+    """Phase 17: DEAM pre-training and the evidence experiment, (a)-(f);
+    (b)-(e) are one ``reproduce`` run (phase 23 (c)), then gnb and sgd at
+    PRE_CV folds on their own.  No hand kernel is launched."""
+    from consensus_entropy_tpu_torch.cli import reproduce
+    from consensus_entropy_tpu_torch.data import audio, deam
 
     linear_mc.launches = 0
     t17 = time.perf_counter()
@@ -3619,7 +3640,6 @@ def phase_pretrain(card):
         tree_s = time.perf_counter() - t0
         models = os.path.join(root, "models")
         pre = os.path.join(models, "pretrained")
-        flags = ["--models-root", models, "--deam-root", deam_root]
         paths = deam_paths(deam_root)
         # (a) the join, cold (writes the cache), then warm
         times, tables = {}, []
@@ -3636,26 +3656,42 @@ def phase_pretrain(card):
         n_rows, n_songs = len(cold), len(np.unique(cold.song_id))
         del tables, cold, warm
         sgd_secs = sgd_core_vs_plain(X, y)
-        # (b) gnb and sgd, CV folds; (c) one 100-round xgb fold
-        walls = {}
-        for model, cv, extra in (("gnb", PRE_CV, []),
-                                 ("sgd", PRE_CV, ["--n-jobs",
-                                                  str(PRE_CV)])):
-            t0 = time.perf_counter()
-            run_pretrain_cli(["-cv", str(PRE_CV), "-m", model] + extra
-                             + flags + ["--device", "cuda"])
-            walls[model] = time.perf_counter() - t0
-            rec = last_pretrain_record(pre)
-            if rec["model"] != model or len(rec["fold_f1"]) != cv:
-                raise AssertionError(f"pretrain {model}: {rec}")
-        saved = []
+        t0 = time.perf_counter()
+        amg_root = write_amg_tree(root)
+        write_npy_tree(amg_root)
+        amg_tree_s = time.perf_counter() - t0
+        # (b)-(e): reproduce pre-trains PIPELINE's models, then
+        # personalizes the registry in every mode; each CNN epoch timed
+        saved, stores, epochs = [], [], []
+        out = io.StringIO()
+        t0 = time.perf_counter()
         with captured(NativeGBDTMember, "save", saved), \
-                xgb_rounds(PRE_XGB_ROUNDS):
-            t0 = time.perf_counter()
-            run_pretrain_cli(["-cv", "1", "-m", "xgb"] + flags
-                             + ["--device", "cuda"])
-            walls["xgb"] = time.perf_counter() - t0
-        xgb_rec = last_pretrain_record(pre)
+                xgb_rounds(PRE_XGB_ROUNDS), \
+                captured(audio, "device_store_from_npy", stores), \
+                timed_epochs(epochs), \
+                contextlib.redirect_stdout(out):
+            run = reproduce.run_pipeline(models, deam_root, amg_root,
+                                         device="cuda", **PIPELINE)
+        pipeline_s = time.perf_counter() - t0
+        if run["rc"] != 0:
+            raise AssertionError(f"pipeline: reproduce exited {run['rc']}:"
+                                 f"\n{out.getvalue()[-3000:]}")
+        walls = {c["argv"][c["argv"].index("-m") + 1]: c["seconds"]
+                 for c in run["calls"]}
+        # the pre-training epochs: those before the first amg_test run (the
+        # runs' CNN retrains are epochs too)
+        first_al = min(c["start"] for c in run["calls"]
+                       if c["cli"] == "amg_test")
+        epochs = [(secs, rows) for t0, secs, rows in epochs
+                  if t0 < first_al]
+        recs = pretrain_records(pre)
+        if [r["cv"] for r in recs] != [PIPELINE["cv"]] * len(
+                PIPELINE["models"]) or any(
+                len(r["fold_f1"]) != PIPELINE["cv"] for r in recs):
+            raise AssertionError(f"pretrain: records {recs}")
+        f1s = dict(zip(PIPELINE["models"], (r["fold_f1"] for r in recs)))
+        # (c) the boosted member, reloaded from its .npz, predicts the
+        # fitted member's probabilities bit for bit
         member = saved[0][0]
         reloaded = NativeGBDTMember.load(
             os.path.join(pre, "classifier_xgb.it_0.npz"))
@@ -3666,30 +3702,62 @@ def phase_pretrain(card):
                                  f"probabilities differ, or not "
                                  f"{PRE_XGB_ROUNDS} rounds")
         del saved, member, reloaded, X, y
-        # (d) one CNN fold at full vgg width, then resume
-        cnn = pretrain_cnn_fold(deam_root, models,
-                                flags + ["--device", "cuda"], pre)
+        # (d) the vgg fold at full width: its epochs, then resume on the
+        # CLI's own DEAM store (the first store the run loaded)
+        if len(epochs) != PRE_CNN_EPOCHS:
+            raise AssertionError(f"pretrain cnn: {len(epochs)} epochs")
+        resumed_f1 = cnn_resume_check(deam_root, pre, stores[0][1])
+        del stores
+        torch.cuda.empty_cache()
+        epoch_ms = [1000 * secs for secs, _ in epochs]
+        n_train = epochs[0][1]
+        steps = -(-n_train // TrainConfig().batch_size)
         files = sorted(f for f in os.listdir(pre) if f.endswith(".npz"))
-        want = ([f"classifier_gnb.it_{i}.npz" for i in range(PRE_CV)]
-                + [f"classifier_sgd.it_{i}.npz" for i in range(PRE_CV)]
-                + ["classifier_xgb.it_0.npz", "classifier_cnn.it_0.npz"])
-        if files != sorted(want):
-            raise AssertionError(f"pretrain: registry {files}")
-        # (e) the registry personalized by amg_test on phase 11's tree
-        t0 = time.perf_counter()
-        amg_root = write_amg_tree(root)
-        write_npy_tree(amg_root)
-        run_cli(PIPELINE_ARGS + ["--models-root", models, "--amg-root",
-                                 amg_root, "--device", "cuda"])
-        walls["amg_test"] = time.perf_counter() - t0
+        want = sorted(f"classifier_{m.replace('_jax', '')}.it_{i}.npz"
+                      for m in PIPELINE["models"]
+                      for i in range(PIPELINE["cv"]))
+        if files != want:
+            raise AssertionError(f"pretrain: registry {files}, want {want}")
+        # (e) every mode personalized the registry for one user
         users = os.path.join(models, "users")
         (uid,) = [u for u in os.listdir(users)
                   if os.path.isdir(os.path.join(users, u))]
-        recs = read_metrics(os.path.join(users, uid, "mc"))
-        if sorted(recs) != [-1, 0] or any(
-                len(r["f1"]) != len(want) or not np.all(np.isfinite(r["f1"]))
-                for r in recs.values()):
-            raise AssertionError(f"pipeline: metrics {recs}")
+        finals = {}
+        for mode in PIPELINE["modes"]:
+            m_recs = read_metrics(os.path.join(users, uid, mode))
+            if sorted(m_recs) != [-1, 0] or any(
+                    len(r["f1"]) != len(want)
+                    or not np.all(np.isfinite(r["f1"]))
+                    for r in m_recs.values()):
+                raise AssertionError(f"pipeline {mode}: metrics {m_recs}")
+            if len(m_recs[0]["queried"]) != int(PIPELINE["queries"]):
+                raise AssertionError(f"pipeline {mode}: queried "
+                                     f"{m_recs[0]['queried']}")
+            finals[mode] = [round(v, 4) for v in m_recs[0]["f1"]]
+        # gnb's PRE_CV folds in turn and sgd's in a spawn pool of PRE_CV
+        # processes, into a models root of their own
+        cv_models = os.path.join(root, "models_cv")
+        cv_pre = os.path.join(cv_models, "pretrained")
+        flags = ["--models-root", cv_models, "--deam-root", deam_root,
+                 "--device", "cuda"]
+        cv_walls = {}
+        for model, extra in (("gnb", []), ("sgd", ["--n-jobs",
+                                                    str(PRE_CV)])):
+            t0 = time.perf_counter()
+            run_pretrain_cli(["-cv", str(PRE_CV), "-m", model] + extra
+                             + flags)
+            cv_walls[model] = time.perf_counter() - t0
+            rec = pretrain_records(cv_pre)[-1]
+            if rec["model"] != model or len(rec["fold_f1"]) != PRE_CV \
+                    or not np.all(np.isfinite(rec["fold_f1"])):
+                raise AssertionError(f"pretrain -cv {PRE_CV} {model}: "
+                                     f"{rec}")
+        cv_files = sorted(f for f in os.listdir(cv_pre)
+                          if f.endswith(".npz"))
+        if cv_files != [f"classifier_{m}.it_{i}.npz" for m in ("gnb", "sgd")
+                        for i in range(PRE_CV)]:
+            raise AssertionError(f"pretrain -cv {PRE_CV}: registry "
+                                 f"{cv_files}")
         # (f) the evidence sweep, card against CPU, and its analysis
         ev = evidence_card_vs_cpu(root)
     total = time.perf_counter() - t17
@@ -3699,27 +3767,35 @@ def phase_pretrain(card):
     print(f"[pretrain] {card}: DEAM tree of {n_songs} songs ({n_rows} "
           f"frames x {F} features, {DEAM_CLIP_S}-s clips) written in "
           f"{tree_s:.1f} s; load_dataset cold {times['cold']:.2f} s (cache "
-          f"written), warm {times['warm']:.2f} s, tables equal; -cv "
-          f"{PRE_CV} gnb {walls['gnb']:.1f} s, sgd (--n-jobs {PRE_CV}) "
-          f"{walls['sgd']:.1f} s; the SGD core on one one-vs-all problem "
-          f"over all {n_rows} frames, {SGD_CHECK_EPOCHS} epochs, "
-          f"bit-equal to its plain version: core {sgd_secs['core']:.3f} s, "
-          f"plain {sgd_secs['plain']:.3f} s; -cv 1 xgb ({PRE_XGB_ROUNDS} "
-          f"rounds x {C} "
-          f"classes) "
-          f"{walls['xgb']:.1f} s, fold F1 {xgb_rec['fold_f1'][0]}, the "
-          f"reloaded member's probabilities bit-equal")
-    print(f"[pretrain-cnn] {card}: -cv 1 -m cnn_jax --epochs "
-          f"{PRE_CNN_EPOCHS} at full vgg width, {cnn['n_train']} train "
-          f"songs ({cnn['steps']} steps of {TrainConfig().batch_size}): "
-          f"ms per epoch " + ", ".join(f"{m:.1f}" for m in cnn["epoch_ms"])
-          + f", ms per step {cnn['step_ms']:.2f} (validation included); "
-          f"CLI {cnn['cnn_s']:.1f} s; fold F1 {cnn['f1']}; resume skipped "
-          f"the fold (file unchanged, F1 {cnn['resumed_f1']})")
-    print(f"[pipeline] {card}: amg_test {' '.join(PIPELINE_ARGS)} on the "
-          f"pretrained registry ({len(want)} members) over phase 11's tree "
-          f"in {walls['amg_test']:.1f} s, final F1s "
-          f"{[round(v, 4) for v in recs[0]['f1']]}")
+          f"written), warm {times['warm']:.2f} s, tables equal; the SGD "
+          f"core on one one-vs-all problem over all {n_rows} frames, "
+          f"{SGD_CHECK_EPOCHS} epochs, bit-equal to its plain version: core "
+          f"{sgd_secs['core']:.3f} s, plain {sgd_secs['plain']:.3f} s")
+    print(f"[pipeline] {card}: phase 23 (c): reproduce -cv "
+          f"{PIPELINE['cv']} -q {PIPELINE['queries']} -e "
+          f"{PIPELINE['epochs']} -n {PIPELINE['num_anno']} --models "
+          f"{' '.join(PIPELINE['models'])} --modes "
+          f"{' '.join(PIPELINE['modes'])} --extra "
+          f"'{' '.join(PIPELINE['extra'])}' (deam_classifier "
+          f"{' '.join(PIPELINE['pretrain_extra'])}) on the DEAM tree and an "
+          f"AMG1608-shaped tree of {AMG_SONGS} songs (written in "
+          f"{amg_tree_s:.1f} s), {pipeline_s:.1f} s; host clock by call: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; fold F1s {f1s}; xgb {PRE_XGB_ROUNDS} rounds x {C} classes, "
+          f"the reloaded member's probabilities bit-equal")
+    print(f"[pretrain] {card}: -cv {PRE_CV} gnb {cv_walls['gnb']:.1f} s "
+          f"(folds in turn), sgd --n-jobs {PRE_CV} {cv_walls['sgd']:.1f} s "
+          f"(folds in a spawn pool), {PRE_CV} finite fold F1s each")
+    print(f"[pretrain-cnn] {card}: -cv {PIPELINE['cv']} -m cnn_jax --epochs "
+          f"{PRE_CNN_EPOCHS} at full vgg width, {n_train} train songs "
+          f"({steps} steps of {TrainConfig().batch_size}): ms per epoch "
+          + ", ".join(f"{m:.1f}" for m in epoch_ms)
+          + f", ms per step {statistics.median(epoch_ms) / steps:.2f} "
+          f"(validation included); resume skipped the fold (file "
+          f"unchanged, F1 {resumed_f1})")
+    print(f"[pipeline] {card}: the registry ({len(want)} members) "
+          f"personalized for one user in every mode, final F1s "
+          + "; ".join(f"{m} {v}" for m, v in finals.items()))
     print(f"[evidence] {card}: evidence {' '.join(EVIDENCE_ARGS)} on the "
           f"card {ev['walls']['cuda']:.1f} s and the CPU "
           f"{ev['walls']['cpu']:.1f} s: {ev['calls']} scoring calls within "
@@ -5433,7 +5509,142 @@ def phase_generic(card, gen):
           + f"; phase 22 {gen['wall_s']:.1f} s")
 
 
-# -- phases 17 and 22 beside phase 11 --------------------------------------
+# -- slice 14: the port's own checks and pipeline -------------------------
+
+#: phase 23 (b): the determinism pass's rows, features, tree rows and svc
+#: rows: DEAM's frames x its 260 feature columns for the GBDT, SGD and
+#: gradient calls; half phase 22's rf and svc rows for the two CART modes
+#: and the C-SVC (cut to keep the pass near a minute)
+RACE_SIZES = (DEAM_SONGS * DEAM_FRAMES, F, GENERIC_RF_ROWS // 2,
+              GENERIC_CUT_ROWS // 2)
+#: its OpenMP teams: 2 threads, and this many threads a card host core
+#: (oversubscribed)
+RACE_OVERSUBSCRIBE = 4
+
+
+def smoke_users(models_root, mode):
+    users = os.path.join(models_root, "users")
+    return {u: read_metrics(os.path.join(users, u, mode))
+            for u in sorted(os.listdir(users))
+            if os.path.isdir(os.path.join(users, u, mode))}
+
+
+#: phase 23 (a)'s command: the lint's module entry point with jax, the
+#: JAX package and torch unimportable in its process
+LINT_BLOCKED = """\
+import runpy, sys
+for name in ("jax", "jaxlib", "consensus_entropy_tpu", "torch"):
+    sys.modules[name] = None
+sys.argv[0] = "consensus_entropy_tpu_torch.analysis"
+runpy.run_module("consensus_entropy_tpu_torch.analysis", run_name="__main__")
+"""
+
+
+def checks_beside(card):
+    """Phase 23 (a) and (d), beside phase 11: the port's lint over the
+    repo through its module entry point; then ``reproduce --smoke`` on the
+    card and on the CPU, every mode's queried songs and F1s equal.
+    Returns the kernel launches of (d)."""
+    import importlib.util
+
+    from consensus_entropy_tpu_torch.cli import reproduce
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", LINT_BLOCKED, "--format", "json"], cwd=here,
+        capture_output=True, text=True, timeout=300)
+    lint_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"lint: exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    lint = json.loads(proc.stdout)
+    if lint["findings"] or lint["errors"] or lint["files"] < 150:
+        raise AssertionError(f"lint: {lint}")
+    has_jax = importlib.util.find_spec("jax") is not None
+    print(f"[lint] {card}: python -m consensus_entropy_tpu_torch.analysis "
+          f"over the repo ({lint['files']} files; JAX "
+          f"{'installed' if has_jax else 'not installed'} here, and jax, "
+          f"the JAX package and torch blocked in the lint's process): exit 0, "
+          f"{len(lint['findings'])} findings, {lint['suppressed']} noqa'd, "
+          f"the pass {lint['wall_s']:.3f} s, the command {lint_s:.2f} s")
+    linear_mc.launches = 0
+    runs, walls = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for device in ("cuda", "cpu"):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                res = reproduce.smoke(os.path.join(root, device), device)
+            walls[device] = time.perf_counter() - t0
+            if res["rc"] != 0:
+                raise AssertionError(f"reproduce --smoke on {device}: exit "
+                                     f"{res['rc']}:\n{out.getvalue()[-3000:]}")
+            runs[device] = {m: smoke_users(res["models"], m)
+                            for m in reproduce.SMOKE["modes"]}
+    launches = linear_mc.launches
+    for mode, users in runs["cuda"].items():
+        if len(users) != 1 or users != runs["cpu"][mode]:
+            raise AssertionError(f"reproduce --smoke {mode}: card "
+                                 f"{users} vs CPU {runs['cpu'][mode]}")
+        (recs,) = users.values()
+        if sorted(recs) != [-1, 0, 1] or any(
+                not np.all(np.isfinite(r["f1"])) for r in recs.values()):
+            raise AssertionError(f"reproduce --smoke {mode}: {recs}")
+    if launches:
+        raise AssertionError(f"reproduce --smoke: {launches} linear_mc "
+                             "launches on a path without the kernel")
+    print(f"[reproduce] {card}: reproduce --smoke (pretrain "
+          f"{' '.join(reproduce.SMOKE['models'])} -cv {reproduce.SMOKE['cv']}"
+          f", then {' '.join(reproduce.SMOKE['modes'])}, "
+          f"{reproduce.SMOKE['epochs']} iterations of q="
+          f"{reproduce.SMOKE['queries']}) on the card {walls['cuda']:.1f} s "
+          f"and the CPU {walls['cpu']:.1f} s: every mode's queried songs "
+          f"and F1s equal; linear_mc launches {launches}")
+    return launches
+
+
+def phase_race(card):
+    """Phase 23 (b), alone: ``race_check``'s determinism pass at
+    RACE_SIZES, one process at 2 threads and one at RACE_OVERSUBSCRIBE x
+    the cores, and its TSAN pass at its own sizes where
+    ``-fsanitize=thread`` links here."""
+    from consensus_entropy_tpu_torch.cli import race_check
+
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip()
+    lines = []
+    cores = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as probe:
+        tsan = race_check.tsan_links(probe)
+    det = race_check.run(
+        passes=race_check.PASSES if tsan else ("determinism",),
+        sizes=RACE_SIZES, tsan_sizes=race_check.DEFAULT_SIZES,
+        threads=[2, RACE_OVERSUBSCRIBE * cores], reps=1,
+        log=lines.append)
+    if tsan:
+        tsan_note = (f"TSAN links on this host: the TSAN pass at its default "
+                     f"sizes {det['walls']['tsan']:.1f} s")
+    else:
+        tsan_note = ("-fsanitize=thread does not link on this host: the "
+                     "TSAN pass stays tier-1's (tests/test_torch_race.py)")
+    for line in lines:
+        print(f"[race] {line}")
+    print(f"[race] {card} ({power}): determinism at rows, features, tree "
+          f"rows, svc rows {RACE_SIZES} on {det['cores']} cores, OpenMP "
+          f"teams {det['threads']}: {det['outputs']} outputs bytewise equal "
+          f"across repeat runs and teams; build{'s' if tsan else ''} "
+          f"{det['walls']['build']:.1f} s, pass "
+          f"{det['walls']['determinism']:.1f} s ("
+          + ", ".join(f"{t} threads {w:.1f} s"
+                      for t, w in det["walls"]["by_team"].items())
+          + f"); {tsan_note}; phase 23 (b) {time.perf_counter() - t0:.1f} s")
+
+
+# -- phases 17, 22 and 23 beside phase 11 ----------------------------------
 
 
 #: how long ``main`` waits for the second process once phase 11 is done
@@ -5455,12 +5666,12 @@ def exit_with_parent():
 
 
 def beside_main(phase, out_json):
-    """``chip_smoke.py --beside PHASE OUT``: phase 22 or 17 in a process of
-    its own, which ``main`` starts as phase 11 begins and joins after it.
-    Neither phase reads phase 11's files: phase 22 writes its own copy of
-    phase 11's seeded tree and host registry, phase 17 its own trees.
-    Prints the phase's lines; writes its kernel launches and wall time to
-    OUT."""
+    """``chip_smoke.py --beside PHASE OUT``: phase 22, 17 or 23 (a) and (d)
+    in a process of its own, which ``main`` starts as phase 11 begins and
+    joins after it.  None reads phase 11's files: phase 22 writes its own
+    copy of phase 11's seeded tree and host registry, phases 17 and 23 their
+    own trees.  Prints the phase's lines; writes its kernel launches and
+    wall time to OUT."""
     exit_with_parent()
     card = phase_device(quiet=True)
     t0 = time.perf_counter()
@@ -5473,6 +5684,8 @@ def beside_main(phase, out_json):
             generic = generic_cli_runs(root, amg_root, host_models)
         phase_generic(card, generic)
         launches = generic["launches"]
+    elif phase == "23":
+        launches = checks_beside(card)
     else:
         phase_pretrain(card)
     with open(out_json, "w") as f:
@@ -5563,11 +5776,11 @@ def main():
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    # phases 22 and 17 run beside phase 11, each in a process of its own;
-    # all three load the one host library
+    # phases 22, 17 and 23 (a), (d) run beside phase 11, each in a process
+    # of its own; all four load the one host library
     native.build()
     with tempfile.TemporaryDirectory() as side_root:
-        beside = [Beside(side_root, p) for p in ("22", "17")]
+        beside = [Beside(side_root, p) for p in ("22", "17", "23")]
         try:
             fleet_cli, mesh_cli, serve_cli, fabric_cli = phase_al_cli(card)
             lap("11")
@@ -5576,7 +5789,9 @@ def main():
         finally:
             for proc in beside:
                 proc.stop()
-    lap("waiting for 17 and 22")
+    lap("waiting for 17, 22 and 23")
+    phase_race(card)
+    lap("23 (b)")
     phase_gbdt(card)
     lap("12")
     phase_cnn(card)
@@ -5605,7 +5820,8 @@ def main():
         + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f}; 19 (c): "
         f"{serve_cli['wall_s']:.1f}; 20 and 21 (a)-(c): "
         f"{fabric_cli['wall_s']:.1f}; beside 11, each in a process of its "
-        f"own: 22 {side['22']['wall_s']:.1f}, 17 {side['17']['wall_s']:.1f})"
+        f"own: 22 {side['22']['wall_s']:.1f}, 17 {side['17']['wall_s']:.1f}, "
+        f"23 (a), (d) {side['23']['wall_s']:.1f})"
         + f"; total {time.perf_counter() - t0:.1f}")
     ops_launches = fabric_cli["ops_launches"] + serve["soak"]["launches"]
     print(json.dumps({"kernels": [{
@@ -5613,12 +5829,14 @@ def main():
         "source": "consensus_entropy_tpu_torch/csrc/linear_mc.cu",
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
         "launches": launches + mesh["launches"] + serve["launches"]
-        + fabric_cli["launches"] + ops_launches + side["22"]["launches"],
+        + fabric_cli["launches"] + ops_launches + side["22"]["launches"]
+        + side["23"]["launches"],
         "launches_by_phase": {"5": launches, "18": mesh["launches"],
                               "19": serve["launches"],
                               "20": fabric_cli["launches"],
                               "21": ops_launches,
-                              "22": side["22"]["launches"]},
+                              "22": side["22"]["launches"],
+                              "23": side["23"]["launches"]},
         "max_abs_err": max(max_err, mesh["max_abs_err"]), **times,
         "sharded_ms": mesh["sharded_ms"],
         "sharded_shards": MESH_B2_SHARDS}]}))

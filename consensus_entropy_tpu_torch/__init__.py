@@ -50,9 +50,24 @@ Ported so far:
   the span tracer and its export;
 - ``config``, ``utils``, ``convert`` — the configuration read here, helpers,
   and JAX-layout weights, members (CNN checkpoints included), workspaces
-  and keys carried across.
+  and keys carried across;
+- ``analysis`` — cetpu-lint's twelve rules over the port's tree (pure
+  ``ast``: it imports none of the code it reads, nor torch);
+  ``cli.race_check`` with ``native/ce_stress.cpp`` — the host core under
+  ThreadSanitizer and oversubscribed OpenMP; ``cli.reproduce`` and
+  ``data.synth`` — the paper's pipeline (pre-training, then every
+  acquisition mode) and its pandas-free ``--smoke`` tree.
 """
 
-from consensus_entropy_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # resolve_device on first use: importing the package imports no torch,
+    # so the static analysis (``analysis``), which reads the port's source
+    # and imports none of it, starts without it
+    if name == "resolve_device":
+        from consensus_entropy_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -80,7 +80,7 @@ class MixedConsensus(AcquisitionStrategy):
     def extract_queries(self, acq, res) -> list:
         _, slots = scoring.split_mix_index(res.indices, acq.n_pad)
         valid = scoring.selection_scalars(res.values) > -np.inf
-        raw = [acq.songs[int(s)]
+        raw = [acq.songs[int(s)]  # cetpu: noqa[implicit-host-sync] s is a numpy scalar of selection_scalars' pull
                for s, ok in zip(scoring.selection_scalars(slots), valid)
                if ok]
         # a song can surface from both blocks; the reference's isin-based

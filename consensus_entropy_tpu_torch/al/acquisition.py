@@ -330,7 +330,7 @@ class Acquirer:
     def _ids(self, res) -> list:
         idx = scoring.selection_scalars(res.indices)
         valid = scoring.selection_scalars(res.values) > -np.inf
-        return [self.songs[int(i)] for i, ok in zip(idx, valid) if ok]
+        return [self.songs[int(i)] for i, ok in zip(idx, valid) if ok]  # cetpu: noqa[implicit-host-sync] i is a numpy scalar of selection_scalars' pull
 
     def _remove_hc(self, q_songs):
         for s in q_songs:

@@ -437,18 +437,18 @@ class FleetScheduler:
                                          step.label or "host")
             self._host_wait[fut] = (state, step)
             # submit -> completion: the hold's host-step telemetry
-            self._host_t0[fut] = time.monotonic()
+            self._host_t0[fut] = time.monotonic()  # cetpu: noqa[replay-wallclock] hold-sizing telemetry; holds change when work batches, never results
             if self.watchdog is not None:
                 self.watchdog.arm(state, step.label or "host")
 
     def _timed_host_step(self, fn, label: str):
         """Run a host step on a worker, recording its interval in the
         report (unix-epoch ns, the clock of ``torch.profiler``'s events)."""
-        t0 = time.time_ns()
+        t0 = time.time_ns()  # cetpu: noqa[replay-wallclock] host-step interval for torch.profiler alignment (telemetry; replay never reads it)
         try:
             return fn()
         finally:
-            self.report.host_step(label, t0, time.time_ns())
+            self.report.host_step(label, t0, time.time_ns())  # cetpu: noqa[replay-wallclock] host-step interval for torch.profiler alignment (telemetry; replay never reads it)
 
     def _drain_host(self, timeout) -> int:
         """Move finished host steps back to the ready queue; how many
@@ -465,7 +465,7 @@ class FleetScheduler:
             state.last_label = getattr(step, "label", None)
             t0 = self._host_t0.pop(fut, None)
             if note is not None and t0 is not None:
-                note(time.monotonic() - t0)
+                note(time.monotonic() - t0)  # cetpu: noqa[replay-wallclock] hold-sizing telemetry; holds change when work batches, never results
             if self.watchdog is not None:
                 self.watchdog.disarm(state)
             err = fut.exception()
@@ -617,7 +617,7 @@ class FleetScheduler:
                     tuple(map(str, x.devices)))
         if isinstance(x, torch.Tensor):
             return (tuple(x.shape), str(x.dtype), str(x.device))
-        arr = np.asarray(x)
+        arr = np.asarray(x)  # cetpu: noqa[implicit-host-sync] host operand: every tensor returned above, so nothing leaves the card
         return (arr.shape, str(arr.dtype))
 
     @staticmethod
@@ -635,7 +635,7 @@ class FleetScheduler:
         host = [v for v in vals if not (
             isinstance(v, ShardedRows) or (isinstance(v, torch.Tensor)
                                            and v.device == self.device))]
-        return (sum(int(np.asarray(v).nbytes) if not isinstance(
+        return (sum(int(np.asarray(v).nbytes) if not isinstance(  # cetpu: noqa[implicit-host-sync] host operands only (tensors take the other branch): counts their bytes
             v, torch.Tensor) else v.numel() * v.element_size()
             for v in host), len(host))
 
@@ -755,7 +755,7 @@ class FleetScheduler:
             if not stacked:
                 single.append((group, width, fn_key))
                 continue
-            w0 = time.time()
+            w0 = time.time()  # cetpu: noqa[replay-wallclock] span wall-stamp (telemetry; span ids stay deterministic)
             t0 = time.perf_counter()
             try:
                 if isinstance(step0, DeviceStep):
@@ -782,7 +782,7 @@ class FleetScheduler:
             out.extend(self._result_rows(fn_key, batched, group))
         for group, width, fn_key in single:
             for st, step in group:
-                w0 = time.time()
+                w0 = time.time()  # cetpu: noqa[replay-wallclock] span wall-stamp (telemetry; span ids stay deterministic)
                 t0 = time.perf_counter()
                 try:
                     res = self._single_call(step)

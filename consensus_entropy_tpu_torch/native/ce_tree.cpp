@@ -382,12 +382,15 @@ void scan_feature(const Params& P, Criterion& crit, const float* fv,
 // order the previous one left, and the order within runs of equal values
 // (which the scan's sums and the final partition see) depends on that
 // start.  A sort by values without ties gives one order whatever its
-// start, so visit k is replayed from the last visit before it without
-// ties (ordered by value), or from the node's order when there is none,
-// sorting by every visit in between as the sequential loop does.  Each
-// scan keeps its own first best; taking them in draw order with the
-// loop's strict comparison gives the loop's best.  samples[start:end] is
-// left as the last visit's sort leaves it.
+// start, so every visit is first sorted from the node's order, in
+// parallel; then each maximal run of visits with ties is replayed from
+// the visit before it, sorting by each visit of the run in turn as the
+// sequential loop does, the runs in parallel with one another (a run
+// that opens the node is right from its first visit on).  A visit is sorted at most twice, so the
+// cost stays linear in the features drawn however many tie.  Each scan
+// keeps its own first best; taking them in draw order with the loop's
+// strict comparison gives the loop's best.  samples[start:end] is left
+// as the last visit's sort leaves it.
 struct Visit {
   int64_t feature;
   bool constant;
@@ -397,77 +400,68 @@ void parallel_scan(const Params& P, const Criterion& crit,
                    std::vector<int64_t>& samples, int64_t start, int64_t end,
                    const std::vector<Visit>& visits, SplitRecord& best) {
   const int64_t F = P.f, m = (int64_t)visits.size(), len = end - start;
-  // each visit's samples ordered by (value, sample) and its sorted values:
-  // the sequential loop's order after that visit when no values tie
+  // each visit's samples sorted from the node's order, its sorted values,
+  // and whether any tie: without ties, the sequential loop's order after
+  // that visit
   std::vector<int64_t> orders(m * len);
   std::vector<float> values(m * len);
   std::vector<char> ties(m, 0);
-#pragma omp parallel
-  {
-    std::vector<std::pair<float, int64_t>> pairs(len);
-#pragma omp for schedule(dynamic, 4)
-    for (int64_t k = 0; k < m; ++k) {
-      const int64_t feat = visits[k].feature;
-      for (int64_t p = 0; p < len; ++p) {
-        int64_t i = samples[start + p];
-        pairs[p] = {P.X[i * F + feat], i};
-      }
-      std::sort(pairs.begin(), pairs.end());
-      for (int64_t p = 0; p < len; ++p) {
-        orders[k * len + p] = pairs[p].second;
-        values[k * len + p] = pairs[p].first;
-        if (p && pairs[p].first == pairs[p - 1].first) ties[k] = 1;
-      }
+#pragma omp parallel for schedule(dynamic, 4)
+  for (int64_t k = 0; k < m; ++k) {
+    const int64_t feat = visits[k].feature;
+    int64_t* order = &orders[k * len];
+    float* fv = &values[k * len];
+    std::copy(samples.begin() + start, samples.begin() + end, order);
+    for (int64_t p = 0; p < len; ++p) fv[p] = P.X[order[p] * F + feat];
+    simultaneous_sort(fv, order, len);
+    for (int64_t p = 1; p < len && !ties[k]; ++p)
+      if (fv[p] == fv[p - 1]) ties[k] = 1;
+  }
+  // the runs of visits with ties, [first, last)
+  std::vector<std::pair<int64_t, int64_t>> runs;
+  for (int64_t k = 0; k < m; ++k)
+    if (ties[k]) {
+      if (runs.empty() || runs.back().second != k) runs.push_back({k, k});
+      runs.back().second = k + 1;
+    }
+  const int64_t n_runs = (int64_t)runs.size();
+#pragma omp parallel for schedule(dynamic, 1)
+  for (int64_t r = 0; r < n_runs; ++r) {
+    // visit 0 was sorted from the node's order already
+    for (int64_t u = std::max<int64_t>(runs[r].first, 1);
+         u < runs[r].second; ++u) {
+      int64_t* order = &orders[u * len];
+      float* fv = &values[u * len];
+      std::copy(order - len, order, order);
+      const int64_t feat = visits[u].feature;
+      for (int64_t p = 0; p < len; ++p) fv[p] = P.X[order[p] * F + feat];
+      simultaneous_sort(fv, order, len);
     }
   }
   std::vector<SplitRecord> bests(m);
   std::vector<double> proxies(m, -INFINITY);
-  std::vector<int64_t> last_order(len);
 #pragma omp parallel
   {
     std::vector<int64_t> order(P.n);
     std::vector<float> fv(P.n);
     Criterion local = crit;
+    local.samples = order.data();
 #pragma omp for schedule(dynamic, 1)
     for (int64_t k = 0; k < m; ++k) {
-      if (visits[k].constant && k != m - 1) continue;
-      if (!ties[k]) {
-        std::copy(orders.begin() + k * len, orders.begin() + (k + 1) * len,
-                  order.begin() + start);
-        std::copy(values.begin() + k * len, values.begin() + (k + 1) * len,
-                  fv.begin() + start);
-      } else {
-        // replay the sorts from the last visit without ties
-        int64_t t = k - 1;
-        while (t >= 0 && ties[t]) --t;
-        if (t >= 0)
-          std::copy(orders.begin() + t * len, orders.begin() + (t + 1) * len,
-                    order.begin() + start);
-        else
-          std::copy(samples.begin() + start, samples.begin() + end,
-                    order.begin() + start);
-        for (int64_t u = t + 1; u <= k; ++u) {
-          const int64_t feat = visits[u].feature;
-          for (int64_t p = start; p < end; ++p)
-            fv[p] = P.X[order[p] * F + feat];
-          simultaneous_sort(&fv[start], &order[start], len);
-        }
-      }
-      if (!visits[k].constant) {
-        // a thread's own best, stored once: neighbouring entries share
-        // cache lines
-        local.samples = order.data();
-        SplitRecord current, found;
-        double found_proxy = -INFINITY;
-        current.feature = visits[k].feature;
-        scan_feature(P, local, fv.data(), start, end, current, found,
-                     found_proxy);
-        bests[k] = found;
-        proxies[k] = found_proxy;
-      }
-      if (k == m - 1)
-        std::copy(order.begin() + start, order.begin() + end,
-                  last_order.begin());
+      if (visits[k].constant) continue;
+      std::copy(orders.begin() + k * len, orders.begin() + (k + 1) * len,
+                order.begin() + start);
+      std::copy(values.begin() + k * len, values.begin() + (k + 1) * len,
+                fv.begin() + start);
+      SplitRecord current, found;
+      double found_proxy = -INFINITY;
+      current.feature = visits[k].feature;
+      scan_feature(P, local, fv.data(), start, end, current, found,
+                   found_proxy);
+      // a thread's own best, stored once: neighbouring entries share
+      // cache lines
+      bests[k] = found;
+      proxies[k] = found_proxy;
     }
   }
   double best_proxy = -INFINITY;
@@ -476,7 +470,7 @@ void parallel_scan(const Params& P, const Criterion& crit,
       best_proxy = proxies[k];
       best = bests[k];
     }
-  if (m) std::copy(last_order.begin(), last_order.end(),
+  if (m) std::copy(orders.begin() + (m - 1) * len, orders.end(),
                    samples.begin() + start);
 }
 

@@ -93,7 +93,7 @@ def lease_age_s(path: str, now: float | None = None) -> float | None:
     rec = read_lease(path)
     if rec is None or not isinstance(rec.get("t"), (int, float)):
         return None
-    return (time.time() if now is None else now) - rec["t"]
+    return (time.time() if now is None else now) - rec["t"]  # cetpu: noqa[replay-wallclock] this IS the seam's fallback (now= is the injection point)
 
 
 class EpochGate:
@@ -180,7 +180,7 @@ class HostLease:
         faults.fire("fabric.lease", host=self.host_id, beat=self.beats)
         rec = {"host": self.host_id, "pid": os.getpid(),
                "beat": self.beats,
-               "t": round(time.time(), 3)}
+               "t": round(time.time(), 3)}  # cetpu: noqa[replay-wallclock] heartbeat wall-stamp: liveness crosses processes, replay never reads it
         if self.devices is not None:
             rec["devices"] = int(self.devices)
         if self.step_source is not None:

@@ -552,7 +552,7 @@ class _AppendFsyncFile:
     def _open(self):
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         if self._lockf is None and fcntl is not None:
-            lockf = open(self.path + ".lock", "ab")
+            lockf = open(self.path + ".lock", "ab")  # cetpu: noqa[raw-durable-io] zero-byte lock sibling: carries no data, never fsynced
             try:
                 fcntl.flock(lockf.fileno(),
                             fcntl.LOCK_EX | fcntl.LOCK_NB)
@@ -769,7 +769,7 @@ class AdmissionJournal:
             faults.fire("serve.journal.append", event=event,
                         user=None if user is None else str(user))
             rec = {"event": event, "seq": self.state.seq + 1,
-                   "t": round(time.time(), 3), **fields}
+                   "t": round(time.time(), 3), **fields}  # cetpu: noqa[replay-wallclock] operator wall-stamp; replay keys on seq, never t
             if user is not None:
                 rec["user"] = str(user)
             self._file.append(rec)
@@ -898,7 +898,7 @@ class PoisonList:
 
     def add(self, user, *, error: str, attempts: int) -> None:
         rec = {"user": str(user), "error": error, "attempts": attempts,
-               "t": round(time.time(), 3)}
+               "t": round(time.time(), 3)}  # cetpu: noqa[replay-wallclock] operator wall-stamp; replay keys on membership, never t
         with self._lock:
             self._users[str(user)] = rec
             self._file.append(rec)
@@ -911,7 +911,7 @@ class PoisonList:
             if str(user) not in self._users:
                 return False
             self._file.append({"event": "unpoison", "user": str(user),
-                               "t": round(time.time(), 3)})
+                               "t": round(time.time(), 3)})  # cetpu: noqa[replay-wallclock] operator wall-stamp; replay keys on record order, never t
             del self._users[str(user)]
             return True
 

@@ -646,7 +646,7 @@ class FleetServer:
             self.planner.observe_enqueue(
                 # the wall read below sizes HOLDS only (when work
                 # batches), never journaled results
-                pool, t=time.monotonic(),
+                pool, t=time.monotonic(),  # cetpu: noqa[replay-wallclock] arrival EMA
                 journal_entry=lambda: self._journal(
                     "enqueue", entry.user_id, **fields))
         else:
@@ -761,7 +761,7 @@ class FleetServer:
                 self.planner.note_resolved(uid)
             fields = {"ok": True, **self.ack_epoch()}
             if gen is not None:
-                fields["gen"] = int(gen)
+                fields["gen"] = int(gen)  # cetpu: noqa[implicit-host-sync] gen is the fence generation, a host int
             # an evicted session acks as a drop (the coordinator's
             # drop-ack path completes the move), a fenced one as the
             # deferred fence ack; either way the workspace is durable at
@@ -774,7 +774,7 @@ class FleetServer:
                 tracer.control_event(
                     "ctl.release", key=self.journal.state.seq,
                     flow_user=uid, kind=kind,
-                    gen=None if gen is None else int(gen))
+                    gen=None if gen is None else int(gen))  # cetpu: noqa[implicit-host-sync] gen is the fence generation, a host int
 
     def apply_fleet_edges(self, edges) -> None:
         """Adopt the coordinator's fleet-level bucket edges: future
@@ -907,7 +907,7 @@ class FleetServer:
                     timeout = max(cfg.admit_window_s, 0.05)
                     if self._requeue:
                         due = min(t for t, _ in self._requeue) \
-                            - time.monotonic()
+                            - time.monotonic()  # cetpu: noqa[replay-wallclock] wait-timeout sizing; nothing journaled
                         timeout = min(timeout, max(due, 0.01))
                     self.queue.wait_nonempty(timeout)
         except BaseException:
@@ -1112,7 +1112,7 @@ class FleetServer:
                 # wait.  The queue stamps entries BEFORE the root span
                 # opens, so clamp the span start inside its parent
                 # (strict nesting is an export invariant).
-                now = time.time()
+                now = time.time()  # cetpu: noqa[replay-wallclock] span wall-stamp (telemetry; ids stay deterministic)
                 t0 = now - wait_s
                 root_t0 = tracer.user_open_t0(uid)
                 if root_t0 is not None:
@@ -1128,7 +1128,7 @@ class FleetServer:
         its due time and retries next round)."""
         if not self._requeue:
             return
-        now = time.monotonic()
+        now = time.monotonic()  # cetpu: noqa[replay-wallclock] backoff due-time check; delays are seeded, nothing journaled
         still: list = []
         for due, entry in self._requeue:
             if due > now:
@@ -1179,7 +1179,7 @@ class FleetServer:
                               base_delay=self.config.backoff_base_s,
                               max_delay=self.config.backoff_max_s,
                               rng=self._backoff_rng)
-        self._requeue.append((time.monotonic() + delay, entry))
+        self._requeue.append((time.monotonic() + delay, entry))  # cetpu: noqa[replay-wallclock] due time is runtime scheduling; the fail record carries no clock
         self._journal("fail", uid, error=error, attempt=attempts)
         self.report.event("requeue", user=uid, attempt=attempts,
                           delay_s=round(delay, 4), error=error)

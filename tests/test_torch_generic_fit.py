@@ -29,6 +29,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -160,6 +161,37 @@ def test_tree_core_equals_its_plain_version(criterion, parallel_features, n):
     assert (core["feature"] >= 0).sum() > 10
 
 
+def test_parallel_scan_stays_linear_on_tied_columns():
+    """DEAM's 260 columns, every one tied (4 values), all drawn at each
+    node, as gbc draws them: the parallel feature scan builds the
+    sequential loop's tree bit for bit, in at most 4 times its time on a
+    team of 2.  A scan that replays every sort since the last visit
+    without ties costs the square of the features drawn (about 130 times
+    the loop's sorts here)."""
+    rng = np.random.default_rng(8)
+    n, f = 1500, 260
+    X = rng.integers(0, 4, (n, f)).astype(np.float32)
+    y = rng.standard_normal(n)
+    seeds = np.array([5], np.uint32)
+    kw = {"criterion": "mse", "max_features": f, "max_depth": 2}
+    out, secs = {}, {}
+    native.limit_threads(2)
+    try:
+        for parallel in (False, True, False, True):
+            t0 = time.perf_counter()
+            out[parallel] = native.trees_build(X, y, np.ones(n), seeds,
+                                               parallel_features=parallel,
+                                               **kw)
+            s = time.perf_counter() - t0
+            secs[parallel] = min(s, secs.get(parallel, s))
+    finally:
+        native.limit_threads(0)
+    for k in out[False]:
+        np.testing.assert_array_equal(out[True][k], out[False][k], err_msg=k)
+    assert (out[True]["feature"] >= 0).sum() == 3
+    assert secs[True] <= 4 * secs[False] + 0.05, secs
+
+
 def test_forest_is_the_same_bits_under_any_team_size():
     X, y = _rows("rf", 150, seed=4)
     out = []
@@ -274,6 +306,7 @@ def test_make_boosted_member_impls():
 
 _NO_SKLEARN = r"""
 import sys
+import time
 sys.modules["sklearn"] = None
 import numpy as np
 from consensus_entropy_tpu_torch.models.members import make_boosted_member

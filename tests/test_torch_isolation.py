@@ -54,7 +54,8 @@ print(len(names))
 #: pre-training and the evidence experiment; slice 9: the meshes; slice
 #: 10: single-host serving, the span tracer, export and the workload;
 #: slice 11: the fabric; slice 12: the operator plane and CLIs and the
-#: generic members)
+#: generic members; slice 14: the static analysis, the race driver and the
+#: reproduction pipeline)
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "models.committee", "convert", "prng", "cli.amg_test",
                  "fleet.scheduler", "fleet.report", "fleet.session",
@@ -69,7 +70,10 @@ SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "workload.trace", "workload.driver", "workload.grade",
                  "serve.fabric", "serve.hosts", "obs.alerts", "obs.status",
                  "cli.top", "cli.fsck", "cli.report", "cli.soak",
-                 "models.generic_members")
+                 "models.generic_members", "analysis", "analysis.engine",
+                 "analysis.model", "analysis.rules", "analysis.cli",
+                 "analysis.__main__", "cli.race_check", "cli.reproduce",
+                 "data.synth")
 
 
 def test_every_port_module_imports_without_jax():
