@@ -251,7 +251,26 @@ Phases, one line of output each (or a few):
     host (else it stays tier-1's; the line says which); (c) phase 17's
     pre-training and registry run, through ``cli.reproduce``; (d)
     ``reproduce --smoke`` on the card.  (a) and (d) run beside phase 11 in
-    a process of their own; no hand kernel launched.
+    a process of their own; no hand kernel launched;
+24. faults: the JAX package's fault matrix on the card, beside phase 11
+    in a process of its own (it times nothing on the card).  (a) in that
+    process on the card, ``cli.fault_matrix``'s per-session rows at the
+    device fault points (``pool.score``, ``state.save`` and
+    ``checkpoint.write`` with the members scored on the card,
+    ``member.predict``, which fires only for members scored on the host,
+    with them there) and its four qbdc rows (GaussianNB, SGD and two
+    narrow vgg members; ``acquire.qbdc.masks``, ``pool.score``,
+    ``state.save``, a vgg member's file): each killed run resumed from its
+    workspace to its unfaulted card run, the queried songs equal, the
+    F1s equal (the host rows) or within the CNN members' gate (qbdc); (b)
+    ``python -m consensus_entropy_tpu_torch.cli.fault_matrix --leg
+    elastic`` on the card: 2 elastic ``amg_test --fabric-worker`` hosts
+    on a seeded synthetic tree, h0 SIGKILLed at its first admission, the
+    autoscaler's replacement, merged edges on every survivor, every
+    journal and WAL valid, each user run once on its sequential run's
+    state; its JSON line, each worker's spawn to first lease and the kill
+    to the replacement's lease.  ``linear_mc`` launches are counted in
+    every process (0).
 
 A line before the JSON lines gives each group of phases' wall time.
 
@@ -610,6 +629,8 @@ FABRIC_ARGS = ["-q", "10", "-e", "1", "-n", "150", "--max-users",
 FABRIC_C_USERS, FABRIC_SCALE_DOWN_S = 10, 0.5
 FABRIC_C_ARGS = ["-q", "10", "-e", "4", "-n", "150", "--max-users",
                  str(FABRIC_C_USERS)]
+# Phase 24 (b): the elastic leg may take FAULTS_TIMEOUT_S s
+FAULTS_TIMEOUT_S = 600
 # Phase 21: the operator plane over runs of phases 19 and 20.  (a) a thread
 # reads phase 20 (a)'s status directory every STATUS_POLL_S s and renders
 # top's frame with --stale-s STATUS_STALE_S (a snapshot is stale after 3 of
@@ -5644,7 +5665,77 @@ def phase_race(card):
           + f"); {tsan_note}; phase 23 (b) {time.perf_counter() - t0:.1f} s")
 
 
-# -- phases 17, 22 and 23 beside phase 11 ----------------------------------
+# -- phase 24: the fault matrix on the card ---------------------------------
+
+
+def phase_faults(card):
+    """Phase 24, beside phase 11: (a) the kill matrix's device rows and
+    qbdc rows in this process on FABRIC_DEVICE; (b) the elastic leg of
+    ``cli.fault_matrix`` in a process of its own, the launch hook on its
+    and its workers' path.  Returns the ``linear_mc`` launches of both."""
+    from consensus_entropy_tpu_torch.cli import fault_matrix
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    linear_mc.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        session = fault_matrix.session_leg(os.path.join(root, "session"),
+                                           FABRIC_DEVICE)
+        t_session = time.perf_counter() - t0
+        qbdc = fault_matrix.qbdc_leg(os.path.join(root, "qbdc"),
+                                     FABRIC_DEVICE)
+        t_qbdc = time.perf_counter() - t0 - t_session
+        inproc = linear_mc.launches
+        launch_log = os.path.join(root, "launches.log")
+        open(launch_log, "w").close()
+        os.makedirs(os.path.join(root, "launch_hook"))
+        with open(os.path.join(root, "launch_hook", "sitecustomize.py"),
+                  "w") as f:
+            f.write(LAUNCH_HOOK)
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "consensus_entropy_tpu_torch.cli."
+             "fault_matrix", "--leg", "elastic", "--device", FABRIC_DEVICE,
+             "--root", os.path.join(root, "elastic")],
+            cwd=here, env=fabric_env(root, launch_log), capture_output=True,
+            text=True, timeout=FAULTS_TIMEOUT_S)
+        t_elastic = time.perf_counter() - t1
+        with open(launch_log) as f:
+            child = sum(1 for _ in f)
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    elastic = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not elastic.get("ok"):
+        raise AssertionError(f"faults (b): exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    launches = inproc + child
+    if launches:
+        raise AssertionError(f"faults: {launches} linear_mc launches on a "
+                             "path without the kernel")
+    for name, leg, secs in (("session", session, t_session),
+                            ("qbdc", qbdc, t_qbdc)):
+        rows = ", ".join(
+            f"{r['point']}@{r['at']}"
+            + (" (members on the card)" if r.get("device_members") else "")
+            + f" killed {r['killed_s']:.2f} s, resumed {r['resumed_s']:.2f}"
+            + (f" s, F1 diff {r['max_f1_diff']:.3g}"
+               if "max_f1_diff" in r else " s") for r in leg["rows"])
+        print(f"[faults] {card}: (a) {name} rows on "
+              f"{FABRIC_DEVICE}, each resumed to its unfaulted run "
+              f"(queried songs equal): {rows}; {secs:.1f} s")
+    print(f"[faults] {card}: (b) fault_matrix --leg elastic on "
+          f"{FABRIC_DEVICE} "
+          f"({t_elastic:.1f} s): {json.dumps(elastic)}")
+    print(f"[faults] {card}: (b) spawn to first lease by worker "
+          f"{elastic['spawn_to_lease_s']} s; the kill to the replacement's "
+          f"lease {elastic['kill_to_respawn_lease_s']} s; users run by "
+          f"host {elastic['served']}; linear_mc launches {launches} over "
+          f"phase 24 (every process); phase 24 "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -- phases 17, 22, 23 and 24 beside phase 11 -------------------------------
 
 
 #: how long ``main`` waits for the second process once phase 11 is done
@@ -5666,12 +5757,12 @@ def exit_with_parent():
 
 
 def beside_main(phase, out_json):
-    """``chip_smoke.py --beside PHASE OUT``: phase 22, 17 or 23 (a) and (d)
-    in a process of its own, which ``main`` starts as phase 11 begins and
-    joins after it.  None reads phase 11's files: phase 22 writes its own
-    copy of phase 11's seeded tree and host registry, phases 17 and 23 their
-    own trees.  Prints the phase's lines; writes its kernel launches and
-    wall time to OUT."""
+    """``chip_smoke.py --beside PHASE OUT``: phase 22, 17, 23 (a) and (d),
+    or 24 in a process of its own, which ``main`` starts as phase 11 begins
+    and joins after it.  None reads phase 11's files: phase 22 writes its
+    own copy of phase 11's seeded tree and host registry, phases 17, 23 and
+    24 their own trees.  Prints the phase's lines; writes its kernel
+    launches and wall time to OUT."""
     exit_with_parent()
     card = phase_device(quiet=True)
     t0 = time.perf_counter()
@@ -5686,6 +5777,8 @@ def beside_main(phase, out_json):
         launches = generic["launches"]
     elif phase == "23":
         launches = checks_beside(card)
+    elif phase == "24":
+        launches = phase_faults(card)
     else:
         phase_pretrain(card)
     with open(out_json, "w") as f:
@@ -5776,11 +5869,11 @@ def main():
     lap("7-9")
     phase_al_loop(x, card)
     lap("10")
-    # phases 22, 17 and 23 (a), (d) run beside phase 11, each in a process
-    # of its own; all four load the one host library
+    # phases 22, 17, 23 (a), (d) and 24 run beside phase 11, each in a
+    # process of its own; all of them load the one host library
     native.build()
     with tempfile.TemporaryDirectory() as side_root:
-        beside = [Beside(side_root, p) for p in ("22", "17", "23")]
+        beside = [Beside(side_root, p) for p in ("22", "17", "23", "24")]
         try:
             fleet_cli, mesh_cli, serve_cli, fabric_cli = phase_al_cli(card)
             lap("11")
@@ -5789,7 +5882,7 @@ def main():
         finally:
             for proc in beside:
                 proc.stop()
-    lap("waiting for 17, 22 and 23")
+    lap("waiting for 17, 22, 23 and 24")
     phase_race(card)
     lap("23 (b)")
     phase_gbdt(card)
@@ -5821,7 +5914,8 @@ def main():
         f"{serve_cli['wall_s']:.1f}; 20 and 21 (a)-(c): "
         f"{fabric_cli['wall_s']:.1f}; beside 11, each in a process of its "
         f"own: 22 {side['22']['wall_s']:.1f}, 17 {side['17']['wall_s']:.1f}, "
-        f"23 (a), (d) {side['23']['wall_s']:.1f})"
+        f"23 (a), (d) {side['23']['wall_s']:.1f}, "
+        f"24 {side['24']['wall_s']:.1f})"
         + f"; total {time.perf_counter() - t0:.1f}")
     ops_launches = fabric_cli["ops_launches"] + serve["soak"]["launches"]
     print(json.dumps({"kernels": [{
@@ -5830,13 +5924,14 @@ def main():
         "replaces": "consensus_entropy_tpu/experimental/pallas_scoring.py:131",
         "launches": launches + mesh["launches"] + serve["launches"]
         + fabric_cli["launches"] + ops_launches + side["22"]["launches"]
-        + side["23"]["launches"],
+        + side["23"]["launches"] + side["24"]["launches"],
         "launches_by_phase": {"5": launches, "18": mesh["launches"],
                               "19": serve["launches"],
                               "20": fabric_cli["launches"],
                               "21": ops_launches,
                               "22": side["22"]["launches"],
-                              "23": side["23"]["launches"]},
+                              "23": side["23"]["launches"],
+                              "24": side["24"]["launches"]},
         "max_abs_err": max(max_err, mesh["max_abs_err"]), **times,
         "sharded_ms": mesh["sharded_ms"],
         "sharded_shards": MESH_B2_SHARDS}]}))

@@ -191,8 +191,10 @@ class UserSession:
         # every process has read the resume state before the coordinator's
         # first commit of this run can replace it: a process that read it
         # later would resume where the others start fresh, and the two
-        # would wait in different collectives
-        multihost.sync(f"run_user_start_{data.user_id}")
+        # would wait in different collectives (a barrier of the port's
+        # own: it does not fire ``multihost.sync``, which JAX fires once a
+        # user, at the run's end)
+        multihost.barrier()
         if st is not None and not st.matches(
                 mode=cfg.mode, seed=self.seed, queries=cfg.queries,
                 train_size=cfg.train_size):

@@ -100,6 +100,13 @@ def sync(name: str = "sync") -> None:
     from consensus_entropy_tpu_torch.resilience import faults
 
     faults.fire("multihost.sync", barrier=name)
+    barrier()
+
+
+def barrier() -> None:
+    """The barrier alone, without the fault point: for the port's own
+    barriers, which the JAX package does not have, so that a run fires
+    ``multihost.sync`` where the JAX package fires it and as often."""
     if process_count() > 1:
         dist.barrier()
 

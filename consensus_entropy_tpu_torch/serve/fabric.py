@@ -1071,6 +1071,10 @@ class FabricCoordinator:
                        tail, paths["lease"], self._clock())
         if self.tracer is not None and self.tracer.enabled:
             h.span_tail = JsonlTail(paths["spans"])
+        if self.fleet_planner is not None:
+            # the host journals its sketch at the fleet planner's epoch
+            # (the JAX package's workers keep their own ServeConfig's)
+            h.assign.append({"planner_epoch": self.config.planner_epoch})
         self.hosts[host_id] = h
         return h
 
@@ -2289,8 +2293,15 @@ class FabricCoordinator:
                 target = self._migrating.pop(u, None)
                 # whichever ack commits a deadline-demoted fence first
                 # (this drop, or the racing checkpoint fence) clears the
-                # fallback entry; the loser's ack is then cursor-only
-                self._fence_fallback.pop(u, None)
+                # fallback entry; the loser's ack is then cursor-only.  A
+                # REFUSED drop commits nothing and leaves the entry: the
+                # worker refuses the evict when the checkpoint fence has
+                # just released the user, and that fence's ack, journaled
+                # after this one, must still commit the move (the JAX
+                # package pops the entry here and never re-routes the
+                # released user, ROADMAP C17)
+                if rec.get("ok"):
+                    self._fence_fallback.pop(u, None)
                 if u in self._evict_pending:
                     # the DISCONNECT evict ack: the old owner provably
                     # released (or never held) the user — a reconnect

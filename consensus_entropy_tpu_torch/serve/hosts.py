@@ -315,6 +315,13 @@ def run_worker(fabric_dir: str, host_id: str, *, build_entry, scheduler,
                     except (TypeError, ValueError):
                         pass  # malformed broadcast: keep local routing
                     continue
+                if rec.get("planner_epoch") is not None:
+                    # the fleet planner's cadence, sent once per host
+                    try:
+                        server.set_planner_epoch(rec["planner_epoch"])
+                    except (TypeError, ValueError):
+                        pass  # malformed: keep the configured cadence
+                    continue
                 if isinstance(rec.get("depth"), str):
                     # gray-ladder degradation dial: score with the
                     # cheap committee stage ("cheap") or restore

@@ -539,6 +539,12 @@ class FleetServer:
         #: a ``fence``; insertion-ordered for deterministic acks
         self._evicting: dict[str, None] = {}
         self._fence_lock = threading.Lock()
+        #: held from an admission's queue pop to its ``_live_cls`` entry,
+        #: and by :meth:`fence` and :meth:`evict`: a user being admitted
+        #: is in flight to them, never unknown (the JAX package refuses
+        #: an evict in that window, and a disconnect then runs the user
+        #: on two hosts, ROADMAP C20)
+        self._admit_lock = threading.Lock()
         #: the coordinator epoch this worker's feed latched
         #: (``serve.hosts.EpochGate``), echoed on every fence/drop ack so a
         #: coordinator discards acks addressed to a predecessor; ``None``
@@ -705,13 +711,15 @@ class FleetServer:
         (:meth:`_apply_fences`).  Unknown or finished: False (refused; the
         user's own finish record resolves it)."""
         uid = str(user_id)
-        if self.withdraw(uid):
-            return True
-        if uid in self._live_cls:
-            with self._fence_lock:
-                self._fence_req.append(uid)
-            return None
-        return False
+        with self._admit_lock:
+            if self.withdraw(uid):
+                return True
+            held = uid in self._live_cls
+        if not held:
+            return False
+        with self._fence_lock:
+            self._fence_req.append(uid)
+        return None
 
     def evict(self, user_id) -> bool | None:
         """The fence deadline's fallback (intake thread): as
@@ -720,13 +728,15 @@ class FleetServer:
         progress (the workspace stays at its last committed generation,
         which resume elsewhere replays), and acks as a ``drop``."""
         uid = str(user_id)
-        if self.withdraw(uid):
-            return True
-        if uid in self._live_cls:
-            with self._fence_lock:
-                self._evict_req.append(uid)
-            return None
-        return False
+        with self._admit_lock:
+            if self.withdraw(uid):
+                return True
+            held = uid in self._live_cls
+        if not held:
+            return False
+        with self._fence_lock:
+            self._evict_req.append(uid)
+        return None
 
     def ack_epoch(self) -> dict:
         """The latched coordinator epoch as ack fields (empty outside a
@@ -789,6 +799,17 @@ class FleetServer:
         else:
             self.router.update(new)
         self.report.event("fleet_edges", edges=list(new))
+
+    def set_planner_epoch(self, epoch) -> None:
+        """Journal the local planner's sketch every ``epoch`` enqueues:
+        the fabric coordinator sends its fleet planner's epoch, so each
+        host's sketches feed the fleet's merges at the fleet's cadence."""
+        epoch = int(epoch)
+        if epoch < 1:
+            raise ValueError(f"planner_epoch must be >= 1, got {epoch}")
+        if self.planner is not None:
+            with self.planner._lock:
+                self.planner.epoch = epoch
 
     def set_depth(self, depth: str) -> None:
         """The gray ladder's degradation dial: ``"cheap"`` caps every
@@ -1071,28 +1092,29 @@ class FleetServer:
             live: dict = {}
             for c in self._live_cls.values():
                 live[c] = live.get(c, 0) + 1
-            item = self.queue.pop(
-                live=live, free=self.config.target_live - sched.n_live)
-            if item is None:
-                return
-            entry, t_enq = item
-            uid = str(entry.user_id)
-            cls = getattr(entry, "priority", None) or DEFAULT_CLASS
-            # a restarted run re-admits at the KILLED run's journaled
-            # width — per-RUN pad pinning survives the process even when
-            # the planner's edges have since moved
-            width = self.journal.width_of(uid) \
-                if self.journal is not None else None
-            if width is None:
-                width = self.router.width_for(entry.data.pool.n_songs)
-            # a kill here models dying between the queue pop and the
-            # durable admit record: the journal still shows the user
-            # queued, so a restart re-enqueues it — no user is lost
-            faults.fire("serve.admit", user=uid, width=width)
-            self._journal("admit", uid, width=width)
-            self._attempts[uid] = self._attempts.get(uid, 0) + 1
-            sched.admit(entry, pad=width)
-            self._live_cls[uid] = cls
+            with self._admit_lock:
+                item = self.queue.pop(
+                    live=live, free=self.config.target_live - sched.n_live)
+                if item is None:
+                    return
+                entry, t_enq = item
+                uid = str(entry.user_id)
+                cls = getattr(entry, "priority", None) or DEFAULT_CLASS
+                # a restarted run re-admits at the KILLED run's journaled
+                # width — per-RUN pad pinning survives the process even when
+                # the planner's edges have since moved
+                width = self.journal.width_of(uid) \
+                    if self.journal is not None else None
+                if width is None:
+                    width = self.router.width_for(entry.data.pool.n_songs)
+                # a kill here models dying between the queue pop and the
+                # durable admit record: the journal still shows the user
+                # queued, so a restart re-enqueues it — no user is lost
+                faults.fire("serve.admit", user=uid, width=width)
+                self._journal("admit", uid, width=width)
+                self._attempts[uid] = self._attempts.get(uid, 0) + 1
+                sched.admit(entry, pad=width)
+                self._live_cls[uid] = cls
             if id(entry) not in self._admitted_ids:
                 self._admitted_ids.add(id(entry))
                 self._admitted.append(entry)

@@ -343,6 +343,38 @@ def test_join_rebalance_and_fleet_edges_match(tmp_path):
     assert any(r["event"] == "drop" for r in recs)
 
 
+def test_each_host_is_sent_the_fleet_planners_epoch(tmp_path):
+    """The port's coordinator sends each host its fleet planner's epoch
+    first (the JAX package's hosts keep their own ServeConfig's); a
+    worker's server then journals its sketch at that cadence."""
+    from consensus_entropy_tpu_torch.config import ALConfig
+    from consensus_entropy_tpu_torch.fleet import FleetReport, FleetScheduler
+    from consensus_entropy_tpu_torch.serve import FleetServer, ServeConfig
+
+    users = [f"u{i}" for i in range(4)]
+    summary, _, _, fabric_dir = _fake_fleet(
+        PKGS["port"], tmp_path, port_serve.FabricConfig(
+            hosts=2, min_hosts=2, max_hosts=2, poll_s=0.01,
+            planner_epoch=3, drain_timeout_s=0.2),
+        users, {u: 30 for u in users},
+        lambda rnd, coord, workers: [_work(w) for w in workers.values()])
+    assert sorted(summary["finished"]) == users
+    for host in ("h0", "h1"):
+        feed = port_serve.JsonlTail(
+            port_hosts.fabric_paths(fabric_dir, host)["assign"])
+        first = next(iter(feed.poll()))[0]
+        feed.close()
+        assert first["planner_epoch"] == 3
+    server = FleetServer(
+        FleetScheduler(ALConfig(queries=2, epochs=1), report=FleetReport(),
+                       scoring_by_width=True, device="cpu"), ServeConfig())
+    assert server.planner.epoch == 8
+    server.set_planner_epoch(3)
+    assert server.planner.epoch == 3
+    with pytest.raises(ValueError):
+        server.set_planner_epoch(0)
+
+
 def test_coordinator_kill_mid_rebalance_replays_alike(tmp_path):
     users = [f"u{i}" for i in range(6)]
     pools = {u: 30 for u in users}

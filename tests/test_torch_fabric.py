@@ -533,7 +533,7 @@ def test_feed_poll_fires_in_the_tail(tmp_path):
 # -- the 2-host subprocess kill drill ---------------------------------------
 
 
-def _spawn_factory(fabric_dir, ws_root, cfg, n_users, lease_s=5.0):
+def _spawn_factory(fabric_dir, ws_root, cfg, specs, lease_s=5.0):
     def spawn(host_id):
         log = open(hosts.fabric_paths(fabric_dir, host_id)["log"], "ab")
         env = {**os.environ, "PYTHONPATH": REPO}
@@ -541,8 +541,9 @@ def _spawn_factory(fabric_dir, ws_root, cfg, n_users, lease_s=5.0):
         try:
             return subprocess.Popen(
                 [sys.executable, WORKER, fabric_dir, host_id, ws_root,
-                 cfg.mode, str(cfg.epochs), str(n_users), str(lease_s),
-                 "2"], stdout=log, stderr=subprocess.STDOUT, env=env)
+                 cfg.mode, str(cfg.epochs), str(len(specs)), str(lease_s),
+                 "2", workload.sizes_arg(specs)], stdout=log,
+                stderr=subprocess.STDOUT, env=env)
         finally:
             log.close()
     return spawn
@@ -550,20 +551,23 @@ def _spawn_factory(fabric_dir, ws_root, cfg, n_users, lease_s=5.0):
 
 def test_two_host_kill_drill_matches_sequential_and_replays_in_jax(
         tmp_path):
-    """3 users over 2 worker processes; h0 SIGKILLed the moment the
+    """3 users over 2 worker processes, in the two pool-size buckets of
+    the JAX gates (30 and 100 songs); h0 SIGKILLed the moment the
     journal shows it admitted a user.  The coordinator confirms the death,
     revokes h0 and re-routes its users to h1, where they resume from their
     workspaces; every result equals its sequential port run, which equals
     the JAX sequential run; the compacted journal replays in JAX's
     ``AdmissionJournal`` to the port's state, and both validators pass."""
     cfg = workload.make_cfg("mc", epochs=2)
-    specs = workload.user_specs(3)
+    specs = workload.user_specs(3, sizes=[30, 100])
+    jax_specs = jax_workload.user_specs(3, sizes=[30, 100])
+    assert specs == jax_specs
+    assert workload.sizes_arg(specs) == jax_workload.sizes_arg(jax_specs)
     seq = workload.sequential_baselines(str(tmp_path), cfg, specs)
     jax_root = tmp_path / "jax"
     jax_root.mkdir()
     jax_seq = jax_workload.sequential_baselines(
-        str(jax_root), jax_workload.make_cfg("mc", epochs=2),
-        jax_workload.user_specs(3))
+        str(jax_root), jax_workload.make_cfg("mc", epochs=2), jax_specs)
     for _, uid, _ in specs:
         assert seq[uid]["trajectory"] == jax_seq[uid]["trajectory"]
     fabric_dir = str(tmp_path / "fabric")
@@ -588,7 +592,7 @@ def test_two_host_kill_drill_matches_sequential_and_replays_in_jax(
     try:
         summary = coord.run([u for _, u, _ in specs],
                             _spawn_factory(fabric_dir, str(tmp_path), cfg,
-                                           3))
+                                           specs))
     finally:
         journal.close()
     assert sorted(summary["finished"]) == [u for _, u, _ in specs]

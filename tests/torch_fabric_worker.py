@@ -2,10 +2,12 @@
 (counterpart of ``tests/fabric_worker.py``).
 
     python tests/torch_fabric_worker.py FABRIC_DIR HOST_ID WS_ROOT MODE \
-        EPOCHS N_USERS LEASE_S TARGET_LIVE
+        EPOCHS N_USERS LEASE_S TARGET_LIVE [SIZES]
 
 Runs one ``FleetServer`` (``device="cpu"``) fed from the coordinator's
-assignment file (``serve.hosts.run_worker``) and appends each finished
+assignment file (``serve.hosts.run_worker``); ``SIZES`` (``sizes_arg``,
+comma-separated) gives the users their pool sizes, as the JAX worker's
+ninth argument does.  It appends each finished
 user's result to ``FABRIC_DIR/results_<HOST_ID>.jsonl`` (append and
 fsync; the tests read these).  ``CETPU_FAULTS`` reaches the worker through
 its environment.  The production worker is ``amg_test --fabric-worker``.
@@ -20,6 +22,7 @@ import time
 def main(argv) -> int:
     (fabric_dir, host_id, ws_root, mode, epochs, n_users, lease_s,
      target) = argv[:8]
+    sizes = [int(n) for n in argv[8].split(",")] if len(argv) > 8 else None
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import torch
@@ -44,7 +47,7 @@ def main(argv) -> int:
     )
 
     cfg = make_cfg(mode=mode, epochs=int(epochs))
-    specs = user_specs(int(n_users))
+    specs = user_specs(int(n_users), sizes=sizes)
     results_path = os.path.join(fabric_dir, f"results_{host_id}.jsonl")
 
     def on_result(rec):

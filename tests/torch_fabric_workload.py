@@ -25,9 +25,21 @@ def make_cfg(mode: str = "mc", epochs: int = 2, queries: int = 4):
                     ckpt_dtype="float32")
 
 
-def user_specs(n_users: int, n_songs: int = 30) -> list:
-    """``[(seed, user_id, n_songs), ...]``, the JAX workload's users."""
+def user_specs(n_users: int, n_songs: int = 30, sizes=None) -> list:
+    """``[(seed, user_id, n_songs), ...]``, the JAX workload's users;
+    ``sizes`` (cycled over the users) gives each its own pool size, the
+    two-bucket shape of the JAX gates (``sizes=[30, 100]``)."""
+    if sizes:
+        return [(100 + i, f"u{i}", int(sizes[i % len(sizes)]))
+                for i in range(int(n_users))]
     return [(100 + i, f"u{i}", n_songs) for i in range(int(n_users))]
+
+
+def sizes_arg(specs) -> str:
+    """The per-user pool sizes as the worker's ninth argument (a
+    comma-separated list): a worker must build exactly the users the
+    sequential runs were made from."""
+    return ",".join(str(n) for _, _, n in specs)
 
 
 def make_data(seed: int, uid: str, n_songs: int = 30, f: int = 10):
