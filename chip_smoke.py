@@ -55,7 +55,11 @@ Phases, one line of output each (or a few):
     equal; per-slot values within the entropy gate, near-ties counted);
     the median ms of each ``StepTimer`` phase and of the whole iteration,
     and the device busy share over one steady mc iteration (device events
-    over the iteration's wall time);
+    over the iteration's wall time); first (a), the host core's four
+    functions (``native/ce_host.cpp``: the GaussianNB posteriors the
+    evaluate step runs, the linear probabilities, the segment mean and
+    the row entropy) against their plain numpy versions at the loop's
+    sizes, with core and plain host ms and the OpenMP team;
 11. al-cli: ``cli.amg_test.main`` end to end on an AMG1608-shaped tree
     this script writes (1608 songs of 4-8 frames, the 260 feature columns,
     ``.mat`` annotations, a registry of 5 GaussianNB + 5 SGD members from
@@ -455,6 +459,13 @@ AL_EPOCHS, TRAIN_SIZE, AL_MODES = 2, 0.85, ("mc", "hc", "mix", "rand", "wmc")
 GNB_FIT_ROWS, SGD_FIT_ROWS, CENTER_SD, PROFILED_EPOCH = 4000, 128, 0.1, 1
 TIMED_PHASES = ("score", "select", "update_host", "evaluate", "checkpoint",
                 "ckpt_join")
+# Phase 10 (a): the host core against its plain numpy versions (the
+# linear logits are float32 in the core, float64 in the plain version;
+# np.sum adds pairwise), calls timed a function, and phase 10's iteration
+# medians across the modes before the host core (chip_smoke.py's runs on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 5)
+HOST_CORE_TOL, HOST_CORE_REPS = {"rtol": 1e-6, "atol": 1e-7}, 3
+AL_ITER_BEFORE_MS = "1878.598-2578.115"
 # The CLI (phase 11) at AMG1608's shape: songs, frames per song, annotators
 # and each one's chance to annotate a song, registry members of each kind.
 AMG_SONGS, AMG_FRAMES, AMG_USERS, ANNOTATE_P, REG_MEMBERS = (
@@ -1639,9 +1650,87 @@ def check_al_run(mode, path, data, n_train, epochs=AL_EPOCHS,
     return recs
 
 
-def phase_al_loop(x, card):
+def _host_calls(fn, reps):
+    """``fn()``'s value and the median host-clock ms of ``reps`` calls."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        secs.append(time.perf_counter() - t0)
+    return out, statistics.median(secs) * 1e3
+
+
+def phase_host_core(pool, gnbs, w, b):
+    """Phase 10 (a): the host core's four functions (``native/ce_host.cpp``)
+    against their plain numpy versions at phase 10's sizes, within
+    ``HOST_CORE_TOL``: the GaussianNB posteriors of each of the 8 members
+    over the pool's frames (the evaluate step's function), the linear
+    probabilities of a softmax-linear member of phases 3-6 in both modes,
+    and the mean over the pool's song segments and the row entropy of the
+    first member's posteriors.  Host-clock ms of core and plain: the
+    median over the 8 members' calls, else over ``HOST_CORE_REPS``."""
+    X = pool.X
+    starts = np.r_[pool.offsets, len(X)].astype(np.int64)
+    team = os.environ.get("OMP_NUM_THREADS")
+    team = (f"OMP_NUM_THREADS={team}" if team else "the OpenMP default, "
+            f"{len(os.sched_getaffinity(0))} cores")
+    rows = {}
+
+    def held(name, core, plain, ms, plain_ms):
+        err = float(np.max(np.abs(core - plain))) if core.size else 0.0
+        if core.dtype != np.float32 or not np.allclose(
+                core, plain, **HOST_CORE_TOL):
+            raise AssertionError(f"host-core {name}: core against plain, "
+                                 f"max abs error {err:.3e}")
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+
+    cores, plains, core_s, plain_s = [], [], [], []
+    for m in gnbs:
+        args = (X, m.theta_, m.var_, m.class_prior_)
+        p, ms = _host_calls(lambda a=args: native.gnb_predict_proba(*a), 1)
+        q, plain_ms = _host_calls(
+            lambda a=args: native.gnb_predict_proba(*a, plain=True), 1)
+        cores.append(p)
+        plains.append(q)
+        core_s.append(ms)
+        plain_s.append(plain_ms)
+    held("gnb_predict_proba", np.stack(cores), np.stack(plains),
+         statistics.median(core_s), statistics.median(plain_s))
+    probs = cores[0]
+    del cores, plains
+    for mode in ("softmax", "ova"):
+        args = (X, w[0], b[0], mode)
+        p, ms = _host_calls(lambda a=args: native.linear_predict_proba(*a),
+                            HOST_CORE_REPS)
+        q, plain_ms = _host_calls(
+            lambda a=args: native.linear_predict_proba(*a, plain=True),
+            HOST_CORE_REPS)
+        held(f"linear_predict_proba[{mode}]", p, q, ms, plain_ms)
+    del p, q
+    for name, fn in (("segment_mean",
+                      lambda **kw: native.segment_mean(probs, starts, **kw)),
+                     ("row_entropy",
+                      lambda **kw: native.row_entropy(probs, **kw))):
+        p, ms = _host_calls(fn, HOST_CORE_REPS)
+        q, plain_ms = _host_calls(lambda fn=fn: fn(plain=True),
+                                  HOST_CORE_REPS)
+        held(name, p, q, ms, plain_ms)
+    print(f"[host-core] the host core's four functions against their plain "
+          f"versions (tolerance {HOST_CORE_TOL}) at phase 10's sizes: "
+          f"{len(X)} pool frames x {F} features, {len(gnbs)} GaussianNB "
+          f"members, {len(starts) - 1} song segments; OpenMP team "
+          f"{team}; host-clock ms, core / plain (median of {len(gnbs)} "
+          f"members' calls for gnb, of {HOST_CORE_REPS} calls else): "
+          + "; ".join(f"{k} {v['ms']:.3f} / {v['plain_ms']:.3f} "
+                      f"({v['plain_ms'] / v['ms']:.1f}x, max abs error "
+                      f"{v['max_abs_err']:.3e})" for k, v in rows.items()))
+    return rows
+
+
+def phase_al_loop(x, w, b, card):
     """The AL loop at configs[4] scale on the card, each mode against the
-    same loop on the CPU at iteration 0."""
+    same loop on the CPU at iteration 0; first the host core against its
+    plain versions at the loop's sizes (:func:`phase_host_core`)."""
     rng = np.random.default_rng(SEED + 4)
     centers = rng.normal(0, CENTER_SD, (C, F)).astype(np.float32)
     labels = rng.integers(0, C, N)
@@ -1653,6 +1742,7 @@ def phase_al_loop(x, card):
     t0 = time.perf_counter()
     members = fit_members(centers, G_MEMBERS, SEED + 5)
     fit_s = time.perf_counter() - t0
+    host_core = phase_host_core(pool, members[:G_MEMBERS], w, b)
     n_train = int(round(TRAIN_SIZE * N))
     stats, near = {}, {}
     busy = None
@@ -1712,7 +1802,7 @@ def phase_al_loop(x, card):
           f" (torch.profiler, device events only): " + (
               "not measured (no device events)" if busy is None else
               f"{busy[0]:.2%} of the iteration, {busy[1]:.4f} ms"))
-    return stats, busy
+    return {"stats": stats, "busy": busy, "host_core": host_core}
 
 
 def write_amg_tree(root, seed=SEED + 6, users=AMG_USERS, feats_from=None):
@@ -4632,12 +4722,11 @@ def _timeline(watch):
             for r in watch.records]
 
 
-def _fabric_check(watch, users, what, orphans_ok=False):
+def _fabric_check(watch, users, what):
     """Every user finished with exactly one ``finish`` record, the
     journal validates (port validator), the merged spans have no orphans
-    (``orphans_ok``: counted only; a session released at a fence never
-    ends the iteration span its host steps name, in the JAX package as
-    here).  Returns (spans, orphans)."""
+    (a session released at a fence ends its iteration's span).  Returns
+    the span count."""
     from consensus_entropy_tpu_torch.serve import validate_journal_file
 
     counts = watch.finish_counts()
@@ -4648,10 +4737,10 @@ def _fabric_check(watch, users, what, orphans_ok=False):
                                               "serve_journal.jsonl"))
     spans = load_spans([os.path.join(watch.users_dir, "spans.jsonl")])
     orphans = len(orphan_spans(spans))
-    if jerr or not spans or (orphans and not orphans_ok):
+    if jerr or not spans or orphans:
         raise AssertionError(f"{what}: journal {jerr[:3]}, {len(spans)} "
                              f"spans, {orphans} orphans")
-    return len(spans), orphans
+    return len(spans)
 
 
 class Job:
@@ -4767,7 +4856,7 @@ def fabric_cli_runs(root, amg_root, cnn, host_models, meanwhile):
     if rc != 0 or "fabric summary: " not in out or not kill:
         raise AssertionError(f"fabric (a): exit {rc}, kill {kill}:\n"
                              f"{out[-3000:]}")
-    n_spans, _ = _fabric_check(a, users, "fabric (a)")
+    n_spans = _fabric_check(a, users, "fabric (a)")
     a_paths = _users_runs(a_models)
     f1_a = _queried_match(a_paths, seq_paths, "fabric (a)")
     revoke = [r for r in a.records if r["event"] == "revoke"
@@ -4865,8 +4954,7 @@ def fabric_elastic_run(cmd, c_seq_paths, c_models, launch_log, root):
         str(FABRIC_C_AGING_S)], fabric_env(root, launch_log))
     if rc != 0 or "fabric summary: " not in out:
         raise AssertionError(f"fabric (c): exit {rc}:\n{out[-3000:]}")
-    _, c_orphans = _fabric_check(c, c_users, "fabric (c)",
-                                 orphans_ok=True)
+    _fabric_check(c, c_users, "fabric (c)")
     _same_runs([_users_runs(c_models)[u] for u in c_users],
                [c_seq_paths[u] for u in c_users], "fabric (c)")
     kinds = [(r["event"], r.get("host"), r.get("user")) for r in c.records]
@@ -4910,7 +4998,6 @@ def fabric_elastic_run(cmd, c_seq_paths, c_models, launch_log, root):
     return {"c_users": len(c_users), "c_wall": c_wall,
             "c_stats": c.host_stats(), "c_victim": victim,
             "c_fence": {"user": fence["user"], "gen": fence["gen"]},
-            "c_orphans": c_orphans,
             "alerts": {"records": len(recs), "kinds": kinds,
                        "snapshots": sorted(errors)}}
 
@@ -4967,9 +5054,9 @@ def phase_fabric(card, fab, serve_cli):
           f"{fab['c_victim']}: fence of {fab['c_fence']['user']} acked at "
           f"generation {fab['c_fence']['gen']}, assign elsewhere, "
           f"drain_done; every user's metrics and state equal its sequential"
-          f" run's; journal clean; {fab['c_orphans']} orphan spans (the "
-          f"fenced iteration's host steps: its al_iter span is never "
-          f"ended); {fab['c_wall']:.1f} s; " + hosts(fab["c_stats"]))
+          f" run's; journal clean; 0 orphan spans (the fenced iteration's "
+          f"al_iter span ended at the release); {fab['c_wall']:.1f} s; "
+          + hosts(fab["c_stats"]))
     if fab["launches"]:
         raise AssertionError(f"fabric: {fab['launches']} linear_mc launches")
     print(f"[fabric] {card}: linear_mc launches over phase 20, every "
@@ -5867,7 +5954,7 @@ def main():
     del committee, pool, table   # phase 18 takes the tables again
     torch.cuda.empty_cache()
     lap("7-9")
-    phase_al_loop(x, card)
+    al_loop = phase_al_loop(x, w, b, card)
     lap("10")
     # phases 22, 17, 23 (a), (d) and 24 run beside phase 11, each in a
     # process of its own; all of them load the one host library
@@ -5908,6 +5995,17 @@ def main():
     lap("19")
     phase_fabric(card, fabric_cli, serve_cli)
     phase_operator(card, fabric_cli, serve["soak"])
+    host_s = sum(walls[k] for k in ("12", "13", "14", "15", "16", "18",
+                                    "19"))
+    loop = al_loop["stats"].values()
+    print(f"[al-loop] {card}: with the host core, phase 10's medians across "
+          f"the modes: evaluate {min(st['evaluate'] for st in loop):.3f}-"
+          f"{max(st['evaluate'] for st in loop):.3f} ms, iteration "
+          f"{min(st['iteration'] for st in loop):.3f}-"
+          f"{max(st['iteration'] for st in loop):.3f} ms (before the core: "
+          f"{AL_ITER_BEFORE_MS} ms an iteration); this host ran phases "
+          f"12-16, 18 and 19, which run alone, in {host_s:.1f} s (host "
+          "clocks move up to 2.1x between calls)")
     print("[wall] host clock, s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f" (18 (d) ran inside 11: {mesh_cli['wall_s']:.1f}; 19 (c): "

@@ -35,8 +35,9 @@ kills are in-process ``faults.inject`` rules, as in the JAX scripts.
   same merged planner edges, the journal's.
 - ``remedy`` (``remedy_check.sh`` legs 1-3): 3 hosts, h0 slowed by
   ``pool.score:delay``: a rebalance without retirement; a fence deadline
-  demoted to evict+resume; the coordinator killed at ``fabric.remedy``
-  and rerun.
+  demoted to evict+resume (h0's checkpoint commits also held, so its
+  fence cannot be acked within a poll); the coordinator killed at
+  ``fabric.remedy`` and rerun.
 - ``gray`` (``gray_check.sh`` legs 1-2): 3 hosts, h0 with
   ``serve.dispatch:stall``: the ladder to ``gray_drain`` with h0 never
   retired; the coordinator killed at ``fabric.gray`` and rerun, the users
@@ -373,6 +374,18 @@ ELASTIC_DELAY_S = 1.0
 #: the remedy leg's per-score delay on h0: its two users outlast the fast
 #: hosts' by about a second (the JAX gate's 0.3 and 0.5 s over 8 users)
 REMEDY_DELAY_S = 0.5
+#: the deadline step's hold of each checkpoint commit on h0
+#: (``state.save:delay``): a fenced session is released once its commit is
+#: durable, so h0's fence ack lands this long after the fence at the
+#: earliest, past the coordinator's first deadline check however loaded
+#: its poll (a coordinator that reads the ack first commits the fence and
+#: counts no timeout)
+REMEDY_COMMIT_HOLD_S = 2.0
+#: the deadline step's skew hold: the fast hosts have emptied and h0 has
+#: admitted both its users well before it ends, so the one victim is h0
+#: and its shed is a fence (under load, the rebalance step's 0.2 s can
+#: pick a lagging fast host, or find h0's second user still queued)
+REMEDY_DEADLINE_HOLD_S = 1.5
 #: the gray leg's hold of every dispatch on h0: above the detector's 2-s
 #: floor (the JAX gate holds 5 s)
 GRAY_STALL_S = 3.0
@@ -768,9 +781,10 @@ def remedy_leg(tree: Tree) -> dict:
     )
 
     def config(**kw):
+        kw = {"remedy_hold_s": 0.2, **kw}
         return FabricConfig(hosts=3, min_hosts=3, max_hosts=3, remedy=True,
-                            remedy_hold_s=0.2, remedy_cooldown_s=600.0,
-                            remedy_skew=1, placement="load", **kw)
+                            remedy_cooldown_s=600.0, remedy_skew=1,
+                            placement="load", **kw)
 
     out = {}
     slow = {"h0": f"pool.score:delay={REMEDY_DELAY_S}@1x-1"}
@@ -790,8 +804,11 @@ def remedy_leg(tree: Tree) -> dict:
                         "migrations": s["migrations"], "fences": s["fences"],
                         "spawn_to_lease_s": fab.lease_times()}
 
-    fab = Fabric(tree, "remedy_deadline", faults=slow)
-    s, _, _ = _run_once_up(fab, config(fence_deadline_s=0.01))
+    held = {"h0": f"{slow['h0']},state.save:delay={REMEDY_COMMIT_HOLD_S}"
+                  "@1x-1"}
+    fab = Fabric(tree, "remedy_deadline", faults=held)
+    s, _, _ = _run_once_up(fab, config(
+        fence_deadline_s=0.01, remedy_hold_s=REMEDY_DEADLINE_HOLD_S))
     _check(s["remedies"] >= 1 and s["fence_timeouts"] >= 1,
            f"remedy deadline: {s['remedies']} remedies, "
            f"{s['fence_timeouts']} fence timeouts")

@@ -2,9 +2,10 @@
 oversubscribed OpenMP.
 
 Counterpart of ``scripts/race_check.sh`` for the port's own core
-(``native/ce_gbdt.cpp``, ``ce_sgd.cpp``, ``ce_tree.cpp``, ``ce_svm.cpp``,
-the sources ``native.py`` builds), driven by ``native/ce_stress.cpp``,
-which calls every exported function of the core on shared inputs:
+(``native/ce_host.cpp``, ``ce_gbdt.cpp``, ``ce_sgd.cpp``, ``ce_tree.cpp``,
+``ce_svm.cpp``, the sources ``native.py`` builds), driven by
+``native/ce_stress.cpp``, which calls every exported function of the core
+on shared inputs:
 
 1. **tsan**: built with ``g++ -O1 -g -fsanitize=thread -fopenmp``; four
    pthreads call every function concurrently, each with an OpenMP team of
@@ -212,7 +213,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="race and determinism check of the port's host core")
     rows, features, tree_rows, svc_rows = DEFAULT_SIZES
     p.add_argument("--rows", type=int, default=rows,
-                   help="rows of the GBDT, SGD and gradient calls")
+                   help="rows of the host-member, GBDT, SGD and gradient calls")
     p.add_argument("--features", type=int, default=features)
     p.add_argument("--tree-rows", type=int, default=tree_rows,
                    help="rows of the two CART builds (at most --rows)")

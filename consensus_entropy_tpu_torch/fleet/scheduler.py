@@ -554,15 +554,18 @@ class FleetScheduler:
     def _release(self, state: _SessionState) -> None:
         """Close a marked session at its boundary: the generator's close
         joins its checkpointer (the commit is durable before the release
-        is reported), the slot frees, and the user surfaces through
-        :meth:`take_released` with its generation.  A session whose
-        checkpoints run inline never reaches this point for a fence and
-        finishes where it is."""
+        is reported), its iteration's span ends, the slot frees, and the
+        user surfaces through :meth:`take_released` with its generation.
+        A session whose checkpoints run inline never reaches this point
+        for a fence and finishes where it is."""
         self._live.pop(state, None)
         try:
             state.gen.close()
         except Exception:
             pass
+        # the closed generator never reaches its iteration span's end
+        state.session.end_iteration_span(
+            released="evict" if state.force_release else "fence")
         uid = str(state.entry.user_id)
         self._released[uid] = state.session.ckpt_epoch
         self.report.event("fence_release", user=uid,

@@ -382,6 +382,16 @@ class UserSession:
         self.ckpt.submit(commit)
         self.ckpt_epoch = next_epoch
 
+    def end_iteration_span(self, **attrs) -> None:
+        """End the current iteration's ``al_iter`` span, if one is open.
+        The scheduler calls this when it releases the session (at a
+        fence's checkpoint, or an evict's step): the generator is closed
+        there, before its own end of the span, and the iteration's host
+        step spans would name a parent that is never written."""
+        if self.trace_ctx is not None:
+            self.tracer.end(self.trace_ctx, **attrs)
+            self.trace_ctx = self.trace_epoch = None
+
     def _join_and_drain(self) -> None:
         """Join the previous background checkpoint in its own phase and
         record its self-timed parts (``ckpt_bg_fetch``, ``_write``,

@@ -31,7 +31,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from consensus_entropy_tpu_torch import prng
+from consensus_entropy_tpu_torch import native, prng
 from consensus_entropy_tpu_torch.config import (
     CNN_ARCHS,
     NUM_CLASSES,
@@ -112,13 +112,26 @@ class FramePool:
     @staticmethod
     def mean_over_segments(frame_values: np.ndarray,
                            starts: np.ndarray) -> np.ndarray:
-        """Per-segment mean over n+1 boundaries (no segment empty), summed
-        in float64 and returned in the input's float type, as the JAX
-        package's native ``segment_mean`` does for float32."""
+        """Per-segment mean over n+1 boundaries, summed in float64; an
+        empty segment gives 0.  2-D float32 tables go through the host
+        core (``native.segment_mean``), as the JAX package's do; other
+        tables are reduced in numpy and returned in their float type
+        (float32 at least)."""
         frame_values = np.asarray(frame_values)
-        sums = np.add.reduceat(frame_values, starts[:-1], axis=0,
-                               dtype=np.float64)
-        return (sums / np.diff(starts)[:, None]).astype(
+        if frame_values.dtype == np.float32 and frame_values.ndim == 2:
+            return native.segment_mean(frame_values, starts)
+        starts = np.asarray(starts, np.int64)
+        counts = np.diff(starts)
+        full = counts > 0
+        sums = np.zeros((len(counts),) + frame_values.shape[1:], np.float64)
+        if full.any():
+            # an empty segment has no rows between its neighbours' starts,
+            # so the non-empty ones' starts bound the same rows
+            sums[full] = np.add.reduceat(frame_values, starts[:-1][full],
+                                         axis=0, dtype=np.float64)
+        counts = np.maximum(counts, 1).reshape(
+            (-1,) + (1,) * (frame_values.ndim - 1))
+        return (sums / counts).astype(
             np.result_type(frame_values.dtype, np.float32))
 
     def rows_for_songs(self, songs: Sequence) -> np.ndarray:

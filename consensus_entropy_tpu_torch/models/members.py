@@ -22,10 +22,12 @@ state as numpy arrays and trains itself, reproducing scikit-learn 1.9.0:
   calls; ``fit`` stops on the training objective (``tol``,
   ``n_iter_no_change``).
 
-Predictions follow the JAX package's host path (``native/__init__.py``):
-GaussianNB posteriors in float64 from the direct form, returned as float32;
-SGD float32 decision values through a saturation-safe sigmoid and the OvA
-row normalisation; ``predict`` is the argmax of those values.
+Predictions follow the JAX package's host path (``native/__init__.py``
+``member_probs``/``member_predict``): GaussianNB posteriors from the host
+core's ``native.gnb_predict_proba`` (float64 sums in the JAX package's
+native order, returned as float32); SGD float32 decision values
+(``X @ coef_.T``) through a saturation-safe sigmoid and the OvA row
+normalisation; ``predict`` is the argmax of those values.
 
 Member files are the port's own: ``numpy.savez`` archives holding the
 arrays and a JSON header, then a CRC32 of the archive, readable without
@@ -39,6 +41,7 @@ import math
 
 import numpy as np
 
+from consensus_entropy_tpu_torch import native
 from consensus_entropy_tpu_torch.config import NUM_CLASSES
 from consensus_entropy_tpu_torch.models.base import (
     Member,
@@ -95,54 +98,6 @@ def _full_proba(p, classes) -> np.ndarray:
     full = np.zeros((p.shape[0], NUM_CLASSES), p.dtype)
     full[:, np.asarray(classes, int)] = p
     return full
-
-
-#: rows per block of the GaussianNB predict: each row's sums are its own,
-#: so blocking changes no bit and keeps the float64 temporaries in cache
-_GNB_BLOCK = 4096
-
-
-def gnb_predict_proba(X, theta, var, class_prior) -> np.ndarray:
-    """GaussianNB posteriors from fitted parameters: float64 direct form,
-    returned as float32 (``native.gnb_predict_proba``)."""
-    theta = np.asarray(theta, np.float64)
-    var = np.asarray(var, np.float64)
-    log_prior = np.log(np.asarray(class_prior, np.float64))
-    norm = [log_prior[k] - 0.5 * np.sum(np.log(2.0 * np.pi * var[k]))
-            for k in range(theta.shape[0])]
-    X = np.asarray(X, np.float32)
-    out = np.empty((X.shape[0], theta.shape[0]), np.float32)
-
-    for lo in range(0, X.shape[0], _GNB_BLOCK):
-        xd = X[lo:lo + _GNB_BLOCK].astype(np.float64)
-        jll = np.empty((xd.shape[0], theta.shape[0]))
-        d = np.empty_like(xd)
-        for k in range(theta.shape[0]):
-            np.subtract(xd, theta[k], out=d)
-            d **= 2
-            d /= var[k]
-            jll[:, k] = norm[k] - 0.5 * np.sum(d, axis=1)
-        jll -= jll.max(axis=1, keepdims=True)
-        p = np.exp(jll)
-        out[lo:lo + _GNB_BLOCK] = p / p.sum(axis=1, keepdims=True)
-    return out
-
-
-def _sigmoid(x) -> np.ndarray:
-    """Saturation-safe logistic: ``exp(-|x|)`` never overflows."""
-    z = np.exp(-np.abs(x))
-    return np.where(x >= 0, 1.0 / (1.0 + z), z / (1.0 + z))
-
-
-def _ova_normalize(p) -> np.ndarray:
-    """scikit-learn's OvA tail: L1-normalise rows, uniform for all-zero
-    rows."""
-    s = p.sum(axis=1, keepdims=True)
-    zero = (s == 0.0).ravel()
-    s[zero] = 1.0
-    p = p / s
-    p[zero] = 1.0 / p.shape[1]
-    return p.astype(np.float32)
 
 
 class GNBMember(Member):
@@ -233,11 +188,13 @@ class GNBMember(Member):
         self.class_prior_ = self.class_count_ / np.sum(self.class_count_)
 
     def predict_proba(self, X):
-        p = gnb_predict_proba(X, self.theta_, self.var_, self.class_prior_)
+        p = native.gnb_predict_proba(X, self.theta_, self.var_,
+                                     self.class_prior_)
         return _full_proba(p, self.classes_)
 
     def predict(self, X):
-        p = gnb_predict_proba(X, self.theta_, self.var_, self.class_prior_)
+        p = native.gnb_predict_proba(X, self.theta_, self.var_,
+                                     self.class_prior_)
         return np.asarray(self.classes_)[p.argmax(axis=1)]
 
     def save(self, path: str) -> None:
@@ -494,8 +451,8 @@ class SGDMember(Member):
                 + self.intercept_.astype(np.float32))
 
     def predict_proba(self, X):
-        return _full_proba(_ova_normalize(_sigmoid(self._logits(X))),
-                           self.classes_)
+        p = native.ova_normalize(native.sigmoid(self._logits(X)))
+        return _full_proba(p, self.classes_)
 
     def predict(self, X):
         return np.asarray(self.classes_)[self._logits(X).argmax(axis=1)]

@@ -1,12 +1,17 @@
-"""The host core, in C++: the boosted slot's tree build and forest
-predict, the SGD member's epoch loop, scikit-learn's CART builder (the
-random forest, the gradient-boosting classifier and the boosted slot's
-scikit-learn member) and libsvm's C-SVC training.
+"""The host core, in C++: the host members' predictions and the
+frame-to-song mean, the boosted slot's tree build and forest predict, the
+SGD member's epoch loop, scikit-learn's CART builder (the random forest,
+the gradient-boosting classifier and the boosted slot's scikit-learn
+member) and libsvm's C-SVC training.
 
-Counterpart of the GBDT half of ``consensus_entropy_tpu/native/__init__.py``
-(``gbdt_build_tree`` ``:199-240``, ``_gbdt_build_tree_np`` ``:242-350``,
+Counterpart of ``consensus_entropy_tpu/native/__init__.py`` (the host
+functions ``linear_predict_proba``, ``gnb_predict_proba``,
+``segment_starts``, ``segment_mean`` and ``row_entropy`` ``:61-196``;
+``gbdt_build_tree`` ``:199-240``, ``_gbdt_build_tree_np`` ``:242-350``,
 ``gbdt_predict_margins`` ``:352-402``) and of ``native/build.py:41-75``.
-``native/ce_gbdt.cpp`` (the port's own copy of the source) and
+``native/ce_host.cpp`` and ``native/ce_gbdt.cpp`` (the port's own copies
+of the JAX package's sources, whose host functions give its native build's
+results bit for bit) and
 ``native/ce_sgd.cpp`` (scikit-learn's ``_plain_sgd`` loop, which the JAX
 package takes from scikit-learn's Cython), ``native/ce_tree.cpp``
 (scikit-learn's ``DepthFirstTreeBuilder`` with the best splitter) and
@@ -19,7 +24,8 @@ its own temporary name and moves the library into place with
 ``os.replace``.
 
 Unlike the JAX package there is no silent fallback: a failed build or load
-raises.  The plain versions (numpy for the trees, the same algorithm with
+raises.  The plain versions (the JAX package's numpy fallbacks for the
+host functions; numpy for the trees, the same algorithm with
 the same double accumulation order, so the trees are identical; Python for
 the SGD loop, ``models/members.py::plain_sgd``; Python for the CART
 builder, ``models/tree_fit.py``; numpy for the SVC solver,
@@ -46,6 +52,7 @@ import numpy as np
 from numpy.ctypeslib import ndpointer
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
+HOST_SOURCE = os.path.join(_PKG, "native", "ce_host.cpp")
 SOURCE = os.path.join(_PKG, "native", "ce_gbdt.cpp")
 SGD_SOURCE = os.path.join(_PKG, "native", "ce_sgd.cpp")
 TREE_SOURCE = os.path.join(_PKG, "native", "ce_tree.cpp")
@@ -62,6 +69,12 @@ _u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _u32 = ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
 _int64 = ctypes.c_int64
+_pf32 = ctypes.POINTER(ctypes.c_float)
+
+#: the jll scratch bound of ``ce_gnb_predict_proba``
+MAX_CLASSES = 64
+#: ``linear_predict_proba``'s modes and the core's codes for them
+LINEAR_MODES = {"softmax": 0, "ova": 1}
 
 _lib = None
 #: per thread: the OpenMP team size wanted (``limit``) and the one set in
@@ -71,7 +84,7 @@ _threads = threading.local()
 
 def _sources() -> tuple[str, ...]:
     """The core's sources, read when called (tests point one elsewhere)."""
-    return SOURCE, SGD_SOURCE, TREE_SOURCE, SVM_SOURCE
+    return HOST_SOURCE, SOURCE, SGD_SOURCE, TREE_SOURCE, SVM_SOURCE
 
 
 def library_path() -> str:
@@ -107,6 +120,17 @@ def _get_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
+        lib.ce_linear_predict_proba.argtypes = [
+            _f32, _int64, _int64, _f32, _f32, _int64, ctypes.c_int, _pf32]
+        lib.ce_linear_predict_proba.restype = None
+        lib.ce_gnb_predict_proba.argtypes = [
+            _f32, _int64, _int64, _f64, _f64, _f64, _int64, _pf32]
+        lib.ce_gnb_predict_proba.restype = None
+        lib.ce_segment_mean.argtypes = [_f32, _int64, _int64, _i64, _int64,
+                                        _pf32]
+        lib.ce_segment_mean.restype = None
+        lib.ce_row_entropy.argtypes = [_f32, _int64, _int64, _pf32]
+        lib.ce_row_entropy.restype = None
         lib.ce_gbdt_build_tree.argtypes = [
             _u8, _int64, _int64, _f32, _f32, ctypes.c_int, ctypes.c_int,
             ctypes.c_double, ctypes.c_double, ctypes.c_double, _i32, _i32,
@@ -136,6 +160,8 @@ def _get_lib() -> ctypes.CDLL:
         lib.ce_trees_copy.argtypes = [ctypes.c_void_p, _i64, _i64, _i64,
                                       _f64, _u8, _f64]
         lib.ce_trees_copy.restype = None
+        lib.ce_trees_sort_counts.argtypes = [ctypes.c_void_p, _i64]
+        lib.ce_trees_sort_counts.restype = None
         lib.ce_trees_free.argtypes = [ctypes.c_void_p]
         lib.ce_trees_free.restype = None
         lib.ce_multinomial_neg_gradient.argtypes = [_f64, _f64, _int64,
@@ -165,6 +191,158 @@ def limit_threads(n: int) -> None:
     the OpenMP default).  Builds nothing: it takes effect at the thread's
     next call into the core."""
     _threads.limit = max(0, int(n))
+
+
+def _out_ptr(out: np.ndarray):
+    return out.ctypes.data_as(_pf32)
+
+
+def linear_predict_proba(X, W, b, mode: str = "softmax", *,
+                         plain: bool = False) -> np.ndarray:
+    """Probabilities of the linear model ``X @ W + b`` (``W``: ``(f, c)``),
+    float32 ``(n, c)``.  ``mode='softmax'``: multinomial; ``'ova'``:
+    per-class sigmoids, L1-normalised rows (scikit-learn's one-vs-all
+    ``SGDClassifier(loss='log_loss').predict_proba``), uniform where every
+    sigmoid is 0.  ``plain=True`` runs the numpy version (logits in
+    float64, not rounded to float32 as the core's are)."""
+    X, W, b = (np.ascontiguousarray(a, np.float32) for a in (X, W, b))
+    n, f = X.shape
+    f2, c = W.shape
+    if f2 != f or b.shape != (c,):
+        raise ValueError(f"shape mismatch: X {X.shape} W {W.shape} "
+                         f"b {b.shape}")
+    imode = LINEAR_MODES[mode]
+    if plain:
+        logits = X.astype(np.float64) @ W.astype(np.float64) + b
+        if imode == 0:
+            logits -= logits.max(axis=1, keepdims=True)
+            p = np.exp(logits)
+            return (p / p.sum(axis=1, keepdims=True)).astype(np.float32)
+        return ova_normalize(sigmoid(logits))
+    out = np.empty((n, c), np.float32)
+    _get_lib().ce_linear_predict_proba(X, n, f, W, b, c, imode,
+                                       _out_ptr(out))
+    return out
+
+
+def sigmoid(x) -> np.ndarray:
+    """Saturation-safe logistic: ``exp(-|x|)`` never overflows (it
+    underflows, silently), and equals the naive form wherever that does
+    not overflow, deeply negative rows included (their relative sizes
+    drive the OvA normalisation)."""
+    z = np.exp(-np.abs(x))
+    return np.where(x >= 0, 1.0 / (1.0 + z), z / (1.0 + z))
+
+
+def ova_normalize(p) -> np.ndarray:
+    """scikit-learn's OvA tail: L1-normalise rows, uniform for all-zero
+    rows; float32."""
+    s = p.sum(axis=1, keepdims=True)
+    zero = (s == 0.0).ravel()
+    s[zero] = 1.0
+    p = p / s
+    p[zero] = 1.0 / p.shape[1]
+    return p.astype(np.float32)
+
+
+#: rows per block of the plain GaussianNB predict: each row's sums are its
+#: own, so blocking changes no bit and keeps the float64 temporaries small
+_GNB_BLOCK = 4096
+
+
+def gnb_predict_proba(X, theta, var, class_prior, *,
+                      plain: bool = False) -> np.ndarray:
+    """GaussianNB posteriors from fitted ``theta_``/``var_``/
+    ``class_prior_``: the joint log-likelihood in float64, returned as
+    float32 ``(n, c)``; at most :data:`MAX_CLASSES` classes.
+    ``plain=True`` runs the numpy version (the same expressions, summed
+    pairwise by ``np.sum``)."""
+    X = np.ascontiguousarray(X, np.float32)
+    theta = np.ascontiguousarray(theta, np.float64)
+    var = np.ascontiguousarray(var, np.float64)
+    log_prior = np.log(np.ascontiguousarray(class_prior, np.float64))
+    n, f = X.shape
+    c, f2 = theta.shape
+    if f2 != f or var.shape != (c, f) or log_prior.shape != (c,):
+        raise ValueError(f"shape mismatch: X {X.shape} theta {theta.shape} "
+                         f"var {var.shape} prior {log_prior.shape}")
+    if c > MAX_CLASSES:
+        raise ValueError(f"at most {MAX_CLASSES} classes (got {c})")
+    out = np.empty((n, c), np.float32)
+    if not plain:
+        _get_lib().ce_gnb_predict_proba(X, n, f, theta, var, log_prior, c,
+                                        _out_ptr(out))
+        return out
+    norm = [log_prior[k] - 0.5 * np.sum(np.log(2.0 * np.pi * var[k]))
+            for k in range(c)]
+    for lo in range(0, n, _GNB_BLOCK):
+        xd = X[lo:lo + _GNB_BLOCK].astype(np.float64)
+        jll = np.empty((xd.shape[0], c))
+        d = np.empty_like(xd)
+        for k in range(c):
+            np.subtract(xd, theta[k], out=d)
+            d **= 2
+            d /= var[k]
+            jll[:, k] = norm[k] - 0.5 * np.sum(d, axis=1)
+        jll -= jll.max(axis=1, keepdims=True)
+        p = np.exp(jll)
+        out[lo:lo + _GNB_BLOCK] = p / p.sum(axis=1, keepdims=True)
+    return out
+
+
+def segment_starts(sorted_ids) -> np.ndarray:
+    """Row offsets (``n_segs + 1``) of the contiguous runs of equal ids."""
+    ids = np.asarray(sorted_ids)
+    if ids.ndim != 1:
+        raise ValueError("ids must be 1-D")
+    if ids.size == 0:
+        return np.zeros(1, np.int64)
+    change = np.flatnonzero(ids[1:] != ids[:-1]) + 1
+    return np.concatenate([[0], change, [ids.size]]).astype(np.int64)
+
+
+def segment_mean(X, starts, *, plain: bool = False) -> np.ndarray:
+    """The mean of ``X``'s rows within each segment
+    ``[starts[s], starts[s + 1])``, summed in float64, float32
+    ``(n_segs, c)``; an empty segment gives 0 (``groupby('s_id').mean()``
+    on a sorted frame table, ``amg_test.py:437``).  ``plain=True`` runs
+    the numpy version."""
+    X = np.ascontiguousarray(X, np.float32)
+    starts = np.ascontiguousarray(starts, np.int64)
+    n, c = X.shape
+    n_segs = starts.size - 1
+    if (starts[0] != 0 or starts[-1] != n
+            or (n_segs > 0 and np.any(np.diff(starts) < 0))):
+        raise ValueError("starts must be non-decreasing offsets from 0 to "
+                         "n_rows")
+    if plain:
+        out = np.zeros((n_segs, c), np.float32)
+        for s in range(n_segs):
+            lo, hi = starts[s], starts[s + 1]
+            if hi > lo:
+                out[s] = X[lo:hi].mean(axis=0, dtype=np.float64)
+        return out
+    out = np.empty((n_segs, c), np.float32)
+    _get_lib().ce_segment_mean(X, n, c, starts, n_segs, _out_ptr(out))
+    return out
+
+
+def row_entropy(P, *, plain: bool = False) -> np.ndarray:
+    """scipy.stats.entropy of each row of ``P`` (normalised, nats,
+    ``0 log 0 = 0``; a zero-sum row gives 0), float32 ``(n,)``.
+    ``plain=True`` runs the numpy version."""
+    P = np.ascontiguousarray(P, np.float32)
+    n, c = P.shape
+    if plain:
+        pd = P.astype(np.float64)
+        tot = pd.sum(axis=1, keepdims=True)
+        q = np.divide(pd, tot, out=np.zeros_like(pd), where=tot > 0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            plogp = np.where(q > 0, q * np.log(q), 0.0)
+        return (-plogp.sum(axis=1)).astype(np.float32)
+    out = np.empty(n, np.float32)
+    _get_lib().ce_row_entropy(P, n, c, _out_ptr(out))
+    return out
 
 
 def gbdt_build_tree(Xb, g, h, *, max_depth: int, n_bins: int,
@@ -370,7 +548,7 @@ def gbdt_predict_margins(Xb, feature, threshold, value, tree_class,
 def trees_build(X32, y, sw, seeds, *, criterion: str, n_classes: int = 1,
                 max_features: int, max_depth: int,
                 parallel_features: bool = False,
-                plain: bool = False) -> dict:
+                plain: bool = False, sort_counts: dict | None = None) -> dict:
     """Build ``len(seeds)`` CART trees (``native/ce_tree.cpp``) on the
     float32 rows ``X32``: tree ``t`` fits ``y[t]`` with sample weights
     ``sw[t]`` (either may be one shared 1-D array), its splitter seeded
@@ -383,7 +561,10 @@ def trees_build(X32, y, sw, seeds, *, criterion: str, n_classes: int = 1,
     builds the trees in parallel, or with ``parallel_features`` in turn,
     each node's features scanned in parallel: the same trees.
     ``plain=True`` runs ``models/tree_fit.py``'s Python builder, which
-    builds the same trees."""
+    builds the same trees.  ``sort_counts``, a dict, receives the core's
+    ``visits`` (the feature visits the sequential loop sorts, one sort
+    each) and ``sorts`` (the sorts of samples by a feature it made: at
+    most twice the visits with ``parallel_features``)."""
     X32 = np.ascontiguousarray(X32, np.float32)
     n, f = X32.shape
     seeds = np.ascontiguousarray(seeds, np.uint32)
@@ -426,6 +607,10 @@ def trees_build(X32, y, sw, seeds, *, criterion: str, n_classes: int = 1,
         lib.ce_trees_copy(handle, out["left"], out["right"], out["feature"],
                           out["threshold"], out["missing_left"],
                           out["value"])
+        if sort_counts is not None:
+            tally = np.empty(2, np.int64)
+            lib.ce_trees_sort_counts(handle, tally)
+            sort_counts.update(visits=int(tally[0]), sorts=int(tally[1]))
     finally:
         lib.ce_trees_free(handle)
     out["offsets"] = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)

@@ -1,5 +1,5 @@
-// Concurrency stress driver for the port's host core (ce_gbdt.cpp,
-// ce_sgd.cpp, ce_tree.cpp, ce_svm.cpp), run by
+// Concurrency stress driver for the port's host core (ce_host.cpp,
+// ce_gbdt.cpp, ce_sgd.cpp, ce_tree.cpp, ce_svm.cpp), run by
 // consensus_entropy_tpu_torch/cli/race_check.py.  Counterpart of the JAX
 // package's native/ce_stress.cpp: it calls every exported function of the
 // core on shared inputs.
@@ -25,8 +25,11 @@
 //
 //   ce_stress MODE [N F TREE_N SVC_N]
 //
-// N rows of F features feed the GBDT build and predict, both SGD loops and
-// the multinomial gradient; the first TREE_N of them the two CART modes
+// N rows of F features feed the host members' predictions (linear softmax
+// and OvA, GaussianNB), the segment mean of the GaussianNB posteriors over
+// seeded segments (some empty) and their row entropies; the GBDT build and
+// predict, both SGD loops and the multinomial gradient; the first TREE_N
+// of them the two CART modes
 // (Gini forest with bootstrap weights, sqrt(F) features drawn a node,
 // trees in parallel; squared error with every feature drawn at each node,
 // as gbc draws them, and scanned in parallel; every column of these rows
@@ -48,6 +51,13 @@
 #include <vector>
 
 extern "C" {
+void ce_linear_predict_proba(const float*, int64_t, int64_t, const float*,
+                             const float*, int64_t, int, float*);
+void ce_gnb_predict_proba(const float*, int64_t, int64_t, const double*,
+                          const double*, const double*, int64_t, float*);
+void ce_segment_mean(const float*, int64_t, int64_t, const int64_t*, int64_t,
+                     float*);
+void ce_row_entropy(const float*, int64_t, int64_t, float*);
 void ce_gbdt_build_tree(const uint8_t*, int64_t, int64_t, const float*,
                         const float*, int, int, double, double, double,
                         int32_t*, int32_t*, double*);
@@ -109,6 +119,11 @@ struct Inputs {
   std::vector<int32_t> tree_class;
   std::vector<uint32_t> seeds;
   double gamma;
+  // the host members: a linear model (f, C), GaussianNB's parameters
+  // (C, f) and log priors, and the segments' n_segs + 1 offsets
+  std::vector<float> W, b;
+  std::vector<double> theta, var, log_prior;
+  std::vector<int64_t> starts;
 
   explicit Inputs(Sizes sizes) : z(sizes) {
     Rng r;
@@ -162,6 +177,19 @@ struct Inputs {
     mean /= (double)m;
     for (int64_t i = 0; i < m; ++i) sq += (X64[i] - mean) * (X64[i] - mean);
     gamma = 1.0 / ((double)f * sq / (double)m);
+    W.resize(f * C);
+    for (auto& v : W) v = (float)(0.3 * r.unit());
+    for (int64_t k = 0; k < C; ++k) {
+      b.push_back((float)r.unit());
+      log_prior.push_back(std::log(1.0 / (double)C));
+    }
+    theta.assign(centers.begin(), centers.end());
+    var.resize(C * f);
+    for (auto& v : var) v = 0.5 + std::fabs(r.unit());
+    // segments of 0 to 15 rows
+    starts.push_back(0);
+    while (starts.back() < n)
+      starts.push_back(std::min<int64_t>(n, starts.back() + r.next() % 16));
   }
 };
 
@@ -261,9 +289,31 @@ void run_sgd(const std::vector<T>& X, const std::vector<T>& y, int64_t n,
   out.add(name + ".status_epochs", tail, 2);
 }
 
+void run_host(const Inputs& in, Outputs& out) {
+  const int64_t n = in.z.n, f = in.z.f;
+  const int64_t n_segs = (int64_t)in.starts.size() - 1;
+  std::vector<float> soft(n * C), ova(n * C), gnb(n * C), means(n_segs * C),
+      ent(n);
+  ce_linear_predict_proba(in.X32.data(), n, f, in.W.data(), in.b.data(), C,
+                          0, soft.data());
+  ce_linear_predict_proba(in.X32.data(), n, f, in.W.data(), in.b.data(), C,
+                          1, ova.data());
+  ce_gnb_predict_proba(in.X32.data(), n, f, in.theta.data(), in.var.data(),
+                       in.log_prior.data(), C, gnb.data());
+  ce_segment_mean(gnb.data(), n, C, in.starts.data(), n_segs, means.data());
+  ce_row_entropy(gnb.data(), n, C, ent.data());
+  out.add("host.linear_softmax", soft);
+  out.add("host.linear_ova", ova);
+  out.add("host.gnb", gnb);
+  out.add("host.segment_mean", means);
+  out.add("host.row_entropy", ent);
+}
+
 Outputs run_all(const Inputs& in) {
   Outputs out;
   const int64_t n = in.z.n, f = in.z.f;
+  run_host(in, out);
+  out.lap("host");
   std::vector<int32_t> feat(GBDT_TREES * GBDT_NODES),
       thr(GBDT_TREES * GBDT_NODES);
   std::vector<double> val(GBDT_TREES * GBDT_NODES);

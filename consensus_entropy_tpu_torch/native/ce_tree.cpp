@@ -325,6 +325,9 @@ struct Tree {
   std::vector<int64_t> left, right, feature;
   std::vector<double> threshold, value;
   std::vector<uint8_t> missing_left;
+  // the build's feature visits that the sequential loop sorts (drawn, not
+  // known constant) and the sorts of samples by a feature it made
+  int64_t visits = 0, sorts = 0;
 };
 
 struct Params {
@@ -396,9 +399,10 @@ struct Visit {
   bool constant;
 };
 
-void parallel_scan(const Params& P, const Criterion& crit,
-                   std::vector<int64_t>& samples, int64_t start, int64_t end,
-                   const std::vector<Visit>& visits, SplitRecord& best) {
+int64_t parallel_scan(const Params& P, const Criterion& crit,
+                      std::vector<int64_t>& samples, int64_t start,
+                      int64_t end, const std::vector<Visit>& visits,
+                      SplitRecord& best) {
   const int64_t F = P.f, m = (int64_t)visits.size(), len = end - start;
   // each visit's samples sorted from the node's order, its sorted values,
   // and whether any tie: without ties, the sequential loop's order after
@@ -406,6 +410,7 @@ void parallel_scan(const Params& P, const Criterion& crit,
   std::vector<int64_t> orders(m * len);
   std::vector<float> values(m * len);
   std::vector<char> ties(m, 0);
+  int64_t replays = 0;
 #pragma omp parallel for schedule(dynamic, 4)
   for (int64_t k = 0; k < m; ++k) {
     const int64_t feat = visits[k].feature;
@@ -425,11 +430,12 @@ void parallel_scan(const Params& P, const Criterion& crit,
       runs.back().second = k + 1;
     }
   const int64_t n_runs = (int64_t)runs.size();
-#pragma omp parallel for schedule(dynamic, 1)
+#pragma omp parallel for schedule(dynamic, 1) reduction(+ : replays)
   for (int64_t r = 0; r < n_runs; ++r) {
     // visit 0 was sorted from the node's order already
     for (int64_t u = std::max<int64_t>(runs[r].first, 1);
          u < runs[r].second; ++u) {
+      ++replays;
       int64_t* order = &orders[u * len];
       float* fv = &values[u * len];
       std::copy(order - len, order, order);
@@ -472,6 +478,7 @@ void parallel_scan(const Params& P, const Criterion& crit,
     }
   if (m) std::copy(orders.begin() + (m - 1) * len, orders.end(),
                    samples.begin() + start);
+  return m + replays;
 }
 
 // DepthFirstTreeBuilder.build with BestSplitter and DensePartitioner
@@ -568,6 +575,7 @@ void build_tree(const Params& P, const double* y, const double* sw,
         f_j += n_found_constants;
         current.feature = features[f_j];
         const int64_t feat = current.feature;
+        ++T.visits;
         bool constant;
         if (in_parallel) {
           constant = is_constant[feat];
@@ -576,6 +584,7 @@ void build_tree(const Params& P, const double* y, const double* sw,
           for (int64_t p = start; p < end; ++p)
             fv[p] = P.X[samples[p] * F + feat];
           simultaneous_sort(&fv[start], &samples[start], end - start);
+          ++T.sorts;
           constant = fv[end - 1] <= fv[start] + FEATURE_THRESHOLD;
         }
         if (constant) {
@@ -591,7 +600,7 @@ void build_tree(const Params& P, const double* y, const double* sw,
                        best_proxy);
       }
       if (in_parallel)
-        parallel_scan(P, crit, samples, start, end, visits, best);
+        T.sorts += parallel_scan(P, crit, samples, start, end, visits, best);
       if (best.pos < end) {
         // partition_samples_final
         int64_t ps = start, pe = end;
@@ -717,6 +726,18 @@ void ce_trees_copy(void* handle, int64_t* left, int64_t* right,
     std::memcpy(missing_left + off, T.missing_left.data(), m);
     std::memcpy(value + off * vs, T.value.data(), m * vs * sizeof(double));
     off += (int64_t)m;
+  }
+}
+
+// The feature visits the sequential loop sorts and the sorts made, summed
+// over the trees: counts[0] visits, counts[1] sorts.  The sequential loop
+// sorts each visit once; the parallel scan at most twice.
+void ce_trees_sort_counts(void* handle, int64_t* counts) {
+  Forest* forest = static_cast<Forest*>(handle);
+  counts[0] = counts[1] = 0;
+  for (const Tree& T : forest->trees) {
+    counts[0] += T.visits;
+    counts[1] += T.sorts;
   }
 }
 

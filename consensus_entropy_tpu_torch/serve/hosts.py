@@ -36,6 +36,7 @@ coordinator's failover reads.
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -85,6 +86,14 @@ def read_lease(path: str) -> dict | None:
     except (OSError, ValueError, UnicodeDecodeError):
         return None
     return rec if isinstance(rec, dict) else None
+
+
+def stamp_ms(now: float) -> float:
+    """``now`` floored to the millisecond, never above it: an age read
+    from the stamp at ``now`` or later is never negative (``round`` could
+    stamp up to half a millisecond ahead of the beat)."""
+    t = math.floor(now * 1000.0) / 1000.0
+    return t if t <= now else t - 0.001
 
 
 def lease_age_s(path: str, now: float | None = None) -> float | None:
@@ -180,7 +189,7 @@ class HostLease:
         faults.fire("fabric.lease", host=self.host_id, beat=self.beats)
         rec = {"host": self.host_id, "pid": os.getpid(),
                "beat": self.beats,
-               "t": round(time.time(), 3)}  # cetpu: noqa[replay-wallclock] heartbeat wall-stamp: liveness crosses processes, replay never reads it
+               "t": stamp_ms(time.time())}  # cetpu: noqa[replay-wallclock] heartbeat wall-stamp: liveness crosses processes, replay never reads it
         if self.devices is not None:
             rec["devices"] = int(self.devices)
         if self.step_source is not None:

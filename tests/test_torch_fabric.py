@@ -23,6 +23,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,6 +46,8 @@ from consensus_entropy_tpu_torch.fleet import (
     FleetScheduler,
     FleetUser,
 )
+from consensus_entropy_tpu_torch.obs import export
+from consensus_entropy_tpu_torch.obs.trace import Tracer
 from consensus_entropy_tpu_torch.resilience import faults
 from consensus_entropy_tpu_torch.resilience.faults import (
     FaultRule,
@@ -124,6 +127,25 @@ def test_jsonl_tail_torn_tail_and_rot_match_jax(tmp_path):
     assert out["port"][4] == 1
 
 
+def test_a_lease_stamp_is_never_ahead_of_its_beat(tmp_path, monkeypatch):
+    """A beat at 0.6 ms past a millisecond: the JAX package's stamp
+    rounds up, so a lease read at the beat's own instant is -0.4 ms old;
+    the port's floors, so its age is never negative.  Then 10,000 seeded
+    instants: each stamp at most 1 ms behind its instant and never ahead."""
+    beat_at = 1_792_000_000.1236
+    monkeypatch.setattr(time, "time", lambda: beat_at)
+    ages = {}
+    for pkg, mod in (("port", hosts), ("jax", jax_hosts)):
+        lp = str(tmp_path / f"{pkg}.json")
+        mod.HostLease(lp, "h0", 0.1).beat_once()
+        ages[pkg] = mod.lease_age_s(lp)
+    assert ages["port"] >= 0.0 and ages["jax"] < 0.0
+    monkeypatch.undo()
+    now = np.random.default_rng(22).uniform(1.7e9, 1.8e9, 10_000)
+    t = np.array([hosts.stamp_ms(x) for x in now])
+    assert np.all(t <= now) and np.all(now - t < 0.001 + 1e-6)
+
+
 def test_host_lease_and_epoch_gate_match_jax(tmp_path):
     beats = {}
     for pkg, mod in (("port", hosts), ("jax", jax_hosts)):
@@ -133,7 +155,11 @@ def test_host_lease_and_epoch_gate_match_jax(tmp_path):
         lease.beat_once()
         lease.beat_once()
         rec = mod.read_lease(lp)
-        assert 0 <= mod.lease_age_s(lp) < 5.0
+        # the port floors its stamp to the millisecond, so an age is
+        # never negative; the JAX package rounds it, up to half a
+        # millisecond ahead of the beat (and one float step more)
+        least = 0.0 if pkg == "port" else -0.0005 - 1e-6
+        assert least <= mod.lease_age_s(lp) < 5.0
         assert mod.lease_age_s(lp, now=rec["t"] + 2.5) == 2.5
         beats[pkg] = {k: v for k, v in rec.items() if k != "t"}
         assert mod.read_lease(str(tmp_path / "missing.json")) is None
@@ -246,6 +272,41 @@ def test_release_hooks_match_jax_and_resume(tmp_path, users, verb):
     (rec,) = sched.run([_port_entry(tmp_path, "u0", users[0][1])])
     assert rec["result"]["trajectory"] == ref["trajectory"]
     assert _state(tmp_path / "port_u0") == _state(seq)
+
+
+@pytest.mark.parametrize("verb", ["request_release", "force_release"])
+def test_a_released_session_leaves_no_orphan_span(tmp_path, users, verb):
+    """u0 released once under way: at its next checkpoint (a fence) or
+    its next step (an evict), then resumed in a fresh engine on the same
+    tracer.  The iteration span open at the release is ended there,
+    marked with the verb, so no span of the merged run names a missing
+    parent (the JAX package writes no closing span there: ROADMAP C14)."""
+    cfg = _cfg("mc", epochs=2)
+    tracer = Tracer(run_id="c14")
+    sched = FleetScheduler(cfg, report=FleetReport(), device="cpu",
+                           tracer=tracer)
+    sched.open(len(users))
+    try:
+        for uid, u in users:
+            sched.admit(_port_entry(tmp_path, uid, u), pad=32)
+        sched.pump()
+        assert getattr(sched, verb)("u0")
+        while sched.pump():
+            pass
+        released = sched.take_released()
+    finally:
+        sched.close()
+    assert list(released) == ["u0"]
+    closed = [r for r in tracer.records if r["name"] == "al_iter"
+              and r.get("user") == "u0" and r.get("released")]
+    assert [r["released"] for r in closed] == [
+        "fence" if verb == "request_release" else "evict"]
+    again = FleetScheduler(cfg, report=FleetReport(), device="cpu",
+                           tracer=tracer)
+    (rec,) = again.run([_port_entry(tmp_path, "u0", users[0][1])])
+    assert rec["error"] is None
+    tracer.close()
+    assert tracer.records and export.orphan_spans(tracer.records) == []
 
 
 # -- the server's fence, evict and fleet-edge seams ------------------------

@@ -29,6 +29,7 @@ from consensus_entropy_tpu_torch.resilience.faults import FaultRule
 from tests.test_torch_elastic import (
     PKGS,
     REMEDY,
+    _both,
     _drain_script,
     _fake_fleet,
     _same_journals,
@@ -254,3 +255,49 @@ def test_a_refused_evict_racing_a_fence_release_still_moves_the_user(
     assert sorted(ran) == users
     moved = state["raced"][0]
     assert moved in workers["h1"].finished
+
+
+@pytest.mark.parametrize("ack_polls", [0, 1])
+def test_a_fence_ack_read_before_its_deadline_check_commits(tmp_path,
+                                                           ack_polls):
+    """The fence deadline's race (ROADMAP C21) through the coordinators'
+    injected clock: the deadline (1 ms) is shorter than one read of the
+    clock (10 ms), so by the first poll after the fence it has passed.
+    Each poll reads the hosts' acks before it checks the deadlines: an ack
+    that lands within that poll gap (``ack_polls`` 0) commits the fence
+    and no timeout is counted; an ack one poll later (1) finds the fence
+    demoted (a timeout, an evict sent), and the boundary release still
+    commits the move through the fallback, the evict refused.  Both
+    packages decide the same, record for record."""
+    users = [f"u{i}" for i in range(8)]
+    pools = {u: 30 for u in users}
+
+    def make_script(pkg):
+        state = {"setup": False, "seen": {}}
+
+        def script(rnd, coord, workers):
+            if not _setup_skew(state, users, workers):
+                return
+            h0 = workers["h0"]
+            _work(workers["h1"])
+            for uid in list(h0.fence_pending):
+                if rnd - state["seen"].setdefault(uid, rnd) >= ack_polls:
+                    h0.release(uid, gen=1)
+            for uid in list(h0.evict_pending):
+                # the fence's release came first: no session to evict
+                h0.evict_pending.remove(uid)
+                h0._event({"event": "drop", "user": uid, "ok": False})
+            if coord.remedies and not coord._migrating \
+                    and not coord._fencing:
+                _work(h0)
+        return script
+
+    (summary, _, workers, _), (recs, _) = _both(
+        tmp_path, dict(REMEDY, remedy_cooldown_s=600.0,
+                       fence_deadline_s=0.001), users, pools, make_script)
+    assert summary["remedies"] == 1 and summary["fences"] == 1
+    assert summary["fence_timeouts"] == ack_polls
+    actions = [r["action"] for r in recs if r["event"] == "remedy"]
+    assert actions == ["rebalance"] + ["fence_timeout"] * ack_polls
+    moved = [r["user"] for r in recs if r["event"] == "fence"]
+    assert len(moved) == 1 and moved[0] in workers["h1"].finished

@@ -29,7 +29,6 @@ import os
 import pickle
 import subprocess
 import sys
-import time
 import warnings
 
 import numpy as np
@@ -163,33 +162,37 @@ def test_tree_core_equals_its_plain_version(criterion, parallel_features, n):
 
 def test_parallel_scan_stays_linear_on_tied_columns():
     """DEAM's 260 columns, every one tied (4 values), all drawn at each
-    node, as gbc draws them: the parallel feature scan builds the
-    sequential loop's tree bit for bit, in at most 4 times its time on a
-    team of 2.  A scan that replays every sort since the last visit
-    without ties costs the square of the features drawn (about 130 times
-    the loop's sorts here)."""
+    node, as gbc draws them: the parallel feature scan on a team of 2
+    builds the sequential loop's tree bit for bit, and sorts each of the
+    loop's feature visits at most twice (the loop sorts each once).  A
+    scan that replays every sort since the last visit without ties sorts
+    the square of the features drawn (about 130 times the loop's sorts
+    here)."""
     rng = np.random.default_rng(8)
     n, f = 1500, 260
     X = rng.integers(0, 4, (n, f)).astype(np.float32)
     y = rng.standard_normal(n)
     seeds = np.array([5], np.uint32)
     kw = {"criterion": "mse", "max_features": f, "max_depth": 2}
-    out, secs = {}, {}
+    out, counts = {}, {}
     native.limit_threads(2)
     try:
-        for parallel in (False, True, False, True):
-            t0 = time.perf_counter()
-            out[parallel] = native.trees_build(X, y, np.ones(n), seeds,
-                                               parallel_features=parallel,
-                                               **kw)
-            s = time.perf_counter() - t0
-            secs[parallel] = min(s, secs.get(parallel, s))
+        for parallel in (False, True):
+            counts[parallel] = {}
+            out[parallel] = native.trees_build(
+                X, y, np.ones(n), seeds, parallel_features=parallel,
+                sort_counts=counts[parallel], **kw)
     finally:
         native.limit_threads(0)
     for k in out[False]:
         np.testing.assert_array_equal(out[True][k], out[False][k], err_msg=k)
     assert (out[True]["feature"] >= 0).sum() == 3
-    assert secs[True] <= 4 * secs[False] + 0.05, secs
+    visits = counts[False]["visits"]
+    # 3 internal nodes, every feature visited at each
+    assert visits == 3 * f and counts[False]["sorts"] == visits
+    assert counts[True]["visits"] == visits
+    # every column ties, so the replays run: more sorts than visits
+    assert visits < counts[True]["sorts"] <= 2 * visits, counts
 
 
 def test_forest_is_the_same_bits_under_any_team_size():
