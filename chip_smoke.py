@@ -640,8 +640,9 @@ FABRIC_ARGS = ["-q", "10", "-e", "1", "-n", "150", "--max-users",
 FABRIC_C_USERS, FABRIC_SCALE_DOWN_S = 10, 0.5
 FABRIC_C_ARGS = ["-q", "10", "-e", "4", "-n", "150", "--max-users",
                  str(FABRIC_C_USERS)]
-# Phase 24 (b): the elastic leg may take FAULTS_TIMEOUT_S s
-FAULTS_TIMEOUT_S = 600
+# Phase 24 (b), (c): each process of fault_matrix legs may take
+# FAULTS_TIMEOUT_S s; ``phase_all_legs``'s --leg all, ALL_LEGS_TIMEOUT_S s
+FAULTS_TIMEOUT_S, ALL_LEGS_TIMEOUT_S = 600, 1500
 # Phase 21: the operator plane over runs of phases 19 and 20.  (a) a thread
 # reads phase 20 (a)'s status directory every STATUS_POLL_S s and renders
 # top's frame with --stale-s STATUS_STALE_S (a snapshot is stale after 3 of
@@ -4674,9 +4675,18 @@ def _pid_alive(pid):
     return True
 
 
+def write_launch_hook(root):
+    """``root/launch_hook/sitecustomize.py``: LAUNCH_HOOK, which
+    ``fabric_env`` puts on a child's path."""
+    os.makedirs(os.path.join(root, "launch_hook"))
+    with open(os.path.join(root, "launch_hook", "sitecustomize.py"),
+              "w") as f:
+        f.write(LAUNCH_HOOK)
+
+
 def fabric_env(root, launch_log, faults_spec=None):
     """The coordinator's environment: the repo and the launch hook (written
-    by ``fabric_cli_runs``) on the path, the launch log named,
+    by ``write_launch_hook``) on the path, the launch log named,
     CETPU_FAULTS set or cleared."""
     here = os.path.dirname(os.path.abspath(__file__))
     hook = os.path.join(root, "launch_hook")
@@ -4795,10 +4805,7 @@ def fabric_cli_runs(root, amg_root, cnn, host_models, meanwhile):
     t_all = time.perf_counter()
     launch_log = os.path.join(root, "fabric_launches.log")
     open(launch_log, "w").close()
-    os.makedirs(os.path.join(root, "launch_hook"))
-    with open(os.path.join(root, "launch_hook", "sitecustomize.py"),
-              "w") as f:
-        f.write(LAUNCH_HOOK)
+    write_launch_hook(root)
     cmd = [sys.executable, "-m", "consensus_entropy_tpu_torch.cli.amg_test"]
     cnn_flags = ["--cnn-config-json", json.dumps(CLI_CNN)]
 
@@ -5755,49 +5762,75 @@ def phase_race(card):
 # -- phase 24: the fault matrix on the card ---------------------------------
 
 
+def _fault_legs(root, tag, legs, timeout_s=FAULTS_TIMEOUT_S):
+    """``cli.fault_matrix --leg ...`` on FABRIC_DEVICE in a process of its
+    own, started now with the launch hook on its and its workers' path;
+    returns ``(the process, join)``: ``join()`` waits for it and gives
+    ``(its JSON lines by leg, its kernel launches, its seconds)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    launch_log = os.path.join(root, f"launches_{tag}.log")
+    open(launch_log, "w").close()
+    argv = [a for leg in legs for a in ("--leg", leg)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "consensus_entropy_tpu_torch.cli."
+         "fault_matrix", *argv, "--device", FABRIC_DEVICE, "--root",
+         os.path.join(root, tag)], cwd=here,
+        env=fabric_env(root, launch_log), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def join():
+        try:
+            out, err = proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        secs = time.perf_counter() - t0
+        recs = {r.get("leg"): r for r in map(json.loads, (
+            line for line in out.splitlines() if line.startswith("{")))}
+        if proc.returncode != 0 or sorted(recs) != sorted(legs) \
+                or not all(r.get("ok") for r in recs.values()):
+            raise AssertionError(f"faults ({tag}): exit {proc.returncode}:"
+                                 f"\n{out[-3000:]}{err[-3000:]}")
+        with open(launch_log) as f:
+            return recs, sum(1 for _ in f), secs
+
+    return proc, join
+
+
 def phase_faults(card):
     """Phase 24, beside phase 11: (a) the kill matrix's device rows and
-    qbdc rows in this process on FABRIC_DEVICE; (b) the elastic leg of
-    ``cli.fault_matrix`` in a process of its own, the launch hook on its
-    and its workers' path.  Returns the ``linear_mc`` launches of both."""
+    qbdc rows in this process on FABRIC_DEVICE; (b) the elastic leg and
+    (c) the mesh and fsck legs of ``cli.fault_matrix``, in one process of
+    its own started before (a) (one tree for the three; its legs one
+    after another, so the host that phase 11 shares carries one fabric
+    at a time), the launch hook on its and its workers' path.  Returns
+    the ``linear_mc`` launches of (a)-(c)."""
     from consensus_entropy_tpu_torch.cli import fault_matrix
 
-    here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     linear_mc.launches = 0
     with tempfile.TemporaryDirectory() as root:
-        session = fault_matrix.session_leg(os.path.join(root, "session"),
-                                           FABRIC_DEVICE)
-        t_session = time.perf_counter() - t0
-        qbdc = fault_matrix.qbdc_leg(os.path.join(root, "qbdc"),
-                                     FABRIC_DEVICE)
-        t_qbdc = time.perf_counter() - t0 - t_session
-        inproc = linear_mc.launches
-        launch_log = os.path.join(root, "launches.log")
-        open(launch_log, "w").close()
-        os.makedirs(os.path.join(root, "launch_hook"))
-        with open(os.path.join(root, "launch_hook", "sitecustomize.py"),
-                  "w") as f:
-            f.write(LAUNCH_HOOK)
-        t1 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "consensus_entropy_tpu_torch.cli."
-             "fault_matrix", "--leg", "elastic", "--device", FABRIC_DEVICE,
-             "--root", os.path.join(root, "elastic")],
-            cwd=here, env=fabric_env(root, launch_log), capture_output=True,
-            text=True, timeout=FAULTS_TIMEOUT_S)
-        t_elastic = time.perf_counter() - t1
-        with open(launch_log) as f:
-            child = sum(1 for _ in f)
-    lines = [line for line in proc.stdout.splitlines()
-             if line.startswith("{")]
-    elastic = json.loads(lines[-1]) if lines else {}
-    if proc.returncode != 0 or not elastic.get("ok"):
-        raise AssertionError(f"faults (b): exit {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    launches = inproc + child
-    if launches:
-        raise AssertionError(f"faults: {launches} linear_mc launches on a "
+        write_launch_hook(root)
+        proc, join = _fault_legs(root, "bc", ["elastic", "mesh", "fsck"])
+        try:
+            session = fault_matrix.session_leg(
+                os.path.join(root, "session"), FABRIC_DEVICE)
+            t_session = time.perf_counter() - t0
+            qbdc = fault_matrix.qbdc_leg(os.path.join(root, "qbdc"),
+                                         FABRIC_DEVICE)
+            t_qbdc = time.perf_counter() - t0 - t_session
+            inproc = linear_mc.launches
+            legs, child, t_legs = join()
+        finally:
+            # a failed phase leaves no coordinator running (its workers
+            # exit with it)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    launches = {"in this process": inproc, "(b), (c)": child}
+    if any(launches.values()):
+        raise AssertionError(f"faults: linear_mc launches {launches} on a "
                              "path without the kernel")
     for name, leg, secs in (("session", session, t_session),
                             ("qbdc", qbdc, t_qbdc)):
@@ -5810,16 +5843,57 @@ def phase_faults(card):
         print(f"[faults] {card}: (a) {name} rows on "
               f"{FABRIC_DEVICE}, each resumed to its unfaulted run "
               f"(queried songs equal): {rows}; {secs:.1f} s")
-    print(f"[faults] {card}: (b) fault_matrix --leg elastic on "
-          f"{FABRIC_DEVICE} "
-          f"({t_elastic:.1f} s): {json.dumps(elastic)}")
+    elastic, mesh = legs["elastic"], legs["mesh"]
+    for tag, leg in (("b", "elastic"), ("c", "mesh"), ("c", "fsck")):
+        print(f"[faults] {card}: ({tag}) fault_matrix --leg {leg} on "
+              f"{FABRIC_DEVICE}: {json.dumps(legs[leg])}")
     print(f"[faults] {card}: (b) spawn to first lease by worker "
           f"{elastic['spawn_to_lease_s']} s; the kill to the replacement's "
           f"lease {elastic['kill_to_respawn_lease_s']} s; users run by "
-          f"host {elastic['served']}; linear_mc launches {launches} over "
-          f"phase 24 (every process); phase 24 "
-          f"{time.perf_counter() - t0:.1f} s")
-    return launches
+          f"host {elastic['served']}")
+    one = "cpu" if FABRIC_DEVICE == "cpu" else "cuda:0"
+    print(f"[faults] {card}: (c) h0 on a mesh of {mesh['devices'][0]} "
+          f"entries of {one}, h1 on one device; the kill to h0's revoke "
+          f"{mesh['kill_to_revoke_s']} s; spawn to first lease by worker: "
+          f"mesh {mesh['spawn_to_lease_s']} s, fsck "
+          f"{legs['fsck']['spawn_to_lease_s']} s")
+    print(f"[faults] {card}: (b) and (c) in one process {t_legs:.1f} s; "
+          f"linear_mc launches {launches} (every coordinator and worker "
+          f"process counted); phase 24 {time.perf_counter() - t0:.1f} s")
+    return sum(launches.values())
+
+
+def phase_all_legs(card):
+    """Outside the script's run (a call of its own): ``cli.fault_matrix
+    --leg all`` on FABRIC_DEVICE in one process with the launch hook on
+    its and its workers' path; prints each leg's line, its wall time and
+    its workers' spawn to first lease, and the kernel launches (0)."""
+    from consensus_entropy_tpu_torch.cli import fault_matrix
+
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip()
+    with tempfile.TemporaryDirectory() as root:
+        write_launch_hook(root)
+        proc, join = _fault_legs(root, "all", list(fault_matrix.LEGS),
+                                 timeout_s=ALL_LEGS_TIMEOUT_S)
+        try:
+            recs, launches, secs = join()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for leg in fault_matrix.LEGS:
+        print(f"[fault-legs] {json.dumps(recs[leg])}")
+    if launches:
+        raise AssertionError(f"fault legs: {launches} linear_mc launches "
+                             "on a path without the kernel")
+    print(f"[fault-legs] {card} ({power}): fault_matrix --leg all on "
+          f"{FABRIC_DEVICE} passed in {secs:.1f} s; wall by leg "
+          + ", ".join(f"{leg} {recs[leg]['wall_s']}"
+                      for leg in fault_matrix.LEGS)
+          + f" s; linear_mc launches {launches} in every process")
 
 
 # -- phases 17, 22, 23 and 24 beside phase 11 -------------------------------

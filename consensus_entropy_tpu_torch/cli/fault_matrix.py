@@ -3,9 +3,10 @@ against the port.
 
 Counterpart of ``scripts/fault_matrix.sh`` and the gates it runs
 (``elastic_check.sh``, ``remedy_check.sh``, ``gray_check.sh``,
-``soak_check.sh``).  Each ``--leg`` prints one JSON line; the command
-exits 1 if any leg failed.  It runs on ``cuda`` unless ``--device cpu``
-is passed, and raises without CUDA.
+``soak_check.sh``, ``fsck_check.sh``, ``obs_check.sh``, ``slo_check.sh``
+and ``mesh_check.sh`` leg 2).  Each ``--leg`` prints one JSON line; the
+command exits 1 if any leg failed.  It runs on ``cuda`` unless ``--device
+cpu`` is passed, and raises without CUDA.
 
 In-process legs (the per-session kill matrix at the device fault points):
 
@@ -33,6 +34,11 @@ kills are in-process ``faults.inject`` rules, as in the JAX scripts.
   SIGKILLed at its first admission; the autoscaler's ``spawn`` and a fresh
   host id in the replayed fleet shape; every surviving host ends on the
   same merged planner edges, the journal's.
+- ``drain`` (``elastic_check.sh`` leg 2): 3 elastic hosts (at least 2),
+  every score slowed, the low-water mark forced once each host holds a
+  user in flight, so the fabric scales down mid-run; the coordinator
+  killed at ``fabric.drain``, ``fabric.migrate.fence`` and
+  ``fabric.migrate.commit`` and rerun, each rerun ending on 2 hosts.
 - ``remedy`` (``remedy_check.sh`` legs 1-3): 3 hosts, h0 slowed by
   ``pool.score:delay``: a rebalance without retirement; a fence deadline
   demoted to evict+resume (h0's checkpoint commits also held, so its
@@ -48,6 +54,37 @@ kills are in-process ``faults.inject`` rules, as in the JAX scripts.
   graded, one journaled hold, zero loss; then the coordinator killed at
   ``fabric.remedy`` mid-soak and the rerun finishing every trace user
   exactly once.
+- ``skew`` (``soak_check.sh`` leg 3): the soak fabric under the first
+  ``skew`` trace whose drawn pools hold a strict hot-size majority and
+  still draw the cold size: zero loss, valid streams, percentile rows for
+  both classes.  The drawn sizes are the users' enqueue-time pools (a
+  worker runs each tree user on the pool its annotations fix).
+- ``fsck`` (``fsck_check.sh`` legs 1 and 2a): a full 2-host run; one byte
+  of a mid-file framed ``enqueue`` record flipped halts replay with
+  ``JournalCorruption``; ``cli.fsck`` exits 1, ``--repair`` quarantines
+  the line and sweeps a planted ``.tmp``, a second check exits 0 and the
+  journal replays every disposition; a second coordinator incarnation
+  claims epoch 2 and re-runs nothing.  (Leg 2b, the split-brain drill,
+  is a fake-worker test: ``tests/test_torch_elastic.py``.)
+- ``obs`` (``obs_check.sh`` legs 1-2): a traced serve cohort (valid
+  metrics, orphan-free spans, the Chrome export, ``report --validate
+  --out``), then a traced 3-host drain and migrate with the
+  introspection plane on: mid-run status snapshots validate, a burn-rate
+  ``alert`` fires, the control-plane lane's drain, fence and migrate
+  spans are flow-linked into the users' traces, ``top --once`` renders.
+- ``slo`` (``slo_check.sh``): a planner-enabled 2-class serve cohort whose
+  metrics validate, with per-class histograms and the planner's events,
+  and whose replayed journal restores the live bucket edges.
+- ``mesh`` (``mesh_check.sh`` leg 2): ``FabricConfig(hosts=2,
+  mesh_devices=(4, 1))``; h0's worker serves through a 4-way pool mesh,
+  spelled ``--mesh cuda:0,cuda:0,cuda:0,cuda:0`` (``cpu`` entries under
+  ``--device cpu``) as ``amg_test --hosts --mesh-devices`` spawns it, and
+  is SIGKILLed at its first admission; one revocation, the heartbeats'
+  widths 4 and 1, every user finished on h1.
+
+The serve cohorts of ``slo`` and ``obs`` run the tree's users in this
+process through ``FleetServer`` (the CLI's serve path, with the gates'
+``ServeConfig``), each user's state held to its sequential run's.
 
 Every real-worker leg also checks what its JAX gate checks: the journal
 and every per-host event WAL validate; each user has exactly one
@@ -56,7 +93,7 @@ workspace was already done) across every host's WAL; each user's
 ``al_state.json`` equals its sequential run's (``amg_test`` without
 ``--serve``).  Each worker start is timed from its spawn to its first
 lease; the elastic leg also times the kill to the replacement's first
-lease.
+lease, the mesh leg the kill to the journaled revoke.
 
     python -m consensus_entropy_tpu_torch.cli.fault_matrix --leg elastic
     python -m consensus_entropy_tpu_torch.cli.fault_matrix --leg all \
@@ -394,6 +431,25 @@ SOAK_SLO = {"interactive": 0.5, "batch": 600.0}
 #: takes about 0.1 s on the CPU, and the hold needs users that burn the
 #: 0.5-s interactive SLO (the JAX gate's users take seconds)
 SOAK_DELAY_S = 0.5
+#: the drain leg's coordinator kill points (``elastic_check.sh:19-26``)
+DRAIN_POINTS = ("fabric.drain", "fabric.migrate.fence",
+                "fabric.migrate.commit")
+#: the drain and obs legs' per-score delay on every worker: each session
+#: outlives the drain decision and its fence round trip (the JAX gates'
+#: 0.3 and 0.2 s hold users of 3 iterations; these have 2)
+DRAIN_DELAY_S = 1.0
+#: the obs leg's queue-age bound on every worker (``--priority-aging-s``,
+#: the JAX gate's ``CETPU_OBS_AGING``): with one session live a host's
+#: second user waits past it, so ``batch_aging`` rises
+OBS_AGING_S = 0.2
+#: the slo leg's serve cohort (``slo_check.sh:51-56``): 2 sessions live
+#: and a planner epoch short enough for a cohort of 6
+SLO_SERVE = {"target_live": 2, "planner_epoch": 2}
+#: the mesh leg's host widths (``tests/test_pool_mesh.py:360``)
+MESH_DEVICES = (4, 1)
+#: the mesh leg's per-score delay on h0: it finishes no user between its
+#: first admission and its kill, however late the coordinator polls
+MESH_DELAY_S = 1.0
 
 
 class LegFailed(AssertionError):
@@ -470,13 +526,26 @@ class Tree:
         return out
 
 
+def _users_parity(tree, models, name) -> None:
+    """Each tree user's ``al_state.json`` under ``models`` is its
+    sequential run's."""
+    states = Tree.states(models)
+    for u in tree.users:
+        _check(states.get(u) == tree.seq[u],
+               f"{name}: user {u}'s state is not its sequential run's")
+
+
 class Fabric:
     """One leg directory: a registry copy, and coordinator incarnations
     over ``amg_test --fabric-worker`` workers.  ``faults``: host ->
-    ``CETPU_FAULTS`` spec for that host's workers."""
+    ``CETPU_FAULTS`` spec for that host's workers; ``mesh``: host -> the
+    width of the pool mesh it serves on (``--mesh`` of that many entries
+    of the tree's device, as ``amg_test --hosts --mesh-devices`` spawns
+    it); ``worker_flags``: the workers' serve flags."""
 
     def __init__(self, tree: Tree, name: str, *,
-                 faults: dict | None = None):
+                 faults: dict | None = None, mesh: dict | None = None,
+                 worker_flags=WORKER_FLAGS):
         self.tree = tree
         self.name = name
         self.models = os.path.join(tree.root, name, "models")
@@ -489,6 +558,8 @@ class Fabric:
         os.makedirs(self.fabric_dir)
         self.users = tree.users
         self.faults = faults or {}
+        self.mesh = mesh or {}
+        self.worker_flags = list(worker_flags)
         self.procs = []
         #: host -> spawn wall time, and -> its first lease's wall time
         self.spawned, self.leased = {}, {}
@@ -507,9 +578,14 @@ class Fabric:
         env.setdefault("OMP_NUM_THREADS", "1")
         if host_id in self.faults:
             env["CETPU_FAULTS"] = self.faults[host_id]
+        mesh = []
+        if self.mesh.get(host_id, 1) > 1:
+            one = "cpu" if self.tree.device == "cpu" else "cuda:0"
+            mesh = ["--mesh", ",".join([one] * self.mesh[host_id])]
         cmd = [sys.executable, "-m",
                "consensus_entropy_tpu_torch.cli.amg_test", *USER_FLAGS,
-               "--max-users", str(len(self.users)), *WORKER_FLAGS,
+               "--max-users", str(len(self.users)), *self.worker_flags,
+               *mesh,
                "--models-root", self.models, "--amg-root", self.tree.amg,
                "--device", self.tree.device, "--fabric-worker", host_id,
                "--fabric-dir", self.fabric_dir]
@@ -546,7 +622,7 @@ class Fabric:
 
     def run(self, config, *, on_poll=None, kill_at=None, keep_open=False,
             users=None, classes=None, report=None, alerts=None,
-            status=None, driver=None):
+            status=None, tracer=None, driver=None):
         """One coordinator incarnation.  ``kill_at``: a fault point where
         this coordinator is killed (hit 1); returns ``(summary or None,
         killed, coordinator)``.  ``driver(coord)``: starts a trace driver
@@ -571,7 +647,8 @@ class Fabric:
 
         coord = FabricCoordinator(journal, self.fabric_dir, config,
                                   on_poll=poll, report=report,
-                                  alerts=alerts, status=status)
+                                  alerts=alerts, status=status,
+                                  tracer=tracer)
         todo = self.users if users is None else users
         pools = {u: self.tree.pools[u] for u in self.tree.users}
         stop = driver(coord) if driver is not None else None
@@ -654,11 +731,7 @@ class Fabric:
         _check(set(users) <= st.finished and not st.pending,
                f"{self.name}: finished {sorted(st.finished)}, pending "
                f"{sorted(st.pending)}")
-        states = Tree.states(self.models)
-        for u in users:
-            _check(states.get(u) == self.tree.seq[u],
-                   f"{self.name}: user {u}'s state is not its sequential "
-                   "run's")
+        _users_parity(self.tree, self.models, self.name)
         return {"users": len(users), "wals": len(self.wals())}
 
 
@@ -743,15 +816,17 @@ def elastic_leg(tree: Tree) -> dict:
             else round(lease - kill["t"], 3)}
 
 
-def _start_when_up(users, pools):
-    """``on_poll``: submit ``users`` once every host of the fleet joined,
-    then close the intake.  The load starts on every host at once, so the
-    slow host's share outlasts the others' however far apart the workers
-    came up (seconds, on a loaded host)."""
+def _start_when_up(users, pools, hosts=None):
+    """``on_poll``: submit ``users`` once every host of the fleet (``hosts``
+    of them, by default the config's) joined, then close the intake.  The
+    load starts on every host at once, so the slow host's share outlasts
+    the others' however far apart the workers came up (seconds, on a
+    loaded host)."""
     state = {"done": False}
 
     def on_poll(coord):
-        if state["done"] or len(coord.hosts) < coord.config.hosts \
+        want = coord.config.hosts if hosts is None else hosts
+        if state["done"] or len(coord.hosts) < want \
                 or not all(h.joined for h in coord.hosts.values()):
             return
         for u in users:
@@ -762,10 +837,17 @@ def _start_when_up(users, pools):
     return on_poll
 
 
-def _run_once_up(fab, config, **kw):
-    """One incarnation whose users start once its fleet is up."""
-    return fab.run(config, users=[], keep_open=True,
-                   on_poll=_start_when_up(fab.users, fab.tree.pools), **kw)
+def _run_once_up(fab, config, *, hosts=None, also=None, **kw):
+    """One incarnation whose users start once its fleet (``hosts`` hosts)
+    is up; ``also(coord)`` runs on every poll after that hook."""
+    start = _start_when_up(fab.users, fab.tree.pools, hosts)
+
+    def on_poll(coord):
+        start(coord)
+        if also is not None:
+            also(coord)
+
+    return fab.run(config, users=[], keep_open=True, on_poll=on_poll, **kw)
 
 
 def _remedy_actions(fab) -> list:
@@ -903,65 +985,57 @@ def gray_leg(tree: Tree) -> dict:
     return out
 
 
-def soak_trace(users, pools):
+def soak_trace(users, pools, *, pool_dist="cycle", seeds=range(5, 105),
+               accept=None):
     """The JAX soak gate's trace (``soak_check.sh:103-120``) over this
     tree's users: 60 virtual seconds of Poisson arrivals, half
-    interactive, a third churned; the first seed that draws both classes.
-    Each arrival's pool is the user's own."""
+    interactive, a third churned; the first seed in ``seeds`` that draws
+    both classes and whose arrivals ``accept`` takes.  Each arrival's pool
+    is the user's own, or with ``pools=None`` the drawn size."""
     from consensus_entropy_tpu_torch.workload import Trace, TraceSpec
     from consensus_entropy_tpu_torch.workload import generate
 
-    for seed in range(5, 105):
+    for seed in seeds:
         spec = TraceSpec(
             seed=seed, n_users=len(users), arrival="poisson", rate=1.0,
             class_mix=(("interactive", 0.5), ("batch", 0.5)),
-            pool_dist="cycle", pool_sizes=(30, 100), churn_frac=0.34,
+            pool_dist=pool_dist, pool_sizes=(30, 100), churn_frac=0.34,
             churn_delay_s=10.0, reconnect_s=20.0, horizon_s=60.0)
         trace = generate(spec)
-        if {e["cls"] for e in trace.events
-                if e["kind"] == "arrive"} == {"interactive", "batch"}:
+        arrivals = [e for e in trace.events if e["kind"] == "arrive"]
+        if {e["cls"] for e in arrivals} == {"interactive", "batch"} \
+                and (accept is None or accept(arrivals)):
             break
     else:
-        raise LegFailed("soak: no two-class trace seed in the scan range")
+        raise LegFailed(f"soak: no {pool_dist} trace seed in the scan "
+                        "range")
     ids = {f"u{i}": u for i, u in enumerate(users)}
     events = []
     for e in trace.events:
         e = dict(e, user=ids[e["user"]])
-        if "pool" in e:
+        if "pool" in e and pools is not None:
             e["pool"] = pools[e["user"]]
         events.append(e)
     return Trace(events=events, meta=trace.meta)
 
 
-def soak_leg(tree: Tree) -> dict:
-    """``soak_check.sh`` legs 1-2."""
-    from consensus_entropy_tpu_torch.fleet import FleetReport
-    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
-    from consensus_entropy_tpu_torch.obs.status import StatusWriter
+def soak_config():
+    """The soak legs' fabric: 2 keep-open hosts, the burn-rate hold armed
+    on the tight interactive SLO (real users take seconds end to end, so
+    the burn detector arms and the hold fires)."""
     from consensus_entropy_tpu_torch.serve import FabricConfig
-    from consensus_entropy_tpu_torch.workload import (
-        FabricTarget,
-        TraceDriver,
-        grade_run,
-        load,
-        save,
-    )
 
-    users = tree.users
-    trace_path = os.path.join(tree.root, "soak_trace.jsonl")
-    save(soak_trace(users, tree.pools), trace_path)
-    trace = load(trace_path)
+    return FabricConfig(hosts=2, lease_s=5.0, hold_on_burn=True,
+                        admission_hold_s=0.5, remedy_hold_s=0.3,
+                        remedy_cooldown_s=3.0,
+                        slo_interactive_s=SOAK_SLO["interactive"],
+                        slo_batch_s=SOAK_SLO["batch"])
 
-    def config():
-        # the tight interactive SLO: real users take seconds end to end,
-        # so the burn detector arms and the hold fires
-        return FabricConfig(hosts=2, lease_s=5.0, hold_on_burn=True,
-                            admission_hold_s=0.5, remedy_hold_s=0.3,
-                            remedy_cooldown_s=3.0,
-                            slo_interactive_s=SOAK_SLO["interactive"],
-                            slo_batch_s=SOAK_SLO["batch"])
 
-    drivers = []
+def _trace_starter(trace, drivers):
+    """``Fabric.run``'s ``driver``: plays ``trace`` at 0.1x through
+    ``FabricTarget(coord)``; each driver lands in ``drivers``."""
+    from consensus_entropy_tpu_torch.workload import FabricTarget, TraceDriver
 
     def start(coord):
         drv = TraceDriver(trace, FabricTarget(coord), time_scale=0.1,
@@ -970,23 +1044,40 @@ def soak_leg(tree: Tree) -> dict:
         drv.start()
         return drv.stop
 
+    return start
+
+
+def soak_leg(tree: Tree) -> dict:
+    """``soak_check.sh`` legs 1-2."""
+    from consensus_entropy_tpu_torch.fleet import FleetReport
+    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
+    from consensus_entropy_tpu_torch.obs.status import StatusWriter
+    from consensus_entropy_tpu_torch.workload import grade_run, load, save
+
+    users = tree.users
+    trace_path = os.path.join(tree.root, "soak_trace.jsonl")
+    save(soak_trace(users, tree.pools), trace_path)
+    trace = load(trace_path)
+    drivers = []
+    start = _trace_starter(trace, drivers)
+
     out = {}
     slow = {h: f"pool.score:delay={SOAK_DELAY_S}@1x-1" for h in ("h0", "h1")}
     fab = Fabric(tree, "soak", faults=slow)
-    report = FleetReport(os.path.join(fab.fabric_dir,
+    report = FleetReport(os.path.join(fab.users_dir,
                                       "fleet_metrics_fleet.jsonl"))
     # alerts are evaluated on the status-write path: without the writer
     # the watcher never emits slo_headroom
-    status = StatusWriter(os.path.join(fab.fabric_dir, "status"),
+    status = StatusWriter(os.path.join(fab.users_dir, "status"),
                           "coordinator", interval_s=0.2)
     try:
-        s, _, _ = fab.run(config(), users=[], keep_open=True, report=report,
-                          alerts=AlertWatcher(report), status=status,
-                          driver=start)
+        s, _, _ = fab.run(soak_config(), users=[], keep_open=True,
+                          report=report, alerts=AlertWatcher(report),
+                          status=status, driver=start)
         _check(drivers[0].join(timeout=120.0), "soak: the driver wedged")
     finally:
         report.close()
-    g = grade_run(fab.fabric_dir, journal_path=fab.journal_path,
+    g = grade_run(fab.users_dir, journal_path=fab.journal_path,
                   trace=trace, slo_s=SOAK_SLO,
                   driver_stats=drivers[0].stats.as_dict())
     det = g["deterministic"]
@@ -1007,22 +1098,22 @@ def soak_leg(tree: Tree) -> dict:
 
     fab = Fabric(tree, "soak_kill", faults=slow)
     drivers.clear()
-    fab.run(config(), users=[], keep_open=True, report=FleetReport(),
-            driver=start, kill_at="fabric.remedy")
+    fab.run(soak_config(), users=[], keep_open=True,
+            report=FleetReport(), driver=start, kill_at="fabric.remedy")
     drivers[0].join(timeout=30.0)
     _check(fab.records("remedy") == [],
            f"soak kill: {fab.records('remedy')}")
     done_before = {u for u, d in grade_run(
-        fab.fabric_dir, journal_path=fab.journal_path, trace=trace)
+        fab.users_dir, journal_path=fab.journal_path, trace=trace)
         ["deterministic"]["dispositions"].items() if d == "finish"}
     cls_of = {e["user"]: e["cls"] for e in trace.events
               if e["kind"] == "arrive"}
-    s, _, _ = fab.run(config(), users=list(trace.users), classes=cls_of,
-                      report=FleetReport())
+    s, _, _ = fab.run(soak_config(), users=list(trace.users),
+                      classes=cls_of, report=FleetReport())
     _check(sorted(s["finished"]) == sorted(set(trace.users) - done_before),
            f"soak kill: the rerun finished {s['finished']}, "
            f"{sorted(done_before)} before")
-    g2 = grade_run(fab.fabric_dir, journal_path=fab.journal_path,
+    g2 = grade_run(fab.users_dir, journal_path=fab.journal_path,
                    trace=trace)
     _check(g2["deterministic"]["zero_loss"],
            f"soak kill: {g2['deterministic']}")
@@ -1031,8 +1122,534 @@ def soak_leg(tree: Tree) -> dict:
     return out
 
 
-REAL_LEGS = ("elastic", "remedy", "gray", "soak")
+def force_low_water(coord, hosts: int = 3) -> None:
+    """``on_poll``: the scale-down trigger of the drain drills (the JAX
+    gates' ``tests/fabric_workload.py:182-198``), paired with a long
+    ``scale_down_s``: the low-water timer counts as held the moment every
+    joined host holds a user in flight, so the drain victim has sessions
+    to fence."""
+    if coord.drains:
+        return
+    st = coord.journal.state
+    joined = [h for h in coord.hosts.values() if h.joined and h.alive]
+    if len(joined) < hosts:
+        return
+    in_flight = set(st.in_flight)
+    if all(any(st.assigned.get(u) == h.host_id for u in in_flight)
+           for h in joined):
+        coord._low_since = -1e18
+
+
+def drain_config():
+    """The drain drills' fabric: 3 elastic hosts (at least 2) whose
+    low-water mark only ``force_low_water`` satisfies, users placed
+    least-loaded so each host holds its share (bucket placement may
+    co-locate them all, and a host with none never lets the mark hold)."""
+    from consensus_entropy_tpu_torch.serve import FabricConfig
+
+    return FabricConfig(hosts=3, min_hosts=2, max_hosts=3,
+                        scale_down_s=600.0, drain_timeout_s=30.0,
+                        placement="load")
+
+
+def drain_leg(tree: Tree) -> dict:
+    """``elastic_check.sh`` leg 2: a 3-host elastic fabric scales down
+    mid-run, every score slowed by ``DRAIN_DELAY_S``; the coordinator
+    killed at each of ``DRAIN_POINTS`` and rerun.  Each incarnation's
+    users start once its fleet is up (the drain needs a user in flight on
+    every host at once)."""
+    from consensus_entropy_tpu_torch.serve import AdmissionJournal
+
+    slow = {h: f"pool.score:delay={DRAIN_DELAY_S}@1x-1"
+            for h in ("h0", "h1", "h2")}
+    out = {}
+    for point in DRAIN_POINTS:
+        fab = Fabric(tree, "drain_" + point.split(".", 1)[1].replace(
+            ".", "_"), faults=slow)
+        _run_once_up(fab, drain_config(), also=force_low_water,
+                     kill_at=point)
+        killed = {"drains": len(fab.records("drain")),
+                  "fences": len(fab.records("fence"))}
+        fleet = AdmissionJournal(fab.journal_path).state.fleet_hosts()
+        s, _, _ = _run_once_up(fab, drain_config(), hosts=len(fleet),
+                               also=force_low_water)
+        st = AdmissionJournal(fab.journal_path).state
+        _check(len(st.fleet_hosts()) == 2,
+               f"drain {point}: the rerun ended on {st.hosts}")
+        out[point] = {**fab.check(), "killed_with": killed,
+                      "drains": s["drains"], "fences": s["fences"],
+                      "migrations": s["migrations"],
+                      "spawn_to_lease_s": fab.lease_times()}
+    return out
+
+
+def skew_leg(tree: Tree) -> dict:
+    """``soak_check.sh`` leg 3: the soak fabric under the first ``skew``
+    trace (seeds 11-210) whose drawn pools hold a strict hot-size
+    majority and still draw the cold size.  A port worker runs each tree
+    user on the pool its annotations fix, so the drawn sizes stand as the
+    users' enqueue-time pools: what the journal, the coordinator's bucket
+    placement and the grading see."""
+    from consensus_entropy_tpu_torch.fleet import FleetReport
+    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
+    from consensus_entropy_tpu_torch.obs.status import StatusWriter
+    from consensus_entropy_tpu_torch.serve import AdmissionJournal
+    from consensus_entropy_tpu_torch.workload import grade_run, load, save
+
+    users = tree.users
+    n = len(users)
+
+    def skewed(arrivals):
+        pool_of = {e["user"]: e["pool"] for e in arrivals}
+        sizes = [pool_of[f"u{i}"] for i in range(n)]
+        hot_n = max(sizes.count(p) for p in set(sizes))
+        return len(set(sizes)) == 2 and hot_n > n // 2 + 1
+
+    trace_path = os.path.join(tree.root, "skew_trace.jsonl")
+    save(soak_trace(users, None, pool_dist="skew", seeds=range(11, 211),
+                    accept=skewed), trace_path)
+    trace = load(trace_path)
+    sizes = {e["user"]: e["pool"] for e in trace.events
+             if e["kind"] == "arrive"}
+    drawn = list(sizes.values())
+    hot = max(set(drawn), key=drawn.count)
+    fab = Fabric(tree, "skew")
+    report = FleetReport(os.path.join(fab.users_dir,
+                                      "fleet_metrics_fleet.jsonl"))
+    status = StatusWriter(os.path.join(fab.users_dir, "status"),
+                          "coordinator", interval_s=0.2)
+    drivers = []
+    try:
+        fab.run(soak_config(), users=[], keep_open=True, report=report,
+                alerts=AlertWatcher(report), status=status,
+                driver=_trace_starter(trace, drivers))
+        _check(drivers[0].join(timeout=120.0), "skew: the driver wedged")
+    finally:
+        report.close()
+    g = grade_run(fab.users_dir, journal_path=fab.journal_path,
+                  trace=trace, slo_s=SOAK_SLO,
+                  driver_stats=drivers[0].stats.as_dict())
+    det = g["deterministic"]
+    _check(det["zero_loss"], f"skew: lost {det['lost_users']}")
+    _check(det["journal_ok"] and det["stream_ok"],
+           f"skew: journal {g['measured']['journal_errors']}, streams "
+           f"{g['measured']['stream_errors']}")
+    per_cls = g["measured"]["per_class"]
+    for cls in ("interactive", "batch"):
+        row = per_cls.get(cls)
+        _check(row and row["n"] >= 1
+               and all(k in row for k in ("p50_s", "p95_s", "p99_s")),
+               f"skew: class {cls} graded {row}")
+    st = AdmissionJournal(fab.journal_path).state
+    _check({u: st.pools.get(u) for u in sizes} == sizes,
+           f"skew: journaled pools {st.pools}, drawn {sizes}")
+    return {**fab.check(), "hot_pool": hot,
+            "hot_users": drawn.count(hot), "pools": sizes,
+            "per_class": {c: {k: per_cls[c][k]
+                              for k in ("n", "p50_s", "p95_s", "p99_s")}
+                          for c in ("interactive", "batch")},
+            "spawn_to_lease_s": fab.lease_times()}
+
+
+def mesh_leg(tree: Tree) -> dict:
+    """``mesh_check.sh`` leg 2 (``tests/test_pool_mesh.py:360``): h0
+    serves through a 4-way pool mesh (``--mesh`` of four entries of the
+    tree's device: ``cuda:0`` on the card, ``cpu`` under ``--device
+    cpu``), h1 through one device; h0, every score slowed by
+    ``MESH_DELAY_S``, is SIGKILLed at its first admission and every user
+    finishes on h1 with its sequential run's state."""
+    from consensus_entropy_tpu_torch.obs import export
+    from consensus_entropy_tpu_torch.serve import FabricConfig
+
+    fab = Fabric(tree, "mesh", mesh={"h0": MESH_DEVICES[0]},
+                 faults={"h0": f"pool.score:delay={MESH_DELAY_S}@1x-1"})
+    on_poll, kill = _first_admission_on("h0")
+    summary, _, coord = fab.run(
+        FabricConfig(hosts=2, lease_s=5.0, mesh_devices=MESH_DEVICES),
+        on_poll=on_poll)
+    _check(kill, "mesh: h0 was never killed")
+    _check(summary["revocations"] == 1
+           and summary["hosts"].get("h0") == "revoked"
+           and not summary["failed"] and not summary["poisoned"],
+           f"mesh: {summary}")
+    widths = (coord.hosts["h0"].devices, coord.hosts["h1"].devices)
+    _check(widths == MESH_DEVICES, f"mesh: the heartbeats advertised "
+                                   f"{widths}, not {MESH_DEVICES}")
+    checked = fab.check()
+    fin = {str(r["user"]): os.path.basename(wal)
+           for wal in fab.wals() for r in export.read_jsonl_tolerant(wal)
+           if r.get("event") == "finish" and not r.get("skipped")}
+    _check(set(fin.values()) == {"events_h1.jsonl"},
+           f"mesh: finishes {fin}")
+    (revoke,) = fab.records("revoke")
+    return {**checked, "devices": list(widths),
+            "revocations": summary["revocations"],
+            "kill_to_revoke_s": round(float(revoke["t"]) - kill["t"], 3),
+            "spawn_to_lease_s": fab.lease_times()}
+
+
+def fsck_leg(tree: Tree) -> dict:
+    """``fsck_check.sh`` legs 1 and 2a: a full 2-host run to parity; one
+    byte of a mid-file framed ``enqueue`` record flipped halts replay
+    (``JournalCorruption``); ``cli.fsck`` finds it (exit 1), ``--repair``
+    quarantines it and sweeps a planted stale ``.tmp`` (exit 0), a second
+    check is clean and the journal replays with every disposition; then a
+    second coordinator incarnation claims epoch 2 and re-runs nothing."""
+    from consensus_entropy_tpu_torch.cli import fsck
+    from consensus_entropy_tpu_torch.obs import export
+    from consensus_entropy_tpu_torch.resilience import io as dio
+    from consensus_entropy_tpu_torch.serve import (
+        AdmissionJournal,
+        FabricConfig,
+    )
+    from consensus_entropy_tpu_torch.serve.journal import JournalCorruption
+
+    def config():
+        return FabricConfig(hosts=2, min_hosts=2, max_hosts=2)
+
+    fab = Fabric(tree, "fsck")
+    jp = fab.journal_path
+    s, _, coord = fab.run(config())
+    _check(sorted(s["finished"]) == sorted(fab.users) and coord.epoch == 1,
+           f"fsck: epoch {coord.epoch}, finished {s['finished']}")
+    fab.check()
+    pre = AdmissionJournal(jp).state.to_dict()
+    with open(jp, "rb") as f:
+        lines = f.read().split(b"\n")
+
+    def enqueue(line):
+        status, rec = dio.parse_frame(line + b"\n")
+        return status == "ok" and rec.get("event") == "enqueue"
+
+    target = next(i for i, line in enumerate(lines)
+                  if i >= 2 and enqueue(line))
+    flipped = bytearray(lines[target])
+    flipped[len(flipped) // 2] ^= 0xFF
+    lines[target] = bytes(flipped)
+    with open(jp, "wb") as f:
+        f.write(b"\n".join(lines))
+    try:
+        AdmissionJournal(jp).close()
+    except JournalCorruption as e:
+        _check(f"{jp}:" in str(e), f"fsck: the halt names no line: {e}")
+    else:
+        raise LegFailed("fsck: the flipped byte was replayed")
+    # a killed compaction's stray, planted after the replay probe (an
+    # opening journal sweeps its own .tmp siblings)
+    open(jp + ".tmp", "wb").close()
+    codes = []
+    for argv in ([fab.users_dir], [fab.users_dir, "--repair"],
+                 [fab.users_dir]):
+        with _quiet():
+            codes.append(fsck.main(argv))
+    _check(codes == [1, 0, 0], f"fsck: exit codes {codes} (want 1, 0, 0)")
+    _check(os.path.exists(dio.quarantine_path(jp))
+           and not os.path.exists(jp + ".tmp"),
+           "fsck: no quarantine sidecar, or the stale .tmp stayed")
+    st = AdmissionJournal(jp).state
+    _check(st.finished == set(fab.users) and st.seq == pre["seq"],
+           f"fsck: replayed finished {sorted(st.finished)}, seq {st.seq} "
+           f"(was {pre['seq']})")
+    fab.check()
+
+    s2, _, coord2 = fab.run(config())
+    claims = [r["epoch"] for r in export.read_jsonl_tolerant(jp)
+              if r.get("event") == "epoch"]
+    _check(coord2.epoch == 2 and claims == [1, 2]
+           and AdmissionJournal(jp).state.coordinator_epoch == 2,
+           f"fsck: the second incarnation claimed {coord2.epoch}, "
+           f"journal epochs {claims}")
+    _check(s2["users"] == 0 and s2["finished"] == [],
+           f"fsck: the second incarnation ran {s2}")
+    # one finish a user across every WAL: nothing ran twice
+    checked = fab.check()
+    return {**checked, "flipped_line": target + 1, "fsck_exits": codes,
+            "epochs": claims, "spawn_to_lease_s": fab.lease_times()}
+
+
+class ServeCohort:
+    """The tree's users as one in-process serve cohort, the CLI's serve
+    path (``amg_test --serve``) with a ``ServeConfig`` of the caller's:
+    ``FleetServer`` on the tree's device over the admission journal, every
+    user submitted before the engine starts, each finished user persisted
+    the moment it finishes.  ``classes``: user -> priority class (default
+    ``batch``); ``traced``: a span tracer on ``users/spans.jsonl``."""
+
+    def __init__(self, tree: Tree, name: str, serve_kw: dict, *,
+                 classes=None, traced: bool = False):
+        from consensus_entropy_tpu_torch.al import workspace
+        from consensus_entropy_tpu_torch.al.loop import UserData
+        from consensus_entropy_tpu_torch.cli import amg_test
+        from consensus_entropy_tpu_torch.cli.common import resolve_cnn_config
+        from consensus_entropy_tpu_torch.config import ALConfig, PathsConfig
+        from consensus_entropy_tpu_torch.data import amg
+        from consensus_entropy_tpu_torch.device import resolve_device
+        from consensus_entropy_tpu_torch.fleet import (
+            FleetReport,
+            FleetScheduler,
+            FleetUser,
+        )
+        from consensus_entropy_tpu_torch.obs.trace import Tracer
+        from consensus_entropy_tpu_torch.serve import (
+            AdmissionJournal,
+            FleetServer,
+            ServeConfig,
+        )
+
+        args = amg_test.build_parser().parse_args(USER_FLAGS)
+        cfg = ALConfig(queries=args.queries, epochs=args.epochs,
+                       mode=args.mode, num_anno=args.num_anno,
+                       seed=args.seed, qbdc_k=args.qbdc_k,
+                       consensus_weighting=args.consensus_weighting)
+        self.models = os.path.join(tree.root, name, "models")
+        shutil.copytree(os.path.join(tree.models, "pretrained"),
+                        os.path.join(self.models, "pretrained"))
+        paths = PathsConfig(models_root=self.models, amg_root=tree.amg)
+        self.users_dir = paths.users_dir
+        os.makedirs(self.users_dir, exist_ok=True)
+        self.metrics = os.path.join(self.users_dir, "fleet_metrics.jsonl")
+        self.journal_path = os.path.join(self.users_dir,
+                                         "serve_journal.jsonl")
+        self.spans = os.path.join(self.users_dir, "spans.jsonl")
+        self.serve_config = ServeConfig(**serve_kw)
+        device = resolve_device(tree.device)
+        anno = amg.load_annotations(paths.amg_annotations_mat,
+                                    paths.amg_mapping_mat)
+        hc_table = amg.hc_frequency_table(anno)
+        anno, ids = amg.filter_users(anno, cfg.num_anno)
+        pool = amg.load_feature_pool(paths.amg_dataset_csv,
+                                     paths.amg_features_dir)
+        cnn_cfg = resolve_cnn_config(None)
+        classes = classes or {}
+        experiment = {"seed": cfg.seed, "queries": cfg.queries,
+                      "train_size": cfg.train_size}
+        report = FleetReport(self.metrics)
+        journal = AdmissionJournal(self.journal_path)
+        tracer = Tracer(self.spans, run_id=f"{cfg.mode}-{cfg.seed}") \
+            if traced else None
+        server = FleetServer(
+            FleetScheduler(cfg, tie_break=args.tie_break, report=report,
+                           scoring_by_width=True, device=device,
+                           tracer=tracer),
+            self.serve_config, journal=journal)
+        for u_id in ids:
+            user_path, _ = workspace.create_user(
+                self.users_dir, paths.pretrained_dir, u_id, cfg.mode,
+                experiment=experiment)
+
+            def factory(user_path=user_path):
+                return workspace.load_committee(user_path, cnn_cfg,
+                                                device=device)
+
+            sub_pool, labels = amg.user_pool(pool, anno, u_id)
+            server.submit(FleetUser(
+                u_id, factory(), UserData(
+                    u_id, sub_pool, labels,
+                    hc_rows=hc_table.rows_for(sub_pool.song_ids)),
+                user_path, seed=cfg.seed, committee_factory=factory,
+                priority=classes.get(str(u_id), "batch")))
+        server.close_intake()
+
+        def on_result(rec):
+            if rec["error"] is None:
+                path = workspace.user_dir(self.users_dir, rec["user"],
+                                          cfg.mode)
+                rec["committee"].save(path)
+                workspace.mark_done(path)
+
+        try:
+            self.records = server.serve((), on_result=on_result)
+        finally:
+            if tracer is not None:
+                tracer.close()
+            self.summary = report.write_summary(
+                cohort=self.serve_config.target_live)
+            report.close()
+            journal.close()
+        self.live_edges = list(server.planner.edges or ())
+        _check(len(self.records) == len(ids)
+               and all(r["error"] is None for r in self.records),
+               f"{name}: {[(r['user'], r['error']) for r in self.records]}")
+        _users_parity(tree, self.models, name)
+
+
+def slo_leg(tree: Tree) -> dict:
+    """``slo_check.sh``: a planner-enabled 2-class serve cohort (every
+    other user interactive); every metrics line schema-valid, each
+    class's admission->finish histogram and the planner's events present,
+    and a fresh ``AdmissionPlanner`` restored from the replayed journal
+    derives the live run's bucket edges."""
+    from consensus_entropy_tpu_torch.obs import export
+    from consensus_entropy_tpu_torch.serve import (
+        AdmissionJournal,
+        AdmissionPlanner,
+        BucketRouter,
+    )
+
+    classes = {u: "interactive" if i % 2 else "batch"
+               for i, u in enumerate(tree.users)}
+    run = ServeCohort(tree, "slo", SLO_SERVE, classes=classes)
+    _check(run.live_edges, "slo: the planner derived no edges")
+    errors = export.validate_metrics_file(run.metrics)
+    _check(errors == [], f"slo: schema violations {errors[:5]}")
+    per_class = run.summary.get("per_class") or {}
+    want = {c: sum(1 for v in classes.values() if v == c)
+            for c in ("batch", "interactive")}
+    _check({c: (per_class.get(c) or {}).get("admission_to_finish_s",
+                                            {}).get("n")
+            for c in want} == want,
+           f"slo: per-class histograms {per_class}, want counts {want}")
+    _check((run.summary.get("planner") or {}).get("edges")
+           == run.live_edges, f"slo: summary planner "
+                              f"{run.summary.get('planner')}")
+    events = export.read_jsonl_tolerant(run.metrics)
+    kinds = [e.get("event") for e in events]
+    _check("planner_edges" in kinds, "slo: no planner_edges event")
+    _check(all(e.get("cls") for e in events
+               if e.get("event") in ("enqueue", "admit")),
+           "slo: an enqueue or admit event without its class")
+    with AdmissionJournal(run.journal_path) as replayed:
+        router = BucketRouter()
+        restored = AdmissionPlanner(run.serve_config, router=router,
+                                    journal=replayed)
+        _check(replayed.recovered
+               and list(restored.edges) == run.live_edges
+               and list(router.widths) == run.live_edges,
+               f"slo: replayed edges {restored.edges}, router "
+               f"{router.widths}, live {run.live_edges}")
+        _check(set(replayed.state.classes.values())
+               == {"batch", "interactive"},
+               f"slo: journaled classes {replayed.state.classes}")
+    return {"users": len(run.records), "metrics_lines": len(events),
+            "edges": run.live_edges,
+            "planner_edges_events": kinds.count("planner_edges"),
+            "admission_hold_events": kinds.count("admission_hold"),
+            "per_class_n": want}
+
+
+def obs_leg(tree: Tree) -> dict:
+    """``obs_check.sh`` legs 1-2.  Leg 1: a traced serve cohort; every
+    metrics line valid, its spans merged with no orphan, the Chrome export
+    loaded, ``report --validate --out`` round-tripped.  Leg 2: a traced
+    3-host elastic drain and migrate (every score slowed by
+    ``DRAIN_DELAY_S``, one session live a host, ``OBS_AGING_S``), the
+    introspection plane on: mid-run status snapshots of the coordinator
+    and a worker validate while it serves; a burn-rate ``alert`` in a
+    valid metrics stream; the exported trace carries the control-plane
+    lane with drain, fence and migrate spans flow-linked into the
+    migrated users' traces; ``top --once`` renders the status
+    directory."""
+    from consensus_entropy_tpu_torch.cli import report as report_cli
+    from consensus_entropy_tpu_torch.cli import top
+    from consensus_entropy_tpu_torch.fleet import FleetReport
+    from consensus_entropy_tpu_torch.obs import export
+    from consensus_entropy_tpu_torch.obs.alerts import AlertWatcher
+    from consensus_entropy_tpu_torch.obs.status import (
+        StatusWriter,
+        read_status_dir,
+        validate_status,
+    )
+    from consensus_entropy_tpu_torch.obs.trace import Tracer
+
+    run = ServeCohort(tree, "obs_trace", {"target_live": 2}, traced=True)
+    errors = export.validate_metrics_file(run.metrics)
+    _check(errors == [], f"obs: schema violations {errors[:5]}")
+    spans = export.load_spans([run.spans])
+    _check(spans and export.orphan_spans(spans) == [],
+           f"obs: {len(spans)} spans, orphans "
+           f"{export.orphan_spans(spans)[:3]}")
+    trace = json.loads(json.dumps(export.chrome_trace(spans)))
+    xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    _check(len(xs) == len(spans), f"obs: {len(xs)} complete events for "
+                                  f"{len(spans)} spans")
+    out_json = os.path.join(tree.root, "obs_trace.json")
+    with _quiet():
+        rc = report_cli.main([run.users_dir, "--validate", "--out",
+                              out_json, "--no-text"])
+    with open(out_json) as f:
+        _check(rc == 0 and json.load(f)["traceEvents"],
+               f"obs: report exit {rc}")
+    out = {"trace": {"spans": len(spans),
+                     "events": len(trace["traceEvents"])}}
+
+    slow = f"pool.score:delay={DRAIN_DELAY_S}@1x-1"
+    fab = Fabric(tree, "obs_live", faults={h: slow for h in ("h0", "h1",
+                                                            "h2")},
+                 worker_flags=["--serve", "1", "--priority-aging-s",
+                               str(OBS_AGING_S)])
+    status_dir = os.path.join(fab.users_dir, "status")
+    spans_path = os.path.join(fab.users_dir, "spans.jsonl")
+    metrics = os.path.join(fab.users_dir, "fleet_metrics.jsonl")
+    report = FleetReport(metrics)
+    tracer = Tracer(spans_path, run_id="mc-1987", host="coordinator")
+    mid_run = {}
+
+    def snapshots(coord):
+        force_low_water(coord)
+        if coord._unresolved:
+            for host, snap in read_status_dir(status_dir).items():
+                errs = validate_status(snap)
+                _check(errs == [], f"obs: {host}'s mid-run snapshot: "
+                                   f"{errs}")
+                mid_run[host] = snap
+
+    try:
+        s, _, _ = _run_once_up(
+            fab, drain_config(), also=snapshots, report=report,
+            tracer=tracer, alerts=AlertWatcher(report),
+            status=StatusWriter(status_dir, "coordinator", interval_s=0.2))
+    finally:
+        tracer.close()
+        report.write_summary(cohort=len(fab.users))
+        report.close()
+    _check(s["drains"] == 1 and s["fences"] >= 1,
+           f"obs: {s['drains']} drains, {s['fences']} fences")
+    checked = fab.check()
+    _check("coordinator" in mid_run
+           and any(h.startswith("h") for h in mid_run),
+           f"obs: mid-run snapshots of {sorted(mid_run)}")
+    alerts = []
+    for path in [metrics, *sorted(glob.glob(os.path.join(
+            fab.users_dir, "fleet_metrics_h*.jsonl")))]:
+        recs = export.read_jsonl_tolerant(path)
+        _check(export.validate_metrics(recs) == [],
+               f"obs: {path} fails the schema")
+        alerts += [r for r in recs if r.get("event") == "alert"]
+    _check(alerts, "obs: no alert fired")
+    spans2 = export.load_spans([spans_path])
+    names = {sp["name"] for sp in spans2 if sp.get("ctl")}
+    _check({"ctl.drain", "ctl.fence", "ctl.migrate",
+            "ctl.drain_done"} <= names, f"obs: control spans {names}")
+    trace2 = export.chrome_trace(spans2)
+    procs = {e["args"]["name"] for e in trace2["traceEvents"]
+             if e.get("name") == "process_name"}
+    starts = [e for e in trace2["traceEvents"] if e.get("ph") == "s"]
+    ends = {e["id"] for e in trace2["traceEvents"] if e.get("ph") == "f"}
+    _check("control-plane" in procs and starts
+           and all(e["id"] in ends for e in starts),
+           f"obs: lanes {procs}, {len(starts)} flow starts, "
+           f"{len(ends)} ends")
+    json.dumps(trace2)
+    with _quiet() as frame:
+        rc = top.main([fab.users_dir, "--once"])
+    _check(rc == 0 and "coordinator" in frame.getvalue(),
+           f"obs: top exit {rc}: {frame.getvalue()[-500:]}")
+    out["live"] = {**checked, "drains": s["drains"], "fences": s["fences"],
+                   "snapshots": sorted(mid_run),
+                   "alerts": sorted({a.get("kind") for a in alerts}),
+                   "control_spans": sorted(names), "flows": len(starts),
+                   "spawn_to_lease_s": fab.lease_times()}
+    return out
+
+
+REAL_LEGS = ("elastic", "drain", "remedy", "gray", "soak", "skew", "fsck",
+             "obs", "slo", "mesh")
 LEGS = ("session", "qbdc", *REAL_LEGS)
+#: the real-worker legs' functions
+LEG_FNS = {"elastic": elastic_leg, "drain": drain_leg,
+           "remedy": remedy_leg, "gray": gray_leg, "soak": soak_leg,
+           "skew": skew_leg, "fsck": fsck_leg, "obs": obs_leg,
+           "slo": slo_leg, "mesh": mesh_leg}
 
 
 def run_leg(leg: str, root: str, device: str, tree=None) -> dict:
@@ -1050,18 +1667,11 @@ def run_leg(leg: str, root: str, device: str, tree=None) -> dict:
         elif leg == "qbdc":
             rec.update(qbdc_leg(os.path.join(root, "qbdc"), device))
         else:
+            if leg not in LEG_FNS:
+                raise ValueError(f"unknown leg {leg!r} (have {LEGS})")
             if tree is None:
                 tree = Tree(root, device)
-            if leg == "elastic":
-                rec.update(elastic_leg(tree))
-            elif leg == "remedy":
-                rec.update(remedy_leg(tree))
-            elif leg == "gray":
-                rec.update(gray_leg(tree))
-            elif leg == "soak":
-                rec.update(soak_leg(tree))
-            else:
-                raise ValueError(f"unknown leg {leg!r} (have {LEGS})")
+            rec.update(LEG_FNS[leg](tree))
         rec["ok"] = True
     except (AssertionError, RuntimeError, OSError, ValueError) as e:
         rec.update(ok=False, error=f"{type(e).__name__}: {e}")

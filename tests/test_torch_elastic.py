@@ -12,11 +12,13 @@ fixed step per read, so liveness, hysteresis and deadlines fire at the
 same rounds in both.  Scenarios: join and rebalance, a coordinator kill
 mid-rebalance and its rerun, scale-down with a fenced migration,
 stillborn spawns, operator adoption, the fence deadline, remedy and the
-gray ladder.  Both journals replay (in either package) to equal
+gray ladder; and the split-brain drill (``scripts/fsck_check.sh`` leg
+2b), each package over its own drill's fake worker.  Both journals replay (in either package) to equal
 ``JournalState``s, and their record sequences are equal with ``t``,
 ``pid`` and ``seq`` set aside (tolerance 0).  Then the CLI: ``amg_test``
 refuses what JAX's refuses, with the same words."""
 
+import glob
 import json
 import os
 import subprocess
@@ -32,6 +34,7 @@ import consensus_entropy_tpu.serve as jax_serve
 import consensus_entropy_tpu.serve.hosts as jax_hosts
 from consensus_entropy_tpu.cli import amg_test as jax_amg_test
 import consensus_entropy_tpu_torch.obs.alerts as port_alerts
+import consensus_entropy_tpu_torch.obs.export as port_export
 import consensus_entropy_tpu_torch.resilience.faults as port_faults
 import consensus_entropy_tpu_torch.serve as port_serve
 import consensus_entropy_tpu_torch.serve.hosts as port_hosts
@@ -209,9 +212,11 @@ class _Status:
 
 
 def _fake_fleet(pkg, root, config, users, pools, script, *, workers=None,
-                slow=(), alerts=None, clock=None, status=None):
-    """A coordinator of ``pkg`` over fake workers; ``script(round, coord,
-    workers)`` runs after every worker pumped, each poll."""
+                slow=(), alerts=None, clock=None, status=None,
+                worker_cls=None):
+    """A coordinator of ``pkg`` over fake workers (``worker_cls``, by
+    default ``_FakeWorker``); ``script(round, coord, workers)`` runs after
+    every worker pumped, each poll."""
     fabric_dir = str(root / "fabric")
     os.makedirs(fabric_dir, exist_ok=True)
     journal = pkg.serve.AdmissionJournal(
@@ -220,7 +225,7 @@ def _fake_fleet(pkg, root, config, users, pools, script, *, workers=None,
     clock = clock or _Clock()
 
     def spawn(host_id):
-        workers[host_id] = _FakeWorker(
+        workers[host_id] = (worker_cls or _FakeWorker)(
             pkg, fabric_dir, host_id, clock,
             step_ema_s=9.0 if host_id in slow else 0.5)
         return workers[host_id]
@@ -406,6 +411,110 @@ def test_coordinator_kill_mid_rebalance_replays_alike(tmp_path):
     recs, st = _same_journals(tmp_path)
     assert st.finished == set(users) and not st.pending
     assert [r["event"] for r in recs].count("epoch") == 2
+
+
+def _zombie_acks(base):
+    """``base`` answering every successful drop request twice: first
+    stamped ``"ep": 7``, the dead incarnation's (a split-brain zombie's
+    ack), then live."""
+
+    class _ZombieAckWorker(base):
+        def _event(self, rec):
+            if rec.get("event") == "drop" and rec.get("ok"):
+                base._event(self, {**rec, "ep": 7})
+            base._event(self, rec)
+
+    return _ZombieAckWorker
+
+
+def _split_brain_script(rnd, coord, workers):
+    h0 = workers.get("h0")
+    if rnd == 2 and h0 and not h0.admitted and h0.queued:
+        h0.admit(h0.queued[0])  # one in flight: it must never migrate
+    if rnd > 6:
+        for w in workers.values():
+            _work(w)
+
+
+def test_a_zombie_ack_is_fenced_and_the_move_commits_once(tmp_path,
+                                                        monkeypatch):
+    """The split-brain drill (``scripts/fsck_check.sh:181-245``): the
+    journal holds a dead incarnation's ``epoch 7``, and every successful
+    drop ack arrives twice, first stamped ``"ep": 7``.  In both packages
+    (the JAX drill's own fake worker for JAX, this file's for the port)
+    the live coordinator claims epoch 8, journals each stale ack
+    cursor-only and reports it ``epoch_fenced``, commits each move once
+    off the live ack, runs no user on two hosts and stamps every feed line
+    ``"ep": 8``; the two journals' dispositions are equal."""
+    import tests.test_elastic as jax_drills
+
+    users = [f"u{i}" for i in range(6)]
+    pools = {u: (30 if i % 2 == 0 else 100) for i, u in enumerate(users)}
+    cfg_kw = dict(hosts=1, min_hosts=1, max_hosts=2, scale_backlog=2,
+                  poll_s=0.01, lease_s=5.0, drain_timeout_s=0.2)
+    monkeypatch.setattr(jax_drills, "_FakeWorker",
+                        _zombie_acks(jax_drills._FakeWorker))
+    out = {}
+    for name, pkg in PKGS.items():
+        root = tmp_path / name
+        os.makedirs(root / "fabric")
+        jp = str(root / "fabric" / "serve_journal.jsonl")
+        with pkg.serve.AdmissionJournal(jp) as j:
+            j.append("epoch", epoch=7)  # the dead incarnation's claim
+        config = pkg.serve.FabricConfig(**cfg_kw)
+        if name == "jax":
+            summary, coord, workers, fabric_dir = jax_drills._fake_fleet(
+                root, config, users, pools, _split_brain_script)
+        else:
+            summary, coord, workers, fabric_dir = _fake_fleet(
+                pkg, root, config, users, pools, _split_brain_script,
+                worker_cls=_zombie_acks(_FakeWorker))
+        assert coord.epoch == 8
+        assert sorted(summary["finished"]) == users
+        assert summary["migrations"] >= 1
+        # exactly one owner each, despite the double ack
+        assert sorted(u for w in workers.values() for u in w.finished) \
+            == users
+        fenced = [e for e in coord.report.events
+                  if e.get("event") == "epoch_fenced"]
+        assert fenced and all(e["epoch"] == 7 for e in fenced)
+        recs = [r for r in port_export.read_jsonl_tolerant(jp)
+                if r.get("event")]
+        stale = sorted(r["user"] for r in recs
+                       if r["event"] == "drop" and r.get("ep") == 7)
+        live = sorted(r["user"] for r in recs
+                      if r["event"] == "drop" and r.get("ok")
+                      and r.get("ep") != 7)
+        moved = sorted(e["user"] for e in coord.report.events
+                       if e.get("event") == "migrate")
+        # each move journaled its stale ack cursor-only and committed once
+        assert stale and stale == live == moved
+        assert len(fenced) == len(stale)
+        assigns = {u: sum(1 for r in recs if r["event"] == "assign"
+                          and r.get("user") == u) for u in users}
+        assert all(assigns[u] == 1 + moved.count(u) for u in users)
+        for u in moved:
+            # the move commits off the live ack: its one re-assignment
+            # comes after the live ack, none between it and the stale one
+            mine = [(i, r) for i, r in enumerate(recs)
+                    if r.get("user") == u]
+            stale_i = next(i for i, r in mine
+                           if r["event"] == "drop" and r.get("ep") == 7)
+            live_i = next(i for i, r in mine if r["event"] == "drop"
+                          and r.get("ok") and r.get("ep") != 7)
+            moved_i = [i for i, r in mine if r["event"] == "assign"][-1]
+            assert stale_i < live_i < moved_i
+        for path in sorted(glob.glob(os.path.join(fabric_dir,
+                                                  "assign_*.jsonl"))):
+            for rec in port_export.read_jsonl_tolerant(path):
+                assert rec.get("ep") == 8, (path, rec)
+        for other in PKGS.values():
+            assert other.serve.validate_journal_file(jp) == []
+        st = pkg.serve.AdmissionJournal(jp).state
+        assert st.coordinator_epoch == 8
+        out[name] = ({u: st.last.get(u) for u in users},
+                     sorted(st.finished), stale, moved)
+    assert out["port"] == out["jax"]
 
 
 def _drain_script(pkg):

@@ -237,8 +237,12 @@ def _released_run(sched, entries, verb, uid):
         sched.close()
     done = {str(r["user"]): r["result"]["trajectory"]
             for r in sched.results.values() if r["error"] is None}
-    kinds = [e["event"] for e in sched.report.events
-             if e["event"] in ("fence_release", "user_done")]
+    # each user's own events in order: which of u0's release and u1's
+    # finish comes first is thread timing, in both packages
+    kinds = {}
+    for e in sched.report.events:
+        if e["event"] in ("fence_release", "user_done"):
+            kinds.setdefault(str(e["user"]), []).append(e["event"])
     return verdicts, released, again, done, kinds
 
 
@@ -247,7 +251,8 @@ def test_release_hooks_match_jax_and_resume(tmp_path, users, verb):
     """Marked at admission, u0 releases at its first checkpoint boundary
     (``request_release``: generation 0, the baseline's commit) or its first
     step (``force_release``: no generation); u1 runs on.  Both engines
-    report the same verdicts, releases and events; u0's released
+    report the same verdicts, releases and each user's own events in
+    order (not their interleaving, which is thread timing); u0's released
     workspace resumes in a fresh engine to its sequential run."""
     cfg = _cfg("mc", epochs=2)
     ours = _released_run(
@@ -257,8 +262,9 @@ def test_release_hooks_match_jax_and_resume(tmp_path, users, verb):
         JaxScheduler(_jax_cfg(2), report=JaxReport()),
         [_jax_entry(tmp_path, uid, u) for uid, u in users], verb, "u0")
     assert ours == theirs
-    verdicts, released, again, done, _ = ours
+    verdicts, released, again, done, kinds = ours
     assert verdicts == [True, False] and again == {}
+    assert kinds == {"u0": ["fence_release"], "u1": ["user_done"]}
     assert released == {"u0": 0 if verb == "request_release" else None}
     assert set(done) == {"u1"}
     if verb == "request_release":

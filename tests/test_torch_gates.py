@@ -31,95 +31,46 @@ The four legs run at once, each CLI in a process of its own (a leg's
 coordinator kills are process-wide fault rules): the legs spend most of
 their time waiting on worker start-up, delays and stalls."""
 
-import glob
-import json
-import os
-import subprocess
-import sys
-
 import pytest
 import torch
 
-from consensus_entropy_tpu.serve import AdmissionJournal as JaxJournal
-from consensus_entropy_tpu.serve import (
-    validate_journal_file as jax_validate,
-)
-from consensus_entropy_tpu_torch.cli.fault_matrix import REAL_LEGS
-from consensus_entropy_tpu_torch.serve import AdmissionJournal
-from consensus_entropy_tpu_torch.serve import validate_journal_file
+from tests.torch_gate_legs import replay_in_both, run_legs, users_dirs
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.faults
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: seconds the four legs may take together before the run counts as
 #: wedged (each takes 12-30 s on an idle 8-core host)
 LEGS_TIMEOUT_S = 240
 #: the coordinator incarnations' fabrics each leg leaves
 FABRICS = {"elastic": 1, "remedy": 3, "gray": 2, "soak": 2}
+LEGS = tuple(FABRICS)
 
 
 @pytest.fixture(scope="module")
 def legs(tmp_path_factory):
     """``{leg: (its root, its exit code, its JSON line)}``."""
-    root = tmp_path_factory.mktemp("gates")
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=REPO + (os.pathsep + os.environ["PYTHONPATH"]
-                                  if os.environ.get("PYTHONPATH") else ""))
-    env.pop("CETPU_FAULTS", None)
-    procs = {leg: subprocess.Popen(
-        [sys.executable, "-m", "consensus_entropy_tpu_torch.cli."
-         "fault_matrix", "--leg", leg, "--device", "cpu", "--root",
-         str(root / leg)], cwd=REPO, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for leg in REAL_LEGS}
-    out = {}
-    try:
-        for leg, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=LEGS_TIMEOUT_S)
-            lines = [json.loads(line) for line in stdout.splitlines()
-                     if line.startswith("{")]
-            rec = lines[-1] if lines else {
-                "ok": False, "error": f"no JSON line:\n{stderr[-3000:]}"}
-            out[leg] = (root / leg, proc.returncode, rec)
-    finally:
-        # a wedged leg: its workers exit with their coordinator
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return out
+    return run_legs(tmp_path_factory.mktemp("gates"), LEGS, LEGS_TIMEOUT_S)
 
 
-@pytest.mark.parametrize("leg", REAL_LEGS)
+@pytest.mark.parametrize("leg", LEGS)
 def test_the_leg_passes_its_gate(legs, leg):
     _, rc, rec = legs[leg]
     assert rec["ok"], rec.get("error")
     assert rc == 0
 
 
-@pytest.mark.parametrize("leg", REAL_LEGS)
+@pytest.mark.parametrize("leg", LEGS)
 def test_the_journals_replay_in_the_jax_package(legs, leg):
     """Each journal and WAL the leg left validates under both packages,
     and each replays in the JAX package's ``AdmissionJournal`` to the
     port's state."""
-    # the leg's fabrics are named after it (``tree`` is the registry's)
-    fabrics = sorted(glob.glob(os.path.join(str(legs[leg][0]), f"{leg}*",
-                                            "models", "users")))
+    fabrics = users_dirs(legs[leg][0], leg)
     assert len(fabrics) == FABRICS[leg]
     for users in fabrics:
-        wals = sorted(glob.glob(os.path.join(users, "fabric",
-                                             "events_*.jsonl")))
-        assert wals
-        for path in (os.path.join(users, "serve_journal.jsonl"), *wals):
-            assert jax_validate(path) == [], path
-            assert validate_journal_file(path) == [], path
-            theirs, ours = JaxJournal(path), AdmissionJournal(path)
-            try:
-                assert theirs.state.to_dict() == ours.state.to_dict(), path
-            finally:
-                theirs.close()
-                ours.close()
+        # the journal and at least one host's WAL
+        assert len(replay_in_both(users)) >= 2
 
 
 def test_the_replacement_leased(legs):
