@@ -193,13 +193,6 @@ def render(snaps: dict, *, now: float, stale_s: float = 10.0,
                          f"n={b.get('dispatches')}")
         if s.get("breaker"):
             lines.append(f"    breaker: {s['breaker']}")
-        jit = s.get("jit") or {}
-        if jit:
-            lines.append(f"    jit: families={jit.get('families')} "
-                         f"hits={jit.get('hits')} "
-                         f"builds={jit.get('builds')} "
-                         f"compiles={jit.get('compiles')} "
-                         f"resident={jit.get('resident')}")
         lines.extend(_alert_lines(s))
     return "\n".join(lines)
 

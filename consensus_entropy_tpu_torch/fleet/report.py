@@ -20,8 +20,7 @@ Each session keeps its own per-user files; this adds the cohort's view:
 
 Occupancy counts only ACTIVE slots: a finished, evicted or failed session
 stops counting the moment its generator returned.  The port compiles
-nothing at run time, so the summary has no ``jit`` section
-(``obs.jit_telemetry``).
+nothing at run time, so the summary has no ``jit`` section.
 """
 
 from __future__ import annotations

@@ -45,7 +45,9 @@ degrades a width whose stacked dispatches keep failing to per-user
 dispatch; ``hold`` sizes how long a partly formed stacked dispatch waits
 for host steps in flight; ``on_terminal`` lets the server take a failed
 user back for backoff re-admission; ``tracer`` writes the dispatch and
-host-step spans; ``profile_dir`` captures the first ``profile_n`` device
+host-step spans, a stacked retrain's fits' spans under its dispatch's,
+and a ``host_wait`` span wherever the pump blocks on host steps;
+``profile_dir`` captures the first ``profile_n`` device
 dispatches with ``torch.profiler``.  The fabric's release hooks (JAX
 ``scheduler.py:659-702``): ``request_release`` closes a session at its
 next checkpoint boundary, ``force_release`` at its next step,
@@ -76,7 +78,6 @@ from consensus_entropy_tpu_torch.fleet.session import (
     UserSession,
 )
 from consensus_entropy_tpu_torch.models import committee as committee_mod
-from consensus_entropy_tpu_torch.obs import jit_telemetry
 from consensus_entropy_tpu_torch.obs.metrics import StepTimer
 from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER, DeviceProfile
 from consensus_entropy_tpu_torch.ops import scoring as ops_scoring
@@ -214,7 +215,6 @@ class FleetScheduler:
         cpus = os.cpu_count() or 4
         host_n = self.host_workers or min(capacity, cpus, 8)
         ckpt_n = min(capacity, self.CKPT_WORKERS)
-        jit_telemetry.subscribe(self._on_compile)
         # a mesh engine dispatches through the sharded per-width families
         self._fleet_fns = None if self.mesh is not None else \
             ops_scoring.make_fleet_scoring_fns(
@@ -304,14 +304,23 @@ class FleetScheduler:
             if self.plan_chunk and self._host_wait:
                 batch = self._hold_partial_plans(batch)
                 if not batch:
-                    self._drain_host(self._host_timeout())
+                    self._wait_host()
                     return True
             for state, res in self._dispatch_scores(batch):
                 self._ready.append((state, res, None))
             return True
         if self._host_wait:
-            self._drain_host(self._host_timeout())
+            self._wait_host()
         return True
+
+    def _wait_host(self) -> None:
+        """Block until a host step finishes: this thread has nothing to
+        launch.  Traced, the wait is a ``host_wait`` span."""
+        if not self.tracer.enabled:
+            self._drain_host(self._host_timeout())
+            return
+        with self.tracer.span("host_wait", parent=self.tracer.run_ctx):
+            self._drain_host(self._host_timeout())
 
     def _host_timeout(self):
         """How long a blocking host wait may last: until the next armed
@@ -353,7 +362,6 @@ class FleetScheduler:
         if self._profile is not None:  # fewer than profile_n dispatches
             self.profile_path = self._profile.stop()
             self._profile = None
-        jit_telemetry.unsubscribe(self._on_compile)
         self._opened = False
 
     def _shutdown_host_pool(self) -> None:
@@ -371,11 +379,6 @@ class FleetScheduler:
         hung = any(not f.done() for f in self._abandoned) \
             or any(not f.done() for f in self._host_wait)
         self._host_pool.shutdown(wait=not hung)
-
-    def _on_compile(self, ev: dict) -> None:
-        """A compile event into the metrics stream (none is emitted: the
-        port compiles nothing at run time)."""
-        self.report.event("compile", **ev)
 
     # -- session plumbing --------------------------------------------------
 
@@ -642,11 +645,6 @@ class FleetScheduler:
             v, torch.Tensor) else v.numel() * v.element_size()
             for v in host), len(host))
 
-    def _n_devices(self):
-        """The dispatch scopes' ``n_devices`` key: the mesh size, or
-        ``None`` off a mesh."""
-        return self.mesh.size if self.mesh is not None else None
-
     def _group_fns(self, width: int) -> dict:
         """The stacked scorers of one dispatch group: the shared fleet
         family, the width-guarded one when admitting by bucket, or on a
@@ -719,7 +717,10 @@ class FleetScheduler:
             else:
                 rounds.append(group)
 
-        def grade(fn_key, batch, width, wall, h2d=(None, None), w0=None):
+        def grade(fn_key, batch, width, wall, h2d=(None, None), w0=None,
+                  span=None):
+            if span is not None:
+                self.tracer.end(span)
             self.step_wall_ema = (
                 wall if self.step_wall_ema is None
                 else 0.8 * self.step_wall_ema + 0.2 * wall)
@@ -758,14 +759,17 @@ class FleetScheduler:
             if not stacked:
                 single.append((group, width, fn_key))
                 continue
+            span = self._retrain_span(fn_key, width, len(group))
             w0 = time.time()  # cetpu: noqa[replay-wallclock] span wall-stamp (telemetry; span ids stay deterministic)
             t0 = time.perf_counter()
             try:
                 if isinstance(step0, DeviceStep):
-                    served = self._plan_call(fn_key, width, group)
+                    served = self._plan_call(fn_key, width, group, span)
                 else:
                     batched, h2d = self._stacked_call(fn_key, width, group)
             except Exception as exc:
+                if span is not None:
+                    self.tracer.end(span, failed=True)
                 self._note_stacked_failure(fn_key, width, exc)
                 single.append((group, width, fn_key))
                 continue
@@ -773,7 +777,7 @@ class FleetScheduler:
                 out.extend(served)
                 closed(width)
                 grade(fn_key, len(group), width, time.perf_counter() - t0,
-                      w0=w0)
+                      w0=w0 if span is None else None, span=span)
             else:
                 # the wall is taken at launch: the later groups' stacking
                 # is not this dispatch's
@@ -806,6 +810,18 @@ class FleetScheduler:
                           w0=w0)
         return out
 
+    def _retrain_span(self, fn_key: str, width: int, batch: int):
+        """The open ``retrain`` span of a stacked retrain (``None`` for
+        another dispatch, or untraced), begun before the call so that its
+        fits are its children.  A call that raises ends it ``failed``, so
+        they keep their parent; the per-user fallback then writes a
+        ``retrain`` span a user, as a dispatch of one does."""
+        if fn_key != "cnn_retrain" or not self.tracer.enabled:
+            return None
+        return self.tracer.begin(
+            "retrain", parent=self.tracer.run_ctx, fn=fn_key,
+            width=width if self.scoring_by_width else None, batch=batch)
+
     def _guarded(self, dispatch, what: str):
         """Run one device dispatch: under the watchdog's deadline when one
         is installed (on its thread: the card's default stream orders the
@@ -834,9 +850,7 @@ class FleetScheduler:
             stacked = [self._stack([step.inputs[pos] for _, step in group])
                        for pos in range(len(group[0][1].inputs))]
             d0 = time.perf_counter()
-            with jit_telemetry.dispatch_scope(fn_key, width=width,
-                                              n_devices=self._n_devices()):
-                res = self._group_fns(width)[fn_key](*stacked)
+            res = self._group_fns(width)[fn_key](*stacked)
             # a pending ``slow`` rule stretches the call on this thread,
             # inside the watchdog's deadline
             faults.slow_hold("serve.dispatch", time.perf_counter() - d0)
@@ -872,19 +886,21 @@ class FleetScheduler:
             rows.append((st, cls(*fields)))
         return rows
 
-    def _plan_call(self, fn_key: str, width: int, group: list) -> list:
+    def _plan_call(self, fn_key: str, width: int, group: list,
+                   span=None) -> list:
         """One stacked CNN dispatch for a plan group: the pure compute
         (under the watchdog), then the commit (a retrain's member
         rebinding) on this thread, so an abandoned dispatch that finishes
-        late never rebinds committees that took the per-user path."""
+        late never rebinds committees that took the per-user path.
+        ``span``: the dispatch's open span, its fits' parent."""
         plans = [step.plan for _, step in group]
 
         def dispatch():
             faults.fire("serve.dispatch", fn=fn_key, width=width,
                         batch=len(group))
             d0 = time.perf_counter()
-            with jit_telemetry.dispatch_scope(fn_key, width=width):
-                res = committee_mod.stage_device_plans(plans)
+            res = committee_mod.stage_device_plans(
+                plans, tracer=self.tracer, parent=span)
             faults.slow_hold("serve.dispatch", time.perf_counter() - d0)
             return res
 

@@ -597,8 +597,15 @@ class UserSession:
                                 else None)
                 del member_probs, block
 
+                # the update's and an unstacked retrain's spans go under
+                # the iteration's; untraced, the two-argument update call
+                # that ``benchmark.faults`` may stand in for
+                trace = (dict(tracer=self.tracer, parent=self.trace_ctx,
+                              user=uid) if self.tracer.enabled else {})
+
                 def reveal_update(q_songs=q_songs, before=last_host_f1s,
-                                  probs=weight_probs, live=live):
+                                  probs=weight_probs, live=live,
+                                  trace=trace):
                     # reveal the labels, build the batch
                     # (amg_test.py:491-493)
                     X_batch, y_batch = query_batch(data.pool, data.labels,
@@ -609,20 +616,23 @@ class UserSession:
                         if cfg.gate_host_updates and len(split.X_test):
                             committee.update_host_gated(
                                 X_batch, y_batch, split.X_test,
-                                split.y_test_frames, before_scores=before)
+                                split.y_test_frames, before_scores=before,
+                                **trace)
                         else:
-                            committee.update_host(X_batch, y_batch)
+                            committee.update_host(X_batch, y_batch,
+                                                  **trace)
 
                 y_q = one_hot_np([data.labels[s] for s in q_songs])
                 y_t = one_hot_np(split.y_test_songs)
 
-                def retrain(sub, q_songs=q_songs, y_q=y_q, epoch=epoch):
+                def retrain(sub, q_songs=q_songs, y_q=y_q, epoch=epoch,
+                            trace=trace):
                     # fit_many rebinds the members' variables only on
                     # return, so a retry replays the identical fit
                     return retry_transient(
                         lambda: committee.retrain_cnns(
                             data.store, q_songs, y_q, split.test_songs, y_t,
-                            sub, n_epochs=self.retrain_epochs),
+                            sub, n_epochs=self.retrain_epochs, **trace),
                         attempts=cfg.retry_attempts,
                         base_delay=cfg.retry_base_delay,
                         seed=seed + 7919 * (epoch + 1),
@@ -639,7 +649,7 @@ class UserSession:
                         self.key, sub = _split(self.key)
                         rplan = committee.retrain_plan(
                             data.store, q_songs, y_q, split.test_songs, y_t,
-                            sub, n_epochs=self.retrain_epochs)
+                            sub, n_epochs=self.retrain_epochs, user=uid)
                         with timer.phase("retrain_cnn"):
                             if rplan is None:
                                 retrain(sub)

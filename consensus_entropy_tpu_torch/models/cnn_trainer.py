@@ -30,6 +30,12 @@ members are spread over its member axis, each trained on its device.
 ``fit_many_users`` (``:880-995``) does the same for a cohort of users, one
 user after another (the JAX user lockstep is the same math), each under
 its own key.
+
+With an enabled ``tracer`` (``obs.trace.Tracer``; the null one by
+default) each member's fit writes a ``retrain.fit`` span under ``parent``
+(``user``, ``member``, with the thread's CPU time), and under it a
+``retrain.read`` span around the history's one host read, which waits for
+the member's device work.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.config import CNNConfig, TrainConfig
 from consensus_entropy_tpu_torch.data.audio import crop_starts
 from consensus_entropy_tpu_torch.models import short_cnn
+from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER
 
 PHASES = ("adam", "sgd_1", "sgd_2", "sgd_3")  # amg_test.py:203-231
 
@@ -206,16 +213,23 @@ class CNNTrainer:
 
     def fit(self, variables: dict, store, train_ids, train_y, test_ids,
             test_y, key, *, n_epochs: int | None = None,
-            adam_patience: int | None = None):
+            adam_patience: int | None = None, tracer=NULL_TRACER,
+            parent=None, user=None, member: int = 0):
         """Train one member with the adam -> sgd best-reload schedule;
         returns ``(best_variables, history)``.  ``train_y``/``test_y``:
         one-hot rows aligned with the id lists.  ``variables`` is copied,
         never changed.  ``adam_patience`` overrides the config's (pre-
-        training passes 40); ``None`` or 0 keep it, as in JAX."""
+        training passes 40); ``None`` or 0 keep it, as in JAX.
+        ``tracer``, ``parent``, ``user``, ``member``: the fit's spans
+        (module docstring)."""
         cfg = self.train_config
         n_epochs = cfg.n_epochs if n_epochs is None else n_epochs
         adam_patience = adam_patience or cfg.adam_patience
         batch_size = max(1, min(cfg.batch_size, len(train_ids)))
+        traced = tracer.enabled
+        if traced:
+            fit_sp = tracer.begin("retrain.fit", parent=parent,
+                                  thread_cpu=True, user=user, member=member)
         dev = store.device
         train_rows = torch.as_tensor(store.row_of(train_ids), device=dev)
         test_rows = torch.as_tensor(store.row_of(test_ids), device=dev)
@@ -249,10 +263,16 @@ class CNNTrainer:
 
         run_schedule(n_epochs, adam_patience, cfg.sgd_patience,
                      run_epoch, reload_best)
+        if traced:
+            read_sp = tracer.begin("retrain.read", parent=fit_sp,
+                                   thread_cpu=True)
         # one host transfer for the whole history
         vals = torch.stack([torch.stack([tl, vl, f1, imp.to(tl.dtype)])
                             for _, _, (tl, vl, f1, imp) in records]).cpu() \
             if records else torch.empty(0, 4)
+        if traced:
+            tracer.end(read_sp)
+            tracer.end(fit_sp)
         history = [{"epoch": e, "phase": p, "train_loss": float(v[0]),
                     "val_loss": float(v[1]), "val_f1": float(v[2]),
                     "improved": bool(v[3])}
@@ -261,9 +281,10 @@ class CNNTrainer:
 
     def fit_many(self, variables_list: list, store, train_ids, train_y,
                  test_ids, test_y, key, *, n_epochs: int | None = None,
-                 mesh=None):
+                 mesh=None, tracer=NULL_TRACER, parent=None, user=None):
         """Train every member, member ``i`` under ``fold_in(key, i)``;
-        returns ``(best_variables_list, histories)``.
+        returns ``(best_variables_list, histories)``.  ``tracer``,
+        ``parent``, ``user``: each member's :meth:`fit` spans.
 
         ``mesh``: a ``(dp, member)`` training mesh.  The member axis spans
         every process's member devices (``L`` a process, ``R`` processes):
@@ -297,7 +318,9 @@ class CNNTrainer:
             if owner == me:
                 b, h = self.fit(variables, _store_on(store, dev), train_ids,
                                 train_y, test_ids, test_y,
-                                prng.fold_in(key, i), n_epochs=n_epochs)
+                                prng.fold_in(key, i), n_epochs=n_epochs,
+                                tracer=tracer, parent=parent, user=user,
+                                member=i)
             if mesh is not None:
                 # in the member's own key order, alike on every rank
                 home = next(iter(variables.values())).device
@@ -309,7 +332,8 @@ class CNNTrainer:
         return best, histories
 
     def fit_many_users(self, users: list[dict], *,
-                       n_epochs: int | None = None) -> list[tuple]:
+                       n_epochs: int | None = None, tracer=NULL_TRACER,
+                       parent=None) -> list[tuple]:
         """Train U users' committees: the fleet's ``cnn_retrain`` stacked
         dispatch (``committee.CNNRetrainPlan``).  ``users``: one dict per
         user with ``variables_list``, ``store``, ``train_ids`` /
@@ -318,7 +342,9 @@ class CNNTrainer:
         i)``, the stream of that user's own :meth:`fit_many`.  The cohort
         must agree in member count, split sizes and store geometry (the
         plans' group key); a ragged one raises.  Returns ``[(best_variables
-        _list, histories), ...]``, one :meth:`fit_many` result per user."""
+        _list, histories), ...]``, one :meth:`fit_many` result per user.
+        ``tracer``, ``parent``: every fit's spans, each naming the dict's
+        ``user`` where it has one."""
         u0 = users[0]
         shape = (len(u0["variables_list"]), len(u0["train_ids"]),
                  len(u0["test_ids"]), tuple(u0["store"].data.shape))
@@ -332,5 +358,7 @@ class CNNTrainer:
                     "group plans by their group_key)")
         return [self.fit_many(u["variables_list"], u["store"],
                               u["train_ids"], u["train_y"], u["test_ids"],
-                              u["test_y"], u["key"], n_epochs=n_epochs)
+                              u["test_y"], u["key"], n_epochs=n_epochs,
+                              tracer=tracer, parent=parent,
+                              user=u.get("user"))
                 for u in users]

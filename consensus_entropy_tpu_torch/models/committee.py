@@ -18,6 +18,11 @@ the cross-user device plans the fleet scheduler stacks (``:1168-1240,
 ``train_mesh`` the retrain spreads the members over its member axis;
 ``predict_song_sequence`` scores one long song over a ``seq`` mesh
 (``:1121-1166``).
+
+The retrain and the host updates take an explicit ``tracer`` (the null
+one by default) and the ``parent`` span their work runs under: the
+trainer's ``retrain.fit`` spans, and one ``member.update`` span a host
+member's update (``kind``, ``user``, the thread's CPU time).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from consensus_entropy_tpu_torch.models.base import (
 )
 from consensus_entropy_tpu_torch.models.cnn_trainer import CNNTrainer
 from consensus_entropy_tpu_torch.models.members import GNBMember, SGDMember
+from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER
 from consensus_entropy_tpu_torch.ops.device_members import (
     MemberStacks,
     make_device_committee_scorer,
@@ -814,7 +820,8 @@ class Committee:
         return _keep_columns(out, len(rows) if pad_to is None else pad_to)
 
     def retrain_cnns(self, store, train_ids, train_y, test_ids, test_y, key,
-                     *, n_epochs: int | None = None) -> list:
+                     *, n_epochs: int | None = None, tracer=NULL_TRACER,
+                     parent=None, user=None) -> list:
         """Retrain every active CNN member on the queried songs
         (``amg_test.py:496-502``), member ``i`` under ``fold_in(key, i)``;
         a member with no improved epoch keeps its variables (and stays
@@ -826,7 +833,7 @@ class Committee:
             test_ids, test_y, key,
             n_epochs=(self.trainer.train_config.n_epochs_retrain
                       if n_epochs is None else n_epochs),
-            mesh=self.train_mesh)
+            mesh=self.train_mesh, tracer=tracer, parent=parent, user=user)
         for m, b, h in zip(active, best, histories):
             if any(e["improved"] for e in h):
                 m.variables = b
@@ -869,11 +876,12 @@ class Committee:
                              pad_to)
 
     def retrain_plan(self, store, train_ids, train_y, test_ids, test_y, key,
-                     *, n_epochs: int | None = None
+                     *, n_epochs: int | None = None, user=None
                      ) -> "CNNRetrainPlan | None":
         """Stage :meth:`retrain_cnns` as a batchable plan (the cohort
         trains through ``CNNTrainer.fit_many_users``); ``None`` (a host
-        store, no active member, an empty split) keeps the per-user path."""
+        store, no active member, an empty split) keeps the per-user path.
+        ``user`` names the plan's fits in their spans."""
         if (not self.active_cnn_members or store is None
                 or self.mesh is not None or self.train_mesh is not None
                 or not hasattr(store, "data")
@@ -883,23 +891,35 @@ class Committee:
             self, tuple(self.active_cnn_members), store, tuple(train_ids),
             np.asarray(train_y), tuple(test_ids), np.asarray(test_y), key,
             (self.trainer.train_config.n_epochs_retrain
-             if n_epochs is None else int(n_epochs)))
+             if n_epochs is None else int(n_epochs)), user)
 
     # -- updates -----------------------------------------------------------
 
-    def update_host(self, X_batch: np.ndarray, y_batch: np.ndarray):
+    @staticmethod
+    def _update(m: Member, X_batch, y_batch, tracer, parent, user) -> None:
+        """``m.update`` under its ``member.update`` span."""
+        if not tracer.enabled:
+            m.update(X_batch, y_batch)
+            return
+        with tracer.span("member.update", parent=parent, thread_cpu=True,
+                         kind=m.kind, user=user):
+            m.update(X_batch, y_batch)
+
+    def update_host(self, X_batch: np.ndarray, y_batch: np.ndarray, *,
+                    tracer=NULL_TRACER, parent=None, user=None):
         """Incremental update of every active member (``amg_test.py:
         503-509``); a member whose update raises is quarantined."""
         for m in self.active_host_members:
             try:
                 faults.fire("member.retrain", member=m.name)
-                m.update(X_batch, y_batch)
+                self._update(m, X_batch, y_batch, tracer, parent, user)
             except Exception as e:
                 self.quarantine(m.name, f"retrain failed: {e!r}")
 
     def update_host_gated(self, X_batch: np.ndarray, y_batch: np.ndarray,
                           X_val: np.ndarray, y_val,
-                          before_scores=None) -> dict:
+                          before_scores=None, *, tracer=NULL_TRACER,
+                          parent=None, user=None) -> dict:
         """Keep each member's update only if its weighted F1 on ``(X_val,
         y_val)`` does not drop, else restore its pre-update state.
         ``before_scores``: the members' F1s on the same split before the
@@ -919,7 +939,7 @@ class Committee:
                              if before_scores is not None
                              else weighted_f1(y_val, m.predict(X_val)))
                 faults.fire("member.retrain", member=m.name)
-                m.update(X_batch, y_batch)
+                self._update(m, X_batch, y_batch, tracer, parent, user)
                 worse = weighted_f1(y_val, m.predict(X_val)) < f1_before
             except Exception as e:
                 self.host_members[i] = before
@@ -1137,6 +1157,8 @@ class CNNRetrainPlan:
     test_y: np.ndarray
     key: object
     n_epochs: int
+    #: the user the plan trains for, named in its fits' spans
+    user: object = None
 
     fn_key = "cnn_retrain"
 
@@ -1147,18 +1169,19 @@ class CNNRetrainPlan:
                 tuple(self.store.data.shape), str(self.store.device))
 
     @staticmethod
-    def run_many(plans: list) -> list:
+    def run_many(plans: list, tracer=NULL_TRACER, parent=None) -> list:
         """Pure: fit the cohort, rebind nothing.  The fault point fires
-        once per user, as ``retrain_cnns`` fires it on the single path."""
+        once per user, as ``retrain_cnns`` fires it on the single path.
+        Every fit's spans go under ``parent``."""
         for _ in plans:
             faults.fire("member.retrain", member="__cnn_stack__")
         return plans[0].committee.trainer.fit_many_users(
             [dict(variables_list=[m.variables for m in p.members],
                   store=p.store, train_ids=list(p.train_ids),
                   train_y=p.train_y, test_ids=list(p.test_ids),
-                  test_y=p.test_y, key=p.key)
+                  test_y=p.test_y, key=p.key, user=p.user)
              for p in plans],
-            n_epochs=plans[0].n_epochs)
+            n_epochs=plans[0].n_epochs, tracer=tracer, parent=parent)
 
     @staticmethod
     def apply_many(plans: list, fitted) -> list:
@@ -1182,10 +1205,14 @@ def _check_plan_group(plans: list) -> type:
     return kind
 
 
-def stage_device_plans(plans: list):
+def stage_device_plans(plans: list, *, tracer=NULL_TRACER, parent=None):
     """The pure half of a stacked plan dispatch: compute the group's
-    result, changing nothing."""
-    return _check_plan_group(plans).run_many(plans)
+    result, changing nothing; a retrain writes its fits' spans under
+    ``parent``."""
+    kind = _check_plan_group(plans)
+    if kind is CNNRetrainPlan:
+        return kind.run_many(plans, tracer, parent)
+    return kind.run_many(plans)
 
 
 def commit_device_plans(plans: list, computed) -> list:

@@ -57,10 +57,9 @@ EVENT_FIELDS = {
     # SLO planner decisions (serve.planner)
     "planner_edges": {"edges": "list"},
     "admission_hold": {"window_s": "float"},
-    # jit-compile telemetry (obs.jit_telemetry): one event per jit-family
-    # build / per observed XLA compile — the feed the planner's
-    # cost-aware-edges follow-on needs to trade padding waste against
-    # jit-cache pressure (width/n_devices/compile_s/resident ride along)
+    # the JAX package's jit-compile events: the port compiles nothing at
+    # run time and emits none; the entry keeps the two schemas equal, so
+    # either package's validator reads the other's streams
     "compile": {"fn": "str", "build_s": "float"},
     # SLO burn-rate alerts (obs.alerts): edge-triggered operator signals
     "alert": {"kind": "str"},

@@ -4,10 +4,18 @@ device profiler's capture.
 Counterpart of ``consensus_entropy_tpu/obs/trace.py`` (``:46-359``).  The
 span hierarchy mirrors the serving stack::
 
-    run ── user ── al_iter ── {host_step, checkpoint}
+    run ── user ── al_iter ── {host_step, checkpoint, member.update}
      │      └──── admission_wait            (serve: enqueue -> admit)
      ├──── {score_dispatch, retrain}        (stacked: one span, N users)
+     │                └──── retrain.fit ── retrain.read
+     ├──── host_wait                        (the pump blocked on host steps)
      └──── ctl.*                            (control decisions)
+
+``retrain.fit`` is one member fit of one user, under its stacked
+``retrain`` dispatch; a user's own retrain (a dispatch of one, inline or
+sequential) parents its fits under the iteration, as a host update does
+its ``member.update`` spans (they run inside the iteration's
+``host_step``).
 
 Trace ids derive from ``(run_id, user)`` and the user and iteration span
 ids from ``(run_id, user, iteration)``, the same SHA-1 digests as the JAX
@@ -23,6 +31,12 @@ scheduler runs one session's host steps on worker threads while its
 generator is suspended.  The sink is :class:`~obs.metrics.EventWriter`
 (thread-safe, flushed per record, torn tails skipped by the readers).
 ``enabled=False`` (``--no-trace``) makes every call a no-op.
+
+``thread_cpu=True`` on :meth:`Tracer.begin` / :meth:`Tracer.span` adds
+``cpu_s``: the opening thread's CPU time (``time.thread_time``) from start
+to end, written only when the same thread ends the span.  Beside the wall
+clock's ``dur_s`` it tells a thread that ran from one that waited (for
+the interpreter lock, the OS or the device).
 
 :func:`device_trace` and :class:`DeviceProfile` take the place of
 ``jax.profiler``: a ``torch.profiler`` capture with CUDA activity (CPU
@@ -70,13 +84,16 @@ class SpanContext:
 class _OpenSpan:
     """Handle of :meth:`Tracer.begin`; usable as ``parent=`` itself."""
 
-    __slots__ = ("ctx", "name", "t0", "attrs")
+    __slots__ = ("ctx", "name", "t0", "attrs", "cpu0", "thread")
 
     def __init__(self, ctx: SpanContext, name: str, t0: float, attrs: dict):
         self.ctx = ctx
         self.name = name
         self.t0 = t0
         self.attrs = attrs
+        #: the opening thread's ``time.thread_time()`` and id, with
+        #: ``thread_cpu``
+        self.cpu0 = self.thread = None
 
 
 def _ctx_of(parent) -> SpanContext | None:
@@ -156,9 +173,10 @@ class Tracer:
     # -- spans -------------------------------------------------------------
 
     def begin(self, name: str, *, parent=None, key=None,
-              **attrs) -> _OpenSpan | None:
+              thread_cpu: bool = False, **attrs) -> _OpenSpan | None:
         """Open a span without a context manager (a generator suspends
-        across it); one never ended is never written."""
+        across it); one never ended is never written.  ``thread_cpu``:
+        record its ``cpu_s`` (module docstring)."""
         if not self.enabled:
             return None
         c0 = time.perf_counter()
@@ -166,6 +184,10 @@ class Tracer:
         ctx = self._child_ctx(name, parent, key)
         sp = _OpenSpan(ctx, name, time.time(), attrs)
         sp.attrs["_parent"] = parent
+        if thread_cpu:
+            # read after the wall clock's start, so it lies inside it
+            sp.thread = threading.get_ident()
+            sp.cpu0 = time.thread_time()
         self.cost_s += time.perf_counter() - c0
         return sp
 
@@ -173,21 +195,28 @@ class Tracer:
         if span is None or not self.enabled:
             return
         c0 = time.perf_counter()
+        cpu_s = (time.thread_time() - span.cpu0
+                 if span.cpu0 is not None
+                 and span.thread == threading.get_ident() else None)
         a = dict(span.attrs)
         parent = a.pop("_parent", None)
         a.update(attrs)
+        if cpu_s is not None:
+            a["cpu_s"] = round(cpu_s, 6)
         self._emit(self._span_rec(span.ctx, parent, span.name, span.t0,
                                   time.time(), a))
         self.cost_s += time.perf_counter() - c0
 
     @contextlib.contextmanager
-    def span(self, name: str, *, parent=None, key=None, **attrs):
+    def span(self, name: str, *, parent=None, key=None,
+             thread_cpu: bool = False, **attrs):
         """A span around the block; yields its :class:`SpanContext`.
         Written on exit, exceptions included."""
         if not self.enabled:
             yield None
             return
-        sp = self.begin(name, parent=parent, key=key, **attrs)
+        sp = self.begin(name, parent=parent, key=key, thread_cpu=thread_cpu,
+                        **attrs)
         try:
             yield sp.ctx
         finally:

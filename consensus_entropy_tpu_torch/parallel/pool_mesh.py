@@ -31,7 +31,6 @@ import re
 
 import torch
 
-from consensus_entropy_tpu_torch.obs import jit_telemetry
 from consensus_entropy_tpu_torch.ops import scoring
 from consensus_entropy_tpu_torch.parallel import multihost, sharding
 from consensus_entropy_tpu_torch.parallel.mesh import (
@@ -174,18 +173,13 @@ def make_sharded_step_fns(mesh: Mesh, *, k: int,
     ``ops.scoring.make_scoring_fns`` and the six ``*_fused`` steps, whose
     sharded mask operands are updated in place.  Cached per ``(mesh, k,
     tie_break)``."""
-    jit_telemetry.note_lookup(f"scoring:k{k}:{tie_break}",
-                              n_devices=mesh.size)
     return _sharded_step_fns_cached(mesh, k, tie_break)
 
 
 @functools.lru_cache(maxsize=None)
 def _sharded_step_fns_cached(mesh: Mesh, k: int, tie_break: str) -> dict:
     base = scoring.make_scoring_fns(k=k, tie_break=tie_break)
-    fns = {key: _sharded_fn(mesh, key, base, k, tie_break) for key in base}
-    jit_telemetry.note_build(f"scoring:k{k}:{tie_break}",
-                             n_devices=mesh.size)
-    return fns
+    return {key: _sharded_fn(mesh, key, base, k, tie_break) for key in base}
 
 
 def sharded_fleet_fns_for_width(mesh: Mesh, *, k: int,
@@ -203,8 +197,6 @@ def sharded_fleet_fns_for_width(mesh: Mesh, *, k: int,
             f"bucket width {width} does not divide across the "
             f"{mesh.size}-device pool mesh — admission must pad buckets "
             f"to a multiple of the mesh size")
-    jit_telemetry.note_lookup(f"fleet:k{k}:{tie_break}", width=width,
-                              n_devices=mesh.size)
     return _sharded_fleet_fns_cached(mesh, k, tie_break, width)
 
 
@@ -212,8 +204,6 @@ def sharded_fleet_fns_for_width(mesh: Mesh, *, k: int,
 def _sharded_fleet_fns_cached(mesh: Mesh, k: int, tie_break: str,
                               width: int) -> dict:
     base = scoring.make_fleet_scoring_fns(k=k, tie_break=tie_break)
-    jit_telemetry.note_build(f"fleet:k{k}:{tie_break}", width=width,
-                             n_devices=mesh.size)
 
     def guarded(fn_key, fn):
         pos = scoring._POOL_MASK_POS[fn_key]

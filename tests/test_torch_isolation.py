@@ -59,7 +59,7 @@ print(len(names))
 SLICE_MODULES = ("ops.harmonic", "models.short_cnn", "data.audio",
                  "models.committee", "convert", "prng", "cli.amg_test",
                  "fleet.scheduler", "fleet.report", "fleet.session",
-                 "obs.trace", "obs.jit_telemetry", "obs.metrics",
+                 "obs.trace", "obs.metrics",
                  "ops.scoring", "models.cnn_trainer", "data.deam",
                  "train.pretrain", "cli.deam_classifier", "al.evidence",
                  "cli.evidence", "parallel.mesh", "parallel.sharding",
