@@ -2246,9 +2246,10 @@ def phase_cnn(card):
     y_tr, y_te = one_hot_np(labels[tr]), one_hot_np(labels[te])
     fkey = prng.key(SEED + 15, "cpu")
     trainers = {d: CNNTrainer(cfg, tc) for d in ("cuda", "cpu")}
-    # one warm-up epoch: the timed fit should not carry cuDNN's first calls
+    # one warm-up fit of the timed fits' shapes: the timed fit should carry
+    # neither cuDNN's first calls nor its epoch graph's capture
     trainers["cuda"].fit(members[0].variables, stores["cuda"], tr, y_tr, te,
-                         y_te, fkey, n_epochs=1)
+                         y_te, fkey, n_epochs=FIT_EPOCHS)
     for t in trainers.values():
         t.draws = []
     torch.cuda.synchronize()
@@ -2744,7 +2745,7 @@ def trunk_at_full_width(card, arch, stores, ids, labels, seed):
     fkey = prng.key(seed + 2, "cpu")
     trainers = {d: CNNTrainer(cfg, tc) for d in ("cuda", "cpu")}
     trainers["cuda"].fit(members[0].variables, stores["cuda"], tr, y_tr, te,
-                         y_te, fkey, n_epochs=1)  # cuDNN's first calls
+                         y_te, fkey, n_epochs=TRUNK_FIT_EPOCHS)  # warm-up
     for t in trainers.values():
         t.draws = []
     torch.cuda.synchronize()
@@ -3543,10 +3544,15 @@ def pretrain_records(pre):
 @contextlib.contextmanager
 def timed_epochs(sink):
     """Each CNN training epoch's (host-clock start, s synchronized at its
-    ends, train rows) into ``sink`` while the block runs."""
+    ends, train rows) into ``sink`` while the block runs.  An epoch that a
+    CUDA graph capture records runs nothing and is not timed (a
+    synchronize would break the capture); replays of it do not call
+    ``_epoch``."""
     real = CNNTrainer._epoch
 
     def timed_epoch(self, *a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return real(self, *a, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = real(self, *a, **kw)

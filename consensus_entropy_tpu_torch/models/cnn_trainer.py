@@ -31,11 +31,17 @@ members are spread over its member axis, each trained on its device.
 user after another (the JAX user lockstep is the same math), each under
 its own key.
 
+A fit runs its epochs on the static slot of its shape signature
+(``models/epoch_graph.py``); on a CUDA store they replay a CUDA graph of
+``_epoch`` captured once per signature and phase: one launch an epoch in
+place of some 2,400.
+
 With an enabled ``tracer`` (``obs.trace.Tracer``; the null one by
 default) each member's fit writes a ``retrain.fit`` span under ``parent``
-(``user``, ``member``, with the thread's CPU time), and under it a
-``retrain.read`` span around the history's one host read, which waits for
-the member's device work.
+(``user``, ``member``, with the thread's CPU time; ``graphed``: an epoch
+replayed a captured graph, ``captured``: the fit made a capture), and
+under it a ``retrain.read`` span around the history's one host read,
+which waits for the member's device work.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from consensus_entropy_tpu_torch import prng
 from consensus_entropy_tpu_torch.config import CNNConfig, TrainConfig
 from consensus_entropy_tpu_torch.data.audio import crop_starts
 from consensus_entropy_tpu_torch.models import short_cnn
+from consensus_entropy_tpu_torch.models.epoch_graph import EPOCH_GRAPHS
 from consensus_entropy_tpu_torch.obs.trace import NULL_TRACER
 
 PHASES = ("adam", "sgd_1", "sgd_2", "sgd_3")  # amg_test.py:203-231
@@ -84,12 +91,16 @@ def weighted_f1_in_graph(preds, targets_onehot):
     return (true_n * f1).sum() / torch.clamp(true_n.sum(), min=1.0)
 
 
-def make_optimizer(phase: str, params: list, cfg: TrainConfig):
+def make_optimizer(phase: str, params: list, cfg: TrainConfig, *,
+                   capturable: bool = False):
     """The phase's optimizer over ``params``, torch-coupled weight decay
-    (optax ``add_decayed_weights`` before ``adam`` / ``sgd``)."""
+    (optax ``add_decayed_weights`` before ``adam`` / ``sgd``).
+    ``capturable``: Adam keeps its step count on the device, as a CUDA
+    graph of the step needs (``models/epoch_graph.py``)."""
     if phase == "adam":
         return torch.optim.Adam(params, lr=cfg.lr,
-                                weight_decay=cfg.weight_decay)
+                                weight_decay=cfg.weight_decay,
+                                capturable=capturable)
     return torch.optim.SGD(params, lr=cfg.sgd_lrs[PHASES.index(phase) - 1],
                            momentum=cfg.sgd_momentum, nesterov=True,
                            weight_decay=cfg.sgd_weight_decay)
@@ -153,13 +164,17 @@ class CNNTrainer:
         #: ``{"perm", "starts", "test_starts", "dropout_keys"}``, CPU
         #: tensors
         self.draws: list | None = None
+        #: the slots this trainer's fits run on, and on the card their
+        #: captured member-epochs (the process's, shared by every trainer)
+        self.graphs = EPOCH_GRAPHS
 
     def _epoch(self, st, store, train_rows, train_y, test_rows, test_y,
                key, phase, batch_size):
         """One epoch of one member (``cnn_trainer.py:188-262``); ``st``
         holds its variables, optimizer and best copies, updated in
-        place.  Returns ``(train_loss, val_loss, val_f1, improved)`` as
-        0-dim tensors on the device."""
+        place, and its draws in ``st["draws"]``.  Returns ``(train_loss,
+        val_loss, val_f1, improved)`` as 0-dim tensors on the device.  It
+        makes no host sync, so ``models/epoch_graph.py`` captures it."""
         cfg = self.config
         n_train, n_test = len(train_rows), len(test_rows)
         n_batches = -(-n_train // batch_size)
@@ -205,10 +220,8 @@ class CNNTrainer:
             st["best"] = {k: torch.where(improved, t.detach(), st["best"][k])
                           for k, t in {**params, **stats}.items()}
             st["best_score"] = torch.where(improved, score, st["best_score"])
-        if self.draws is not None:
-            self.draws.append({"perm": perm.cpu(), "starts": starts.cpu(),
-                               "test_starts": tstarts.cpu(),
-                               "dropout_keys": dkeys.cpu()})
+        st["draws"] = {"perm": perm, "starts": starts, "test_starts": tstarts,
+                       "dropout_keys": dkeys}
         return torch.stack(losses).mean(), val_loss, val_f1, improved
 
     def fit(self, variables: dict, store, train_ids, train_y, test_ids,
@@ -231,53 +244,39 @@ class CNNTrainer:
             fit_sp = tracer.begin("retrain.fit", parent=parent,
                                   thread_cpu=True, user=user, member=member)
         dev = store.device
-        train_rows = torch.as_tensor(store.row_of(train_ids), device=dev)
-        test_rows = torch.as_tensor(store.row_of(test_ids), device=dev)
-        train_y = torch.as_tensor(train_y, dtype=torch.float32, device=dev)
-        test_y = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
-        params = {k: t.detach().clone().to(dev).requires_grad_(True)
-                  for k, t in variables.items()
-                  if not short_cnn.is_stat(k)}
-        stats = {k: t.detach().clone().to(dev) for k, t in variables.items()
-                 if short_cnn.is_stat(k)}
-        st = {"params": params, "stats": stats,
-              "opt": make_optimizer(PHASES[0], list(params.values()), cfg),
-              "best": {k: t.detach().clone() for k, t in
-                       {**params, **stats}.items()},
-              # the reference's best metric starts at 0 (amg_test.py:295)
-              "best_score": torch.zeros((), device=dev), "key": key}
-        records = []
+        split = (torch.as_tensor(store.row_of(train_ids), device=dev),
+                 torch.as_tensor(train_y, dtype=torch.float32, device=dev),
+                 torch.as_tensor(store.row_of(test_ids), device=dev),
+                 torch.as_tensor(test_y, dtype=torch.float32, device=dev))
+        epochs = []
 
         def run_epoch(epoch, phase):
-            st["key"], sub = prng.split(st["key"])
-            records.append((epoch, phase, self._epoch(
-                st, store, train_rows, train_y, test_rows, test_y, sub,
-                phase, batch_size)))
+            epochs.append((epoch, phase))
+            slot.epoch(phase)
 
-        def reload_best(phase):
-            with torch.no_grad():
-                for k, t in params.items():
-                    t.copy_(st["best"][k])
-            st["stats"] = {k: st["best"][k].clone() for k in stats}
-            st["opt"] = make_optimizer(phase, list(params.values()), cfg)
-
-        run_schedule(n_epochs, adam_patience, cfg.sgd_patience,
-                     run_epoch, reload_best)
-        if traced:
-            read_sp = tracer.begin("retrain.read", parent=fit_sp,
-                                   thread_cpu=True)
-        # one host transfer for the whole history
-        vals = torch.stack([torch.stack([tl, vl, f1, imp.to(tl.dtype)])
-                            for _, _, (tl, vl, f1, imp) in records]).cpu() \
-            if records else torch.empty(0, 4)
-        if traced:
-            tracer.end(read_sp)
-            tracer.end(fit_sp)
+        with self.graphs.fit(self, store, variables, *split, key, batch_size,
+                             n_epochs, PHASES[0]) as slot:
+            run_schedule(n_epochs, adam_patience, cfg.sgd_patience,
+                         run_epoch, slot.reload_best)
+            # cloned out of the slot before the read, which waits for the
+            # clone too: the next fit overwrites the slot
+            best = slot.best_copy()
+            if traced:
+                read_sp = tracer.begin("retrain.read", parent=fit_sp,
+                                       thread_cpu=True)
+            # one host transfer for the whole history
+            vals = slot.history().cpu()
+            if traced:
+                tracer.end(read_sp)
+                tracer.end(fit_sp, graphed=slot.graphed,
+                           captured=slot.captured)
+            if self.draws is not None:
+                self.draws.extend(slot.recorded_draws())
         history = [{"epoch": e, "phase": p, "train_loss": float(v[0]),
                     "val_loss": float(v[1]), "val_f1": float(v[2]),
                     "improved": bool(v[3])}
-                   for (e, p, _), v in zip(records, vals)]
-        return st["best"], history
+                   for (e, p), v in zip(epochs, vals)]
+        return best, history
 
     def fit_many(self, variables_list: list, store, train_ids, train_y,
                  test_ids, test_y, key, *, n_epochs: int | None = None,

@@ -308,10 +308,14 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
 def bernoulli(key: torch.Tensor, p=0.5, shape=None,
               device=None) -> torch.Tensor:
     """``jax.random.bernoulli`` (mode ``'low'``): ``uniform < p``, boolean,
-    of ``shape`` (default: ``p``'s shape)."""
+    of ``shape`` (default: ``p``'s shape).  A scalar ``p`` off the draw's
+    device is made there as the same float32 value, not copied: a CUDA
+    graph cannot hold a copy from pageable host memory."""
     p = torch.as_tensor(p, dtype=torch.float32)
     shape = tuple(p.shape) if shape is None else _shape(shape)
     u = uniform(key, shape, device=device)
+    if p.device != u.device and p.dim() == 0:
+        return u < torch.full((), p.item(), device=u.device)
     return u < p.to(u.device)
 
 
